@@ -1,0 +1,138 @@
+// K1 + K2: OpenCV-convention CLAHE on [B, H, W] float32 slices in [0, 1].
+//
+// K1 (mies_tile_hists) replaces mies_tpu/kernels/clahe.py:_hist_rows_kernel
+// (and answers _hist_kernel): per-tile 256-bin counts with the uint8 level
+// quantize done in the kernel. The TPU built its histograms from nibble
+// onehot matmuls because it has no scatter; Hopper has shared-memory
+// atomics, so one block owns one tile and counts into a 256-bin shared
+// histogram. Bound: one read of the image (4 B/pixel) plus shared-memory
+// atomic throughput on hot bins. Design: no int32 levels go to device
+// memory, and the OpenCV bottom/right reflect-101 pad of a ragged image is
+// resolved at load time, so any tile shape runs without a padded copy.
+//
+// K2 (mies_apply_lut) replaces mies_tpu/kernels/clahe.py:_apply33_kernel
+// (and answers _apply_kernel_slab, _apply_kernel and the clahe_variants
+// kernels): the OpenCV bilinear blend of the four neighbouring tiles' LUTs
+// at each pixel's level, then the u8norm epilogue clip(rint(v),0,255)/255.
+// The TPU selected LUT entries by onehot matmul because it has no gather;
+// here one block owns one tile, stages the 3x3 neighbour LUTs (9 x 256 f32)
+// in shared memory and gathers from them. Bound: 4 B read + 4 B written per
+// pixel; the shared-memory gathers are bank-conflicted by level but cheap
+// next to that. Every multiply/add of the blend is an explicit _rn
+// intrinsic: nvcc contracts a*b+c to FMA by default, which would break the
+// bit-exactness against the plain version (and against cv2).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBins = 256;
+constexpr int kThreads = 256;
+
+// clip(rint(v * 255), 0, 255): the level quantize of ops.histogram._levels.
+// rintf rounds half to even, like torch.round and jnp.round.
+__device__ __forceinline__ int level_of(float v) {
+  const float q = rintf(__fmul_rn(v, 255.0f));
+  return static_cast<int>(fminf(fmaxf(q, 0.0f), 255.0f));
+}
+
+// Source index of a position in OpenCV's bottom/right BORDER_REFLECT_101
+// pad (the wrapper guarantees the pad is shorter than the image).
+__device__ __forceinline__ int reflect101(int i, int n) {
+  return i < n ? i : 2 * n - 2 - i;
+}
+
+__global__ void __launch_bounds__(kThreads)
+tile_hists_kernel(const float* __restrict__ x, int* __restrict__ hist,
+                  int H, int W, int gy, int gx, int th, int tw) {
+  __shared__ int counts[kBins];
+  const int j = blockIdx.x, i = blockIdx.y, b = blockIdx.z;
+  for (int k = threadIdx.x; k < kBins; k += blockDim.x) counts[k] = 0;
+  __syncthreads();
+
+  const float* img = x + static_cast<size_t>(b) * H * W;
+  const int npx = th * tw;
+  for (int p = threadIdx.x; p < npx; p += blockDim.x) {
+    const int y = reflect101(i * th + p / tw, H);
+    const int c = reflect101(j * tw + p % tw, W);
+    atomicAdd(&counts[level_of(img[static_cast<size_t>(y) * W + c])], 1);
+  }
+  __syncthreads();
+
+  int* out = hist + ((static_cast<size_t>(b) * gy + i) * gx + j) * kBins;
+  for (int k = threadIdx.x; k < kBins; k += blockDim.x) out[k] = counts[k];
+}
+
+__global__ void __launch_bounds__(kThreads)
+apply_lut_kernel(const float* __restrict__ x, const float* __restrict__ luts,
+                 float* __restrict__ out, int H, int W, int gy, int gx,
+                 int th, int tw, float inv_th, float inv_tw) {
+  // stack[(s * 3 + c) * 256 + bin]: LUT of tile (i - 1 + s, j - 1 + c),
+  // clamped to the grid like the TPU kernel's edge-padded LUT stack
+  __shared__ float stack[9 * kBins];
+  const int j = blockIdx.x, i = blockIdx.y, b = blockIdx.z;
+  const float* lb = luts + static_cast<size_t>(b) * gy * gx * kBins;
+  for (int k = threadIdx.x; k < 9 * kBins; k += blockDim.x) {
+    const int s = k / kBins, bin = k % kBins;
+    const int ty = min(max(i - 1 + s / 3, 0), gy - 1);
+    const int tx = min(max(j - 1 + s % 3, 0), gx - 1);
+    stack[k] = lb[(static_cast<size_t>(ty) * gx + tx) * kBins + bin];
+  }
+  __syncthreads();
+
+  // only the part of this tile inside the image is written (the tile
+  // geometry is that of the padded image; the pad itself is cropped)
+  const int y0 = i * th, x0 = j * tw;
+  const int rows = min(th, H - y0), cols = min(tw, W - x0);
+  if (rows <= 0 || cols <= 0) return;
+  const float* img = x + static_cast<size_t>(b) * H * W;
+  float* dst = out + static_cast<size_t>(b) * H * W;
+  for (int p = threadIdx.x; p < rows * cols; p += blockDim.x) {
+    const int y = y0 + p / cols, c = x0 + p % cols;
+    const size_t at = static_cast<size_t>(y) * W + c;
+    const int v = level_of(img[at]);
+
+    // OpenCV: txf = x * (1/tw) - 0.5; tx1 = max(floor, 0);
+    // tx2 = min(UNCLIPPED floor + 1, gx - 1); xa = txf - floor
+    const float tyf = __fsub_rn(__fmul_rn(static_cast<float>(y), inv_th), 0.5f);
+    const float txf = __fsub_rn(__fmul_rn(static_cast<float>(c), inv_tw), 0.5f);
+    const float fy = floorf(tyf), fx = floorf(txf);
+    const float ya = __fsub_rn(tyf, fy), xa = __fsub_rn(txf, fx);
+    const int ty1 = max(static_cast<int>(fy), 0);
+    const int ty2 = min(static_cast<int>(fy) + 1, gy - 1);
+    const int tx1 = max(static_cast<int>(fx), 0);
+    const int tx2 = min(static_cast<int>(fx) + 1, gx - 1);
+
+    const float* row1 = stack + (ty1 - i + 1) * 3 * kBins + v;
+    const float* row2 = stack + (ty2 - i + 1) * 3 * kBins + v;
+    const int c1 = (tx1 - j + 1) * kBins, c2 = (tx2 - j + 1) * kBins;
+    const float omx = __fsub_rn(1.0f, xa), omy = __fsub_rn(1.0f, ya);
+    const float top = __fadd_rn(__fmul_rn(row1[c1], omx), __fmul_rn(row1[c2], xa));
+    const float bot = __fadd_rn(__fmul_rn(row2[c1], omx), __fmul_rn(row2[c2], xa));
+    const float res = __fadd_rn(__fmul_rn(top, omy), __fmul_rn(bot, ya));
+    dst[at] = __fdiv_rn(fminf(fmaxf(rintf(res), 0.0f), 255.0f), 255.0f);
+  }
+}
+
+}  // namespace
+
+// x: [B, H, W] f32; hist: [B, gy, gx, 256] int32. (th, tw) is the tile of
+// the image padded up to a multiple of the grid.
+extern "C" int mies_tile_hists(const float* x, int* hist, int B, int H, int W,
+                               int gy, int gx, int th, int tw,
+                               cudaStream_t stream) {
+  tile_hists_kernel<<<dim3(gx, gy, B), kThreads, 0, stream>>>(
+      x, hist, H, W, gy, gx, th, tw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out: [B, H, W] f32; luts: [B, gy, gx, 256] f32, integer-valued.
+// inv_th / inv_tw are the host's correctly rounded f32 reciprocals.
+extern "C" int mies_apply_lut(const float* x, const float* luts, float* out,
+                              int B, int H, int W, int gy, int gx, int th,
+                              int tw, float inv_th, float inv_tw,
+                              cudaStream_t stream) {
+  apply_lut_kernel<<<dim3(gx, gy, B), kThreads, 0, stream>>>(
+      x, luts, out, H, W, gy, gx, th, tw, inv_th, inv_tw);
+  return static_cast<int>(cudaGetLastError());
+}

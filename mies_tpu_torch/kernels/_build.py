@@ -1,0 +1,160 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+All of ``mies_tpu_torch/csrc/*.cu`` compiles with ONE ``nvcc`` call into
+``mies_tpu_torch/_build/libmies_kernels.so`` (a plain C interface, no
+PyTorch headers, so the build takes seconds), at first use, and again
+whenever the sources' hash changes. The library is loaded with ``ctypes``.
+
+No ``--use_fast_math``: it would turn the explicit ``_rn`` arithmetic of
+K2/K4 into approximations (breaking their bit-exactness) and ``expf`` in
+K3 into ``__expf``. Without ``nvcc``, or when the build fails, this raises
+``RuntimeError`` with the compiler's output: there is no plain fallback
+for a tensor on the card.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``launch`` raises if that is not 0 and otherwise adds one to the kernel's
+count in ``LAUNCHES`` — the only place a count moves.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+LIBRARY = BUILD_DIR / "libmies_kernels.so"
+# where nvcc is looked for after PATH: $CUDA_HOME, $CUDA_PATH, then these
+CUDA_HOMES = ("/usr/local/cuda",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> argtypes (every pointer and the stream as c_void_p, so
+# ctypes never truncates a 64-bit address to an int)
+_SIGNATURES = {
+    "mies_tile_hists": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mies_apply_lut": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "mies_bilateral": (_P, _P, _I, _I, _I, _I, _P, _F, _I, _P),
+    "mies_unsharp": (_P, _P, _I, _I, _I, _P, _I, _F, _I, _P),
+}
+
+# launches per kernel wrapper since the last reset_launches()
+LAUNCHES = {"tile_hists": 0, "clahe_apply_lut": 0, "bilateral": 0,
+            "unsharp_quant": 0}
+
+_lib: ctypes.CDLL | None = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, then $CUDA_HOME/bin, then /usr/local/cuda/bin."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    homes = (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+             *CUDA_HOMES)
+    for home in filter(None, homes):
+        cand = Path(home) / "bin" / "nvcc"
+        if cand.is_file() and os.access(cand, os.X_OK):
+            return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "mies_tpu_torch CUDA kernels cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def build() -> bool:
+    """Compile csrc/*.cu into LIBRARY unless it is current; returns
+    whether it compiled."""
+    digest = _digest()
+    stamp = LIBRARY.with_suffix(".sha256")
+    if LIBRARY.is_file() and stamp.is_file() and stamp.read_text() == digest:
+        return False
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, LIBRARY)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    stamp.write_text(digest)
+    return True
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(str(LIBRARY))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` on ``device``'s current stream (the
+    stream is appended to ``args``) and count one launch of ``name``."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} ({name}) did not launch: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def check_tensor(t: torch.Tensor, what: str, ndim: int = 3,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """The kernels take contiguous ``dtype`` tensors of rank ``ndim`` on
+    the CPU (plain version) or a CUDA device (kernel); raise otherwise."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what}: expected a torch.Tensor, got {type(t)}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: device {t.device} is neither cpu nor cuda")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{what}: expected rank {ndim}, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")

@@ -1,0 +1,165 @@
+"""Spatial filters of the flagship chain, plain PyTorch.
+
+Same semantics and operation order as ``mies_tpu.ops.filters``:
+  * gaussian_blur  -> skimage.filters.gaussian (truncate 4, scipy pads
+    applied per 1-D pass, ascending-tap shifted adds);
+  * unsharp_mask   -> img + amount * (img - gaussian(img, radius)), clipped;
+  * bilateral_blur -> kornia.filters.bilateral_blur (explicit odd window).
+
+Borders are built by INDEX from numpy's ``np.pad`` arithmetic: the
+reference's default bilateral mode 'reflect' is numpy 'symmetric', which
+``torch.nn.functional.pad`` does not have (its 'reflect' is numpy
+'reflect'). No ``F.conv2d``: cuDNN runs it in TF32 on the card and its
+reduction order is not the scipy tap order.
+
+Every function takes float32 ``[..., H, W]`` (any leading batch dims) and
+runs on the tensor's own device. These are also the plain versions the
+K3/K4 kernels are held against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_PAD_MODE = {
+    "nearest": "edge",
+    "edge": "edge",  # alias (skimage spelling of 'nearest')
+    "reflect": "symmetric",  # scipy 'reflect' (d c b a | a b c d) == np 'symmetric'
+    "mirror": "reflect",  # scipy 'mirror'  (d c b | a b c d | c b a) == np 'reflect'
+    "constant": "constant",
+    "wrap": "wrap",
+}
+
+
+def _pad_axis(x: torch.Tensor, r: int, axis: int, mode: str) -> torch.Tensor:
+    """Pad ``axis`` (-2 or -1) by ``r`` on both sides, np.pad semantics."""
+    if r == 0:
+        return x
+    np_mode = _PAD_MODE[mode]
+    if np_mode == "constant":
+        return F.pad(x, (r, r) if axis == -1 else (0, 0, r, r))
+    idx = np.pad(np.arange(x.shape[axis]), r, mode=np_mode)
+    return x.index_select(axis, torch.as_tensor(idx, device=x.device))
+
+
+def _pad2d(img: torch.Tensor, ry: int, rx: int, mode: str) -> torch.Tensor:
+    return _pad_axis(_pad_axis(img, ry, -2, mode), rx, -1, mode)
+
+
+def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
+    """scipy.ndimage-compatible 1-D Gaussian taps (host-side, static)."""
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    k = k / k.sum()
+    return k.astype(np.float32)
+
+
+def _conv1d_shifted(
+    x: torch.Tensor, taps: np.ndarray, axis: int, mode: str
+) -> torch.Tensor:
+    """1-D correlation along ``axis`` as explicit shifted adds in
+    ascending-tap order (scipy.ndimage.correlate1d's summation order):
+    acc = t0 * x0; acc = acc + ti * xi. Separate multiply and add ops, so
+    nothing fuses them into an FMA."""
+    r = len(taps) // 2
+    n = x.shape[axis]
+    xp = _pad_axis(x, r, axis, mode)
+    acc = float(taps[0]) * xp.narrow(axis, 0, n)
+    for t in range(1, len(taps)):
+        acc = acc + float(taps[t]) * xp.narrow(axis, t, n)
+    return acc
+
+
+def _sep_conv2d(
+    img: torch.Tensor, ky: np.ndarray, kx: np.ndarray, mode: str
+) -> torch.Tensor:
+    """Separable correlation: the vertical pass, then the horizontal one,
+    each with its own border pad (scipy's sequential correlate1d)."""
+    x = img.to(torch.float32)
+    if len(ky) > 1:
+        x = _conv1d_shifted(x, np.asarray(ky, np.float32), -2, mode)
+    if len(kx) > 1:
+        x = _conv1d_shifted(x, np.asarray(kx, np.float32), -1, mode)
+    return x
+
+
+def gaussian_blur(
+    img: torch.Tensor,
+    sigma: float = 1.0,
+    truncate: float = 4.0,
+    mode: str = "nearest",
+) -> torch.Tensor:
+    """Gaussian blur, skimage.filters.gaussian semantics.
+
+    Kernel radius = int(truncate * sigma + 0.5) (scipy.ndimage). sigma=0
+    is the identity.
+    """
+    if sigma <= 0:
+        return img
+    radius = int(truncate * float(sigma) + 0.5)
+    k = gaussian_kernel1d(float(sigma), radius)
+    return _sep_conv2d(img, k, k, mode)
+
+
+def unsharp_mask(
+    img: torch.Tensor,
+    radius: float = 1.0,
+    amount: float = 1.0,
+    mode: str = "nearest",
+    clip: bool = True,
+) -> torch.Tensor:
+    """Unsharp masking, skimage.filters.unsharp_mask semantics:
+    ``img + amount * (img - gaussian(img, sigma=radius))``."""
+    blurred = gaussian_blur(img, sigma=radius, mode=mode)
+    out = img + amount * (img - blurred)
+    if clip:
+        out = torch.clamp(out, 0.0, 1.0)
+    return out
+
+
+def spatial_weights(kernel_size: int, sigma_space: float) -> np.ndarray:
+    """Row-major k*k bilateral spatial weights, float32, computed on the
+    host by the reference's numpy arithmetic."""
+    r = kernel_size // 2
+    dy, dx = np.mgrid[-r : r + 1, -r : r + 1]
+    return (
+        np.exp(-(dy**2 + dx**2) / (2.0 * float(sigma_space) ** 2))
+        .astype(np.float32)
+        .ravel()
+    )
+
+
+def bilateral_blur(
+    img: torch.Tensor,
+    kernel_size: int = 5,
+    sigma_color: float = 0.1,
+    sigma_space: float = 1.5,
+    mode: str = "reflect",
+) -> torch.Tensor:
+    """Bilateral filter, kornia.filters.bilateral_blur semantics.
+
+    weight(p, q) = exp(-(|p-q|^2) / (2 sigma_space^2))
+                 * exp(-(I(p)-I(q))^2 / (2 sigma_color^2))
+    out(p) = sum_q w * I(q) / sum_q w   over the odd square window,
+    summed in row-major window order.
+    """
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+    r = kernel_size // 2
+    spatial = spatial_weights(kernel_size, sigma_space)
+    h, w = img.shape[-2:]
+    p = _pad2d(img, r, r, mode)
+    # a tensor divisor: CUDA torch turns division by a Python scalar into
+    # a multiply by its reciprocal, which is not the reference's division
+    two_sc2 = img.new_full((), 2.0 * float(sigma_color) ** 2)
+    num = den = None
+    for i in range(kernel_size * kernel_size):
+        oy, ox = divmod(i, kernel_size)
+        q = p[..., oy : oy + h, ox : ox + w]
+        d = q - img
+        wgt = torch.exp(-(d * d) / two_sc2) * float(spatial[i])
+        num = wgt * q if num is None else num + wgt * q
+        den = wgt if den is None else den + wgt
+    return num / den

@@ -1,0 +1,269 @@
+"""Config schema for the declarative enhancement pipeline.
+
+The same schema and the same YAML/JSON files as ``mies_tpu.pipeline.config``
+(``configs/*.yaml``, ``PipelineConfig.to_dict()``): a config is frozen,
+hashable data. ``validate`` checks every stage against the port's own op
+registry and function signatures, so a config naming an op the port does
+not have yet fails at load time with the op named.
+
+Schema (YAML/JSON):
+
+    name: chest-xray-clahe
+    pipeline:
+      - op: clahe
+        clip_limit: 2.0
+        grid_size: [8, 8]
+        convention: opencv
+      - op: bilateral_blur
+        kernel_size: 5
+        sigma_color: 0.1
+        sigma_space: 1.5
+      - op: unsharp_mask
+        radius: 1.5
+        amount: 1.0
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+from pathlib import Path
+from typing import Any, Mapping, Sequence
+
+
+def _freeze(v: Any) -> Any:
+    """Recursively convert JSON-ish values to hashable equivalents."""
+    if isinstance(v, Mapping):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    return v
+
+
+def _thaw(v: Any) -> Any:
+    """Inverse of _freeze for param dicts (tuples stay tuples)."""
+    if isinstance(v, tuple) and v and all(
+        isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], str) for x in v
+    ):
+        return {k: _thaw(x) for k, x in v}
+    return v
+
+
+@dataclasses.dataclass(frozen=True)
+class StageConfig:
+    """One pipeline stage: op name + frozen (hashable) params."""
+
+    op: str
+    params: tuple = ()  # frozen key/value tuple, see _freeze
+
+    @classmethod
+    def make(cls, op: str, **params: Any) -> "StageConfig":
+        return cls(op=op, params=_freeze(params))
+
+    def kwargs(self) -> dict[str, Any]:
+        out = {}
+        for k, v in self.params:
+            out[k] = _thaw(v)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """A full pipeline: ordered stages + io/eval metadata."""
+
+    stages: tuple[StageConfig, ...]
+    name: str = "pipeline"
+    io: tuple = ()
+    eval: tuple = ()
+
+    @classmethod
+    def make(
+        cls,
+        stages: Sequence[tuple[str, dict[str, Any]] | StageConfig],
+        name: str = "pipeline",
+        io: Mapping[str, Any] | None = None,
+        eval: Mapping[str, Any] | None = None,
+    ) -> "PipelineConfig":
+        built = []
+        for s in stages:
+            if isinstance(s, StageConfig):
+                built.append(s)
+            else:
+                op, params = s
+                built.append(StageConfig.make(op, **params))
+        return cls(
+            stages=tuple(built),
+            name=name,
+            io=_freeze(dict(io or {})),
+            eval=_freeze(dict(eval or {})),
+        )
+
+    def io_dict(self) -> dict[str, Any]:
+        return {k: _thaw(v) for k, v in self.io}
+
+    def eval_dict(self) -> dict[str, Any]:
+        return {k: _thaw(v) for k, v in self.eval}
+
+    def cache_key(self) -> str:
+        """Stable content hash — names a config in run records."""
+        payload = json.dumps(self.to_dict(), sort_keys=True).encode()
+        return hashlib.sha256(payload).hexdigest()[:16]
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "name": self.name,
+            "pipeline": [{"op": s.op, **s.kwargs()} for s in self.stages],
+            "io": self.io_dict(),
+            "eval": self.eval_dict(),
+        }
+
+    def save(self, path: str | Path) -> None:
+        Path(path).write_text(json.dumps(self.to_dict(), indent=2) + "\n")
+
+
+def from_dict(d: Mapping[str, Any]) -> PipelineConfig:
+    stages = []
+    for entry in d.get("pipeline", []):
+        entry = dict(entry)
+        op = entry.pop("op")
+        # YAML lists -> tuples for hashability (grid_size etc.)
+        stages.append((op, entry))
+    return PipelineConfig.make(
+        stages,
+        name=d.get("name", "pipeline"),
+        io=d.get("io"),
+        eval=d.get("eval"),
+    )
+
+
+def load_config(path: str | Path) -> PipelineConfig:
+    """Load a pipeline config from a .json / .yaml / .yml file."""
+    path = Path(path)
+    text = path.read_text()
+    if path.suffix in (".yaml", ".yml"):
+        import yaml
+
+        d = yaml.safe_load(text)
+    else:
+        d = json.loads(text)
+    if not isinstance(d, Mapping):
+        raise ValueError(f"config root must be a mapping: {path}")
+    cfg = from_dict(d)
+    validate(cfg)
+    return cfg
+
+
+# --- load-time value validation ---------------------------------------------
+# Each rule: param -> (predicate, human description of the constraint).
+# Predicates run on the RAW config value, so bad types and bad ranges both
+# fail at load_config with the stage named. Rules exist for the ported ops
+# only; each later op brings its own.
+
+_PAD_MODES = ("nearest", "reflect", "edge", "mirror", "constant", "wrap")
+
+
+def _is_num(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _pos(v) -> bool:
+    return _is_num(v) and v > 0
+
+
+def _nonneg(v) -> bool:
+    return _is_num(v) and v >= 0
+
+
+def _odd_kernel(v) -> bool:
+    return _is_int(v) and v >= 1 and v % 2 == 1
+
+
+def _pos_int(v) -> bool:
+    return _is_int(v) and v >= 1
+
+
+def _int_pair(n):
+    def check(v) -> bool:
+        return (
+            isinstance(v, (tuple, list))
+            and len(v) == n
+            and all(_pos_int(x) for x in v)
+        )
+
+    return check
+
+
+def _mode_ok(v) -> bool:
+    return v in _PAD_MODES
+
+
+_VALUE_RULES: dict[str, dict[str, tuple]] = {
+    "clahe": {
+        "clip_limit": (_pos, "a number > 0"),
+        "grid_size": (_int_pair(2), "a pair of ints >= 1"),
+        "convention": (
+            lambda v: v in ("opencv", "skimage", "fraction", "kornia"),
+            "one of 'opencv', 'skimage', 'fraction', 'kornia'",
+        ),
+        # nbins != 256 is skimage-only; the op rejects other
+        # conventions at build time with the reason
+        "nbins": (lambda v: _is_int(v) and v >= 2, "an int >= 2"),
+        "kernel_size": (
+            lambda v: v is None or _int_pair(2)(v),
+            "a pair of ints >= 1 (or omitted)",
+        ),
+    },
+    "unsharp_mask": {
+        "radius": (_pos, "a number > 0"),
+        "amount": (_nonneg, "a number >= 0"),
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    "bilateral_blur": {
+        "kernel_size": (_odd_kernel, "an odd int >= 1"),
+        "sigma_color": (_pos, "a number > 0"),
+        "sigma_space": (_pos, "a number > 0"),
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+}
+
+
+def validate(cfg: PipelineConfig) -> None:
+    """Check ops exist in the port, params are accepted, AND values are
+    sane — fail at load_config with the stage named."""
+    import inspect
+
+    from mies_tpu_torch.pipeline.compiler import OP_REGISTRY
+
+    ch = cfg.io_dict().get("channels")
+    if ch not in (None, "gray", "per-channel"):
+        raise ValueError(
+            f"io.channels={ch!r} is invalid — expected 'gray' (explicit "
+            f"luminance collapse) or 'per-channel'"
+        )
+    for i, s in enumerate(cfg.stages):
+        if s.op not in OP_REGISTRY:
+            raise ValueError(
+                f"stage {i}: op {s.op!r} is not ported to mies_tpu_torch "
+                f"yet; available: {sorted(OP_REGISTRY)}"
+            )
+        sig = inspect.signature(OP_REGISTRY[s.op])
+        rules = _VALUE_RULES.get(s.op, {})
+        for k, v in s.kwargs().items():
+            if k not in sig.parameters:
+                raise ValueError(
+                    f"op {s.op!r} does not accept param {k!r}; "
+                    f"accepted: {[p for p in sig.parameters if p != 'img']}"
+                )
+            rule = rules.get(k)
+            if rule is not None:
+                check, want = rule
+                if not check(v):
+                    raise ValueError(
+                        f"stage {i} ({s.op!r}): param {k}={v!r} is invalid — "
+                        f"expected {want}"
+                    )

@@ -1,0 +1,106 @@
+"""Throughput and latency harnesses on the card, timed with CUDA events.
+
+A measurement needs a CUDA device: asked for any other device, or run
+where there is no card, these raise instead of timing the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mies_tpu_torch.pipeline.compiler import compile_pipeline
+from mies_tpu_torch.pipeline.config import PipelineConfig
+
+
+def _cuda_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(
+            f"timing needs a CUDA device; got {device!r} "
+            f"(torch.cuda.is_available() = {torch.cuda.is_available()})"
+        )
+    return dev
+
+
+def _ms_per_call(fn, x: torch.Tensor, iters: int) -> float:
+    """Device milliseconds per call over ``iters`` back-to-back calls,
+    between two CUDA events on the current stream."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(x)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _percentiles_ms(samples: list[float]) -> dict:
+    samples = sorted(samples)
+    return {
+        "p50_ms": samples[len(samples) // 2],
+        "p95_ms": samples[min(int(len(samples) * 0.95), len(samples) - 1)],
+    }
+
+
+def time_pipeline(
+    cfg: PipelineConfig,
+    shape: tuple[int, int] = (512, 512),
+    batch_size: int = 32,
+    iters: int = 20,
+    warmup: int = 3,
+    repeats: int = 5,
+    device="cuda",
+) -> dict:
+    """Batched throughput of ``cfg`` (quantize on) on seeded float32
+    slices: CUDA events around ``iters`` calls after ``warmup``, the
+    median of ``repeats`` such runs."""
+    dev = _cuda_device(device)
+    rng = np.random.default_rng(0)
+    batch = torch.from_numpy(
+        rng.random((batch_size, *shape), dtype=np.float32)
+    ).to(dev)
+    fn = compile_pipeline(cfg, batched=True, quantize=True)
+    with torch.cuda.device(dev):
+        for _ in range(warmup):
+            fn(batch)
+        torch.cuda.synchronize(dev)
+        runs = sorted(_ms_per_call(fn, batch, iters) for _ in range(repeats))
+    per_batch = runs[len(runs) // 2]
+    return {
+        "slices_per_sec": batch_size / (per_batch / 1000.0),
+        "p50_ms_per_slice": per_batch / batch_size,
+        "ms_per_batch": per_batch,
+        "batch_size": batch_size,
+        "shape": list(shape),
+        "device": torch.cuda.get_device_name(dev),
+    }
+
+
+def time_latency(
+    cfg: PipelineConfig,
+    shape: tuple[int, int] = (512, 512),
+    iters: int = 32,
+    repeats: int = 32,
+    device="cuda",
+) -> dict:
+    """Batch-1 latency: the single-slice program, CUDA events around
+    ``iters`` calls per repeat (after 3 warm-up calls); p50/p95 over the
+    ``repeats`` per-call estimates."""
+    dev = _cuda_device(device)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+    fn = compile_pipeline(cfg, batched=False, quantize=True)
+    with torch.cuda.device(dev):
+        for _ in range(3):
+            fn(img)
+        torch.cuda.synchronize(dev)
+        samples = [_ms_per_call(fn, img, iters) for _ in range(repeats)]
+    return {
+        **_percentiles_ms(samples),
+        "batch_size": 1,
+        "shape": list(shape),
+        "program": "single-slice",
+        "device": torch.cuda.get_device_name(dev),
+    }

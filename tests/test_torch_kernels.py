@@ -1,0 +1,208 @@
+"""The port's kernel wrappers (mies_tpu_torch.kernels).
+
+On the CPU each wrapper runs its plain version; those plain versions are
+held here against the TPU kernels they replace, run in Pallas interpret
+mode as tests/test_kernels.py runs them. The CUDA kernels themselves
+compile and run only on the card: the tests that launch them carry the
+``cuda`` marker (registered in pyproject.toml) and take the ``cuda_device``
+fixture, which skips without a card. They need neither jax nor
+tests/conftest.py, so on a card without jax they run as
+``python -m pytest tests/test_torch_kernels.py --noconftest -m cuda``;
+chip_smoke.py runs the same comparisons at the main path's shapes.
+"""
+
+import numpy as np
+import pytest
+import torch
+from pytest import skip
+
+from mies_tpu_torch.kernels import _build
+from mies_tpu_torch.kernels import bilateral as KB
+from mies_tpu_torch.kernels import clahe as KC
+from mies_tpu_torch.kernels import unsharp_gauss as KU
+from mies_tpu_torch.ops import filters as TF
+from mies_tpu_torch.ops import histogram as TH
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _levels_close(a: np.ndarray, b: np.ndarray) -> None:
+    """<= 1 uint8 level on < 0.1% of pixels (XLA:CPU FMA rounding ties)."""
+    d = np.abs(a.astype(int) - b.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
+
+
+# --- plain versions against the TPU kernels (Pallas interpret mode) -------
+
+
+def test_k1_plain_equals_pallas_hist_rows(rng):
+    import jax.numpy as jnp
+    from mies_tpu.kernels.clahe import tile_hists_rows_pallas
+
+    x = rng.random((2, 128, 128)).astype(np.float32)
+    ref = np.asarray(tile_hists_rows_pallas(
+        jnp.asarray(x), 2, 2, interpret=True, quantize_input=True))
+    u8, _, _ = TH._pad_reflect101(TH._levels(torch.from_numpy(x)), (2, 2))
+    counts = TH._tile_histograms(u8, (2, 2)).reshape(2, 2, 2, 256)
+    np.testing.assert_array_equal(counts.numpy(), ref)
+    np.testing.assert_array_equal(
+        KC.tile_hists(torch.from_numpy(x), (2, 2)).numpy(), ref)
+
+
+def test_k2_plain_matches_pallas_apply33(rng):
+    import jax.numpy as jnp
+    from mies_tpu.kernels.clahe import clahe_apply_lut
+
+    x = rng.random((2, 128, 128)).astype(np.float32)
+    luts = np.rint(rng.random((2, 2, 2, 256)).astype(np.float32) * 255)
+    ref = np.asarray(clahe_apply_lut(
+        jnp.asarray(x), jnp.asarray(luts), (2, 2), integer_luts=True,
+        interpret=True, quantize_input=True, finalize="u8norm"))
+    out = KC.clahe_apply_lut(torch.from_numpy(x), torch.from_numpy(luts),
+                             (2, 2)).numpy()
+    _levels_close(np.rint(out * 255), np.rint(ref * 255))
+
+
+def test_k3_plain_matches_pallas_bilateral(rng):
+    import jax.numpy as jnp
+    from mies_tpu.kernels.bilateral import bilateral_tpu
+
+    x = rng.random((2, 128, 128)).astype(np.float32)
+    ref = np.asarray(bilateral_tpu(jnp.asarray(x), 5, 0.1, 1.5, "reflect",
+                                   interpret=True))
+    out = KB.bilateral_cuda(torch.from_numpy(x), 5, 0.1, 1.5, "reflect")
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+def test_k4_plain_matches_pallas_unsharp_quant(rng, quantize):
+    import jax.numpy as jnp
+    from mies_tpu.kernels.unsharp_gauss import unsharp_quant_tpu
+
+    x = rng.random((2, 128, 128)).astype(np.float32)
+    ref = np.asarray(unsharp_quant_tpu(jnp.asarray(x), 1.5, 1.0,
+                                       quantize=quantize, interpret=True))
+    out = KU.unsharp_quant_cuda(torch.from_numpy(x), 1.5, 1.0,
+                                quantize=quantize).numpy()
+    if quantize:
+        assert out.dtype == np.uint8
+        _levels_close(out, ref)
+    else:
+        np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+
+
+# --- the wrappers on CPU tensors -------------------------------------------
+
+
+@pytest.mark.parametrize("shape,grid", [((2, 64, 64), (4, 4)),
+                                        ((2, 61, 83), (4, 4)),
+                                        ((1, 251, 333), (8, 8))])
+def test_clahe_cuda_composition_equals_plain_clahe(rng, shape, grid):
+    """K1 -> LUT build -> K2 (plain versions on the CPU) is the whole
+    plain CLAHE, ragged shapes included."""
+    x = torch.from_numpy(rng.random(shape).astype(np.float32))
+    assert torch.equal(KC.clahe_cuda(x, 2.0, grid), TH.clahe(x, 2.0, grid))
+
+
+def test_wrappers_count_no_launch_on_cpu(rng):
+    _build.reset_launches()
+    x = torch.from_numpy(rng.random((2, 64, 64)).astype(np.float32))
+    KC.clahe_batched(x, 2.0, (4, 4))
+    KB.bilateral_batched(x)
+    KU.unsharp_quant_cuda(x, 1.5, 1.0)
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0)
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (torch.zeros(2, 64, 64, dtype=torch.float64), TypeError),
+    (torch.zeros(64, 64), ValueError),
+    (torch.zeros(2, 64, 128)[:, :, ::2], ValueError),
+])
+def test_wrappers_reject_bad_tensors(bad, exc):
+    with pytest.raises(exc):
+        KC.tile_hists(bad, (4, 4))
+    with pytest.raises(exc):
+        KB.bilateral_cuda(bad)
+    with pytest.raises(exc):
+        KU.unsharp_quant_cuda(bad, 1.5)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.zeros(1, 32, 32)
+    with pytest.raises(ValueError):
+        KB.bilateral_cuda(x, kernel_size=11)
+    with pytest.raises(ValueError):
+        KB.bilateral_cuda(x, mode="constant")
+    with pytest.raises(ValueError):
+        KU.unsharp_quant_cuda(x, radius=5.0)  # 20-pixel halo > 16
+    with pytest.raises(ValueError):
+        KC.clahe_apply_lut(x, torch.zeros(1, 4, 4, 255), (4, 4))
+    with pytest.raises(ValueError):
+        KC.tile_hists(torch.zeros(1, 3, 3), (8, 8))  # pad longer than image
+    assert KU.unsharp_quant_supported(1.5)
+    assert not KU.unsharp_quant_supported(5.0)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No nvcc -> RuntimeError; nothing runs its plain version instead."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "CUDA_HOMES", (str(tmp_path),))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "LIBRARY", tmp_path / "_build" / "lib.so")
+    monkeypatch.setattr(_build, "_lib", None)
+    _build.reset_launches()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.library()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.launch("tile_hists", "mies_tile_hists", torch.device("cuda"))
+    assert _build.LAUNCHES["tile_hists"] == 0
+
+
+# --- the CUDA kernels against their plain versions (card only) -------------
+
+
+def _on(device, shape, seed: int) -> torch.Tensor:
+    a = np.random.default_rng(seed).random(shape).astype(np.float32)
+    return torch.from_numpy(a).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,grid", [((3, 128, 128), (2, 2)),
+                                        ((2, 251, 333), (8, 8))])
+def test_k1_k2_on_card_equal_plain(cuda_device, shape, grid):
+    x = _on(cuda_device, shape, 1)
+    _build.reset_launches()
+    got = KC.clahe_cuda(x, 2.0, grid)
+    assert _build.LAUNCHES["tile_hists"] == 1
+    assert _build.LAUNCHES["clahe_apply_lut"] == 1
+    assert torch.equal(KC.tile_hists(x, grid), KC.tile_hists_plain(x, grid))
+    assert torch.equal(got, TH.clahe(x, 2.0, grid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["reflect", "mirror", "nearest"])
+@pytest.mark.parametrize("k", [3, 5, 9])
+def test_k3_on_card_matches_plain(cuda_device, mode, k):
+    x = _on(cuda_device, (2, 77, 130), 2)
+    got = KB.bilateral_cuda(x, k, 0.1, 1.5, mode)
+    want = TF.bilateral_blur(x, k, 0.1, 1.5, mode)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [True, False])
+def test_k4_on_card_equals_plain(cuda_device, quantize):
+    x = _on(cuda_device, (2, 77, 130), 3)
+    got = KU.unsharp_quant_cuda(x, 1.5, 1.0, quantize=quantize)
+    assert torch.equal(got, KU.unsharp_quant_plain(x, 1.5, 1.0,
+                                                   quantize=quantize))

@@ -1,0 +1,143 @@
+"""The port's flagship slice end to end, against the JAX package on CPU.
+
+compile_pipeline(flagship_config(), batched=True) of both packages on the
+same seeded inputs: CLAHE -> bilateral -> unsharp -> uint8. The JAX chain
+on XLA:CPU FMA-contracts, so the uint8 outputs may differ by one level on
+rounding ties (<= 1 level on < 1e-3 of pixels, the cv2 CPU rule).
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mies_tpu
+import mies_tpu_torch
+from mies_tpu.pipeline.presets import flagship_config as jax_flagship
+from mies_tpu_torch.kernels import _build
+from mies_tpu_torch.pipeline.compiler import build_chain
+from mies_tpu_torch.pipeline.presets import flagship_config, latency_config
+from mies_tpu_torch.pipeline.runner import time_latency, time_pipeline
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _batch(xray, rng, dtype) -> np.ndarray:
+    x = np.stack([xray, rng.random(xray.shape).astype(np.float32)])
+    if dtype == "uint8":
+        return np.clip(np.rint(x * 255), 0, 255).astype(np.uint8)
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_flagship_batched_matches_jax(xray, rng, dtype):
+    x = _batch(xray, rng, dtype)
+    ref = np.asarray(mies_tpu.compile_pipeline(
+        jax_flagship(), batched=True, donate=False)(jnp.asarray(x)))
+    out = mies_tpu_torch.compile_pipeline(
+        flagship_config(), batched=True)(torch.from_numpy(x)).numpy()
+    assert out.dtype == np.uint8 and out.shape == x.shape
+    d = np.abs(out.astype(int) - ref.astype(int))
+    assert d.max() <= 1, f"max level diff {d.max()}"
+    assert (d > 0).mean() < 1e-3, f"mismatch frac {(d > 0).mean()}"
+
+
+def test_single_slice_equals_batched(rng):
+    x = torch.from_numpy(rng.random((2, 96, 128)).astype(np.float32))
+    cfg = flagship_config()
+    batched = mies_tpu_torch.compile_pipeline(cfg, batched=True)(x)
+    single = mies_tpu_torch.compile_pipeline(cfg)(x[1])
+    assert torch.equal(single, batched[1])
+
+
+def test_per_channel_fold_equals_batched(rng):
+    x = torch.from_numpy(rng.random((2, 3, 48, 64)).astype(np.float32))
+    fn = mies_tpu_torch.compile_pipeline(latency_config(), batched=True)
+    out = fn(x)
+    assert out.shape == x.shape
+    assert torch.equal(out, fn(x.reshape(6, 48, 64)).reshape(x.shape))
+
+
+def test_quantize_false_returns_float(rng):
+    x = torch.from_numpy(rng.random((1, 64, 64)).astype(np.float32))
+    fn = mies_tpu_torch.compile_pipeline(flagship_config(), batched=True,
+                                         quantize=False)
+    out = fn(x)
+    assert out.dtype == torch.float32
+    q = mies_tpu_torch.compile_pipeline(flagship_config(), batched=True)(x)
+    assert torch.equal(torch.round(out * 255.0).to(torch.uint8), q)
+    assert torch.equal(build_chain(flagship_config())(x[0]), out[0])
+
+
+def test_load_config_same_in_both_packages():
+    path = REPO / "configs" / "xray_clahe.yaml"
+    got = mies_tpu_torch.load_config(path)
+    assert got.to_dict() == mies_tpu.load_config(path).to_dict()
+    assert got == mies_tpu_torch.PipelineConfig.make(
+        [(s.op, s.kwargs()) for s in got.stages], name=got.name,
+        io=got.io_dict(), eval=got.eval_dict())
+
+
+def _write_config(tmp_path, stages) -> Path:
+    p = tmp_path / "cfg.json"
+    p.write_text(json.dumps({"name": "t", "pipeline": stages}))
+    return p
+
+
+@pytest.mark.parametrize("stage,match", [
+    ({"op": "bilateral_blur", "kernel_size": 4}, "kernel_size=4"),
+    ({"op": "clahe", "clip_limit": -1.0}, "clip_limit"),
+    ({"op": "unsharp_mask", "sigma": 1.0}, "does not accept param 'sigma'"),
+    ({"op": "median_blur", "kernel_size": 3}, "'median_blur' is not ported"),
+])
+def test_bad_config_raises_at_load(tmp_path, stage, match):
+    with pytest.raises(ValueError, match=match):
+        mies_tpu_torch.load_config(_write_config(tmp_path, [stage]))
+
+
+def test_unported_clahe_convention_raises_at_build():
+    cfg = mies_tpu_torch.PipelineConfig.make(
+        [("clahe", {"convention": "skimage"})])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        mies_tpu_torch.compile_pipeline(cfg, batched=True)
+
+
+def test_chain_on_cpu_launches_no_kernel(rng):
+    _build.reset_launches()
+    x = torch.from_numpy(rng.random((2, 64, 64)).astype(np.float32))
+    mies_tpu_torch.compile_pipeline(flagship_config(), batched=True)(x)
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0)
+
+
+def test_timing_refuses_the_cpu():
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        time_pipeline(flagship_config(), (64, 64), 2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        time_latency(latency_config(), (64, 64), device="cpu")
+
+
+def test_port_imports_neither_jax_nor_mies_tpu():
+    code = (
+        "import sys, torch\n"
+        "import mies_tpu_torch\n"
+        "from mies_tpu_torch.pipeline.presets import flagship_config\n"
+        "from mies_tpu_torch.pipeline import runner\n"
+        "fn = mies_tpu_torch.compile_pipeline(flagship_config(), batched=True)\n"
+        "assert fn(torch.rand(2, 64, 64)).dtype == torch.uint8\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'mies_tpu'))\n"
+        "print(bad)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
