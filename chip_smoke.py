@@ -7,13 +7,24 @@ Phases, one printed line each (or a few):
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — compile the CUDA kernels (csrc/*.cu) with nvcc;
   3. kernels — each kernel against its plain PyTorch version on the card
-               at the flagship path's shapes ([32, 512, 512]), and again on
-               one ragged 251x333 slice, with both times (CUDA events);
-  4. slice   — compile_pipeline(flagship_config(), batched=True) on float32
-               and uint8 batches: every kernel launched exactly once per
-               call, output against the same chain in plain PyTorch on the
-               card and on the CPU, single-slice == batched row;
-  5. timing  — slices/s at batch 32 of 512^2, batch-1 latency p50/p95.
+               at the main paths' shapes ([32, 512, 512]: the flagship's
+               8x8 tiles, the skimage config's 8x8 regions of 64x64), with
+               the kernel's, the plain version's and (where one PyTorch call
+               computes the same function) the library call's time (CUDA
+               events) and the bound (least time for the bytes and the
+               operations); then on one ragged 251x333 slice (skimage
+               regions 31x41: odd region columns, kc % 64 != 0);
+  4. slices  — through load_config / compile_pipeline(batched=True) on
+               float32 and uint8 batches: the flagship chain and
+               configs/xray_adapthist_skimage.yaml, each kernel of the path
+               launched exactly once per call and no other, output against
+               the same chain in plain PyTorch on the card and on the CPU,
+               single-slice == batched row; a fraction and a kornia config
+               once each;
+  5. timing  — slices/s at batch 32 of 512^2 for the flagship and the
+               skimage config, flagship batch-1 latency p50/p95, and each
+               chain's device time by kernel (torch.profiler) against its
+               event-timed time per batch: the device's busy share.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -22,6 +33,7 @@ without a CUDA device the script exits 1 before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -31,6 +43,8 @@ import numpy as np
 import torch
 
 BATCH, SIZE, GRID = 32, 512, (8, 8)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 
 
 def _require(ok: bool, what: str) -> None:
@@ -50,6 +64,22 @@ def _ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least ms for the bytes (each input read once, each output written
+    once) and the operations, at the card's published peaks."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _index_add_ms(key: torch.Tensor, nbins_total: int) -> float:
+    """One ``index_add_`` of ones at precomputed flat bin keys: the library
+    call that computes a histogram (the key is built outside the timing)."""
+    ones = torch.ones(key.numel(), device=key.device)
+    out = torch.zeros(nbins_total, device=key.device)
+    return _ms(lambda: out.zero_().index_add_(0, key, ones))
 
 
 def _xray_batch(b: int, h: int, w: int, seed: int) -> np.ndarray:
@@ -74,7 +104,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
     from mies_tpu_torch.kernels import _build
     from mies_tpu_torch.kernels import bilateral as KB
     from mies_tpu_torch.kernels import clahe as KC
@@ -87,8 +118,13 @@ def main() -> int:
         _quantize_u8,
         compile_pipeline,
     )
+    from mies_tpu_torch.pipeline.config import PipelineConfig, load_config
     from mies_tpu_torch.pipeline.presets import flagship_config, latency_config
-    from mies_tpu_torch.pipeline.runner import time_latency, time_pipeline
+    from mies_tpu_torch.pipeline.runner import (
+        profile_pipeline,
+        time_latency,
+        time_pipeline,
+    )
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -109,51 +145,162 @@ def main() -> int:
     compiled = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"({'compiled' if compiled else 'up to date'}) -> {_build.LIBRARY.name}")
+          f"({'compiled' if compiled else 'up to date'}, "
+          f"{len(_build._sources())} sources) -> {_build.LIBRARY.name}")
 
     # -- 3. each kernel against its plain version, main-path shapes ------
     x = torch.from_numpy(_xray_batch(BATCH, SIZE, SIZE, seed=0)).to(dev)
+    npx = x.numel()
     th, tw = SIZE // GRID[0], SIZE // GRID[1]
     rec = {}
 
+    def record(key, err, kernel, plain, nbytes, ops, library=None,
+               plain_iters=20):
+        bound_ms, bound_by = _bound(nbytes, ops)
+        rec[key] = {"max_abs_err": err, "ms": _ms(kernel),
+                    "plain_ms": _ms(plain, plain_iters), "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library}
+
+    # K1, float mode: 4 B read per pixel; level quantize (4 ops) + one count
     hk, hp = KC.tile_hists(x, GRID), KC.tile_hists_plain(x, GRID)
     err = (hk - hp).abs().max().item()
     _require(torch.equal(hk, hp), f"K1 counts differ by up to {err}")
-    rec["K1"] = (err, _ms(lambda: KC.tile_hists(x, GRID)),
-                 _ms(lambda: KC.tile_hists_plain(x, GRID)))
+    tile_id = (torch.arange(SIZE, device=dev)[:, None] // th * GRID[1]
+               + torch.arange(SIZE, device=dev)[None, :] // tw)
+    key = ((torch.arange(BATCH, device=dev)[:, None, None] * GRID[0] * GRID[1]
+            + tile_id) * 256 + H._levels(x)).reshape(-1)
+    record("K1", err, lambda: KC.tile_hists(x, GRID),
+           lambda: KC.tile_hists_plain(x, GRID),
+           4 * npx + 4 * hk.numel(), 5 * npx,
+           _index_add_ms(key, hk.numel()))
 
+    # K2, u8norm: 4 B in + 4 B out per pixel, 29 f32 ops per pixel
     luts = H._luts_opencv(hk.reshape(BATCH, -1, 256).float(), 2.0, th * tw)
     luts = luts.reshape(BATCH, *GRID, 256)
     ck, cp = KC.clahe_apply_lut(x, luts, GRID), KC.clahe_apply_lut_plain(x, luts, GRID)
     err = (ck - cp).abs().max().item()
     _require(torch.equal(ck, cp), f"K2 output differs by up to {err}")
-    rec["K2"] = (err, _ms(lambda: KC.clahe_apply_lut(x, luts, GRID)),
-                 _ms(lambda: KC.clahe_apply_lut_plain(x, luts, GRID)))
+    record("K2", err, lambda: KC.clahe_apply_lut(x, luts, GRID),
+           lambda: KC.clahe_apply_lut_plain(x, luts, GRID),
+           8 * npx + 4 * luts.numel(), 29 * npx)
 
+    # K2, clip01 on the fraction convention's LUTs: 27 ops per pixel
+    fluts = H._luts_fraction(hk.reshape(BATCH, -1, 256).float(), 0.01, th * tw)
+    fluts = fluts.reshape(BATCH, *GRID, 256)
+    _require(not torch.equal(fluts, torch.round(fluts)), "LUTs not fractional")
+    fk = KC.clahe_apply_lut(x, fluts, GRID, "clip01")
+    fp = KC.clahe_apply_lut_plain(x, fluts, GRID, "clip01")
+    err = (fk - fp).abs().max().item()
+    _require(torch.equal(fk, fp), f"K2 clip01 differs by up to {err}")
+    record("K2c", err, lambda: KC.clahe_apply_lut(x, fluts, GRID, "clip01"),
+           lambda: KC.clahe_apply_lut_plain(x, fluts, GRID, "clip01"),
+           8 * npx + 4 * fluts.numel(), 27 * npx)
+
+    # K3: 8 B per pixel; 8 ops per tap (diff, square, scale, exp, weight,
+    # two accumulations) over 5x5 taps
     bk = KB.bilateral_cuda(ck, 5, 0.1, 1.5, "reflect")
     bp = F.bilateral_blur(ck, 5, 0.1, 1.5, "reflect")
     err = (bk - bp).abs().max().item()
     _require(err <= 2e-6, f"K3 max abs error {err} > 2e-6")
-    rec["K3"] = (err, _ms(lambda: KB.bilateral_cuda(ck, 5, 0.1, 1.5, "reflect")),
-                 _ms(lambda: F.bilateral_blur(ck, 5, 0.1, 1.5, "reflect")))
+    record("K3", err, lambda: KB.bilateral_cuda(ck, 5, 0.1, 1.5, "reflect"),
+           lambda: F.bilateral_blur(ck, 5, 0.1, 1.5, "reflect"),
+           8 * npx, (8 * 25 + 1) * npx)
 
+    # K4: 4 B in + 1 B out per pixel; two 13-tap passes (mul + add per
+    # tap), the unsharp blend and the quantize
     uk, up = KU.unsharp_quant_cuda(bk, 1.5, 1.0), KU.unsharp_quant_plain(bk, 1.5, 1.0)
     err = (uk.int() - up.int()).abs().max().item()
     _require(torch.equal(uk, up), f"K4 uint8 differs by up to {err} levels")
     _require(torch.equal(KU.unsharp_quant_cuda(bk, 1.5, 1.0, quantize=False),
                          KU.unsharp_quant_plain(bk, 1.5, 1.0, quantize=False)),
              "K4 float32 (quantize=False) is not bit-equal")
-    rec["K4"] = (err, _ms(lambda: KU.unsharp_quant_cuda(bk, 1.5, 1.0)),
-                 _ms(lambda: KU.unsharp_quant_plain(bk, 1.5, 1.0)))
-    torch.cuda.synchronize()
-    for k, (e, ms, pms) in rec.items():
-        print(f"{k} [{BATCH},{SIZE},{SIZE}]: max_abs_err {e} | kernel "
-              f"{ms:.4f} ms | plain {pms:.4f} ms | {card}")
+    record("K4", err, lambda: KU.unsharp_quant_cuda(bk, 1.5, 1.0),
+           lambda: KU.unsharp_quant_plain(bk, 1.5, 1.0),
+           5 * npx, (4 * 13 + 8) * npx)
 
-    # the ragged edge: one 251x333 slice, every border mode of K3
+    # the skimage config's kernels: 8x8 regions of 64x64 at 512^2
+    ks = H.skimage_kernel_size((SIZE, SIZE), GRID)
+    (pr0, _, pc0, _), (nr, nc) = H.skimage_geometry((SIZE, SIZE), ks)
+    k_elems, nbins = ks[0] * ks[1], 256
+    clim = int(np.clip(0.01 * k_elems, 1, None))
+    binned = H._skimage_binned(x, ks, nbins)
+    origin, rgrid = (pr0, pc0), (nr, nc)
+
+    sk = KC.tile_hists_bins(binned, origin, rgrid, ks, nbins)
+    sp = KC.tile_hists_bins_plain(binned, origin, rgrid, ks, nbins)
+    err = (sk - sp).abs().max().item()
+    _require(torch.equal(sk, sp), f"K1 bins counts differ by up to {err}")
+    win = binned[:, pr0:pr0 + nr * ks[0], pc0:pc0 + nc * ks[1]]
+    rid = (torch.arange(win.shape[1], device=dev)[:, None] // ks[0] * nc
+           + torch.arange(win.shape[2], device=dev)[None, :] // ks[1])
+    bkey = ((torch.arange(BATCH, device=dev)[:, None, None] * nr * nc + rid)
+            * nbins + win).reshape(-1)
+    record("K1b", err,
+           lambda: KC.tile_hists_bins(binned, origin, rgrid, ks, nbins),
+           lambda: KC.tile_hists_bins_plain(binned, origin, rgrid, ks, nbins),
+           4 * win.numel() + 4 * sk.numel(), win.numel(),
+           _index_add_ms(bkey, sk.numel()))
+
+    # K6a: R regions x nbins threads; ops counted from this run's phase-3
+    # steps: 16 per bin for phases 1-2, the scale and the floor, 8 per bin
+    # per sweep step, 2 per bin per scan level
+    mk, mp = KC.skimage_maps(sk, clim, k_elems), KC.skimage_maps_plain(sk, clim, k_elems)
+    err = (mk - mp).abs().max().item()
+    _require(torch.equal(mk, mp), f"K6a maps differ by up to {err}")
+    _, steps = H._clip_histogram_skimage(sk, clim, nbins, with_steps=True)
+    n_regions = sk.numel() // nbins
+    k6a_ops = nbins * (n_regions * (16 + 2 * math.log2(nbins))
+                       + 8 * steps.sum().item())
+    record("K6a", err, lambda: KC.skimage_maps(sk, clim, k_elems),
+           lambda: KC.skimage_maps_plain(sk, clim, k_elems),
+           8 * sk.numel(), k6a_ops, plain_iters=3)
+    print(f"K6a phase-3 steps per region: max {steps.max().item()}, mean "
+          f"{steps.float().mean().item():.2f}, regions with a sweep "
+          f"{int((steps > 0).sum().item())} of {n_regions}")
+
+    # K6: 4 B of bins in + 4 B out per output pixel, 16 ops per pixel
+    out_hw = (SIZE, SIZE)
+    ak = KC.skimage_apply(binned, mk, ks, origin, out_hw)
+    ap = KC.skimage_apply_plain(binned, mk, ks, origin, out_hw)
+    err = (ak - ap).abs().max().item()
+    _require(torch.equal(ak, ap), f"K6 output differs by up to {err}")
+    record("K6", err, lambda: KC.skimage_apply(binned, mk, ks, origin, out_hw),
+           lambda: KC.skimage_apply_plain(binned, mk, ks, origin, out_hw),
+           8 * npx + 4 * mk.numel(), 16 * npx)
+    torch.cuda.synchronize()
+    for k, r in rec.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"{k} [{BATCH},{SIZE},{SIZE}]: max_abs_err {r['max_abs_err']} | "
+              f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | library "
+              f"{lib} | {card}")
+
+    # the ragged edge: one 251x333 slice, every border mode of K3, the
+    # skimage regions 31x41 (odd region columns, kc % 64 != 0)
     r = x[:1, :251, :333].contiguous()
     _require(torch.equal(KC.clahe_cuda(r, 2.0, GRID), H.clahe(r, 2.0, GRID)),
              "K1+K2 on 251x333 differ from the plain CLAHE")
+    _require(torch.equal(KC.clahe_cuda(r, 0.01, GRID, "fraction"),
+                         H.clahe(r, 0.01, GRID, "fraction")),
+             "K1+K2 clip01 (fraction) on 251x333 differ from the plain CLAHE")
+    rks = H.skimage_kernel_size(r.shape[-2:], GRID)
+    (rp0, _, rq0, _), rreg = H.skimage_geometry(r.shape[-2:], rks)
+    rb = H._skimage_binned(r, rks, nbins)
+    rh = KC.tile_hists_bins(rb, (rp0, rq0), rreg, rks, nbins)
+    _require(torch.equal(rh, KC.tile_hists_bins_plain(rb, (rp0, rq0), rreg,
+                                                      rks, nbins)),
+             "K1 bins on 251x333 differs from the plain version")
+    rclim = int(np.clip(0.01 * rks[0] * rks[1], 1, None))
+    rm = KC.skimage_maps(rh, rclim, rks[0] * rks[1])
+    _require(torch.equal(rm, KC.skimage_maps_plain(rh, rclim, rks[0] * rks[1])),
+             "K6a on 251x333 differs from the plain version")
+    _require(torch.equal(
+        KC.skimage_apply(rb, rm, rks, (rp0, rq0), r.shape[-2:]),
+        KC.skimage_apply_plain(rb, rm, rks, (rp0, rq0), r.shape[-2:])),
+        "K6 on 251x333 differs from the plain version")
+    _require(torch.equal(KC.clahe_skimage_cuda(r, rks, 0.01),
+                         H.clahe(r, 0.01, GRID, "skimage")),
+             "skimage path on 251x333 differs from the plain CLAHE")
     worst = 0.0
     for mode in ("reflect", "mirror", "nearest"):
         for k in (3, 5, 9):
@@ -165,48 +312,59 @@ def main() -> int:
                          KU.unsharp_quant_plain(r, 1.5, 1.0)),
              "K4 on 251x333 differs from the plain version")
     torch.cuda.synchronize()
-    print(f"ragged 251x333: K1+K2 equal, K3 max abs {worst} (3 modes x "
-          f"k 3/5/9), K4 equal")
+    print(f"ragged 251x333: K1+K2 equal (opencv, fraction/clip01), skimage "
+          f"regions {rks[0]}x{rks[1]} x {rreg[0]}x{rreg[1]}: K1 bins, K6a, "
+          f"K6 and the path equal, K3 max abs {worst} (3 modes x k 3/5/9), "
+          f"K4 equal")
 
-    # -- 4. the slice through the port's entry points -------------------
-    cfg = flagship_config()
-    fn = compile_pipeline(cfg, batched=True)
-
-    def plain_chain(batch: torch.Tensor) -> torch.Tensor:
+    # -- 4. the slices through the port's entry points ------------------
+    def plain_chain(cfg, batch: torch.Tensor) -> torch.Tensor:
         y = _ingest(batch)
         for s in cfg.stages:
             y = OP_REGISTRY[s.op](y, **s.kwargs())
         return _quantize_u8(y)
 
-    x8 = _quantize_u8(x)
-    launches = None
-    for name, inp in (("float32", x), ("uint8", x8)):
-        _build.reset_launches()
-        out = fn(inp)
-        torch.cuda.synchronize()
-        counts = dict(_build.LAUNCHES)
-        _require(all(v == 1 for v in counts.values()),
-                 f"{name} batch: launches per kernel {counts}, want 1 each")
-        launches = launches or counts
-        _require(out.shape == inp.shape and out.dtype == torch.uint8,
-                 f"{name} output {tuple(out.shape)} {out.dtype}")
-        d = (out.int() - plain_chain(inp).int()).abs()
+    def close(out, ref, what):
+        d = (out.int() - ref.int()).abs()
         n = int((d > 0).sum().item())
         _require(d.max().item() <= 1 and n < 1e-3 * d.numel(),
-                 f"{name}: {n} pixels differ (max {d.max().item()} levels)")
-        print(f"slice {name} [{BATCH},{SIZE},{SIZE}]: launches {counts} | "
-              f"vs plain chain on the card: {n} of {d.numel()} pixels differ "
-              f"by 1 level")
+                 f"{what}: {n} pixels differ (max {d.max().item()} levels)")
+        return n, d.numel()
 
+    def drive(cfg, name, inputs, want):
+        """Call the batched chain on each input with the counts set to 0
+        just before and read just after; every kernel of the path must
+        launch exactly once and no other kernel at all."""
+        fn = compile_pipeline(cfg, batched=True)
+        counts = None
+        for dtype, inp in inputs:
+            _build.reset_launches()
+            out = fn(inp)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            expect = {k: int(k in want) for k in counts}
+            _require(counts == expect, f"{name} {dtype}: launches {counts}, "
+                     f"want {expect}")
+            _require(out.shape == inp.shape and out.dtype == torch.uint8,
+                     f"{name} {dtype} output {tuple(out.shape)} {out.dtype}")
+            n, total = close(out, plain_chain(cfg, inp), f"{name} {dtype}")
+            print(f"slice {name} {dtype} [{BATCH},{SIZE},{SIZE}]: launches "
+                  f"{ {k: v for k, v in counts.items() if v} } | vs plain "
+                  f"chain on the card: {n} of {total} pixels differ by 1 level")
+        return fn, counts
+
+    x8 = _quantize_u8(x)
+    both = (("float32", x), ("uint8", x8))
+    cfg = flagship_config()
+    fn, launches = drive(cfg, "flagship", both,
+                         ("tile_hists", "clahe_apply_lut", "bilateral",
+                          "unsharp_quant"))
     kw = cfg.stages[0].kwargs()
     _require(torch.equal(KC.clahe_batched(x, **kw), H.clahe(x, **kw)),
              "CLAHE stage (K1 + K2) differs from the plain CLAHE")
     out = fn(x)
     cpu = compile_pipeline(cfg, batched=True)(x[:2].cpu())
-    d = (out[:2].cpu().int() - cpu.int()).abs()
-    n = int((d > 0).sum().item())
-    _require(d.max().item() <= 1 and n < 1e-3 * d.numel(),
-             f"card vs CPU reference: {n} pixels differ (max {d.max().item()})")
+    n, total = close(out[:2].cpu(), cpu, "flagship card vs CPU reference")
     fout = compile_pipeline(cfg, batched=True, quantize=False)(x)
     _require(bool(torch.isfinite(fout).all()) and fout.min().item() >= 0.0
              and fout.max().item() <= 1.0, "float output not finite in [0, 1]")
@@ -216,40 +374,90 @@ def main() -> int:
     _require(lat_out.shape == x.shape and lat_out.dtype == torch.uint8,
              "latency_config output shape/dtype")
     torch.cuda.synchronize()
-    print(f"slice checks: CLAHE stage == plain, card vs CPU plain chain "
-          f"{n} of {d.numel()} pixels differ, float output finite in [0,1], "
+    print(f"flagship checks: CLAHE stage == plain, card vs CPU plain chain "
+          f"{n} of {total} pixels differ, float output finite in [0,1], "
           f"single == batched row, latency_config runs")
+
+    sk_cfg = load_config(repo / "configs" / "xray_adapthist_skimage.yaml")
+    sk_fn, sk_launches = drive(sk_cfg, "skimage yaml", both,
+                               ("tile_hists_bins", "skimage_maps",
+                                "skimage_apply", "unsharp_quant"))
+    kw = sk_cfg.stages[0].kwargs()
+    _require(torch.equal(KC.clahe_batched(x, **kw), H.clahe(x, **kw)),
+             "skimage CLAHE stage (K1 bins + K6a + K6) differs from plain")
+    out = sk_fn(x8)
+    cpu = compile_pipeline(sk_cfg, batched=True)(x8[:2].cpu())
+    n, total = close(out[:2].cpu(), cpu, "skimage card vs CPU reference")
+    _require(torch.equal(compile_pipeline(sk_cfg)(x8[1]), out[1]),
+             "skimage single-slice output differs from the batched row")
+    print(f"skimage checks: CLAHE stage == plain, card vs CPU plain chain "
+          f"{n} of {total} pixels differ, single == batched row")
+
+    tail = ("unsharp_mask", {"radius": 1.0, "amount": 0.6})
+    fr_cfg = PipelineConfig.make(
+        [("clahe", {"clip_limit": 0.01, "grid_size": GRID,
+                    "convention": "fraction"}), tail], name="fraction")
+    _, fr_launches = drive(fr_cfg, "fraction", both[:1],
+                           ("tile_hists", "clahe_apply_lut", "unsharp_quant"))
+    ko_cfg = PipelineConfig.make(
+        [("clahe", {"clip_limit": 40.0, "grid_size": GRID,
+                    "convention": "kornia"}), tail], name="kornia")
+    drive(ko_cfg, "kornia (plain torch CLAHE)", both[:1], ("unsharp_quant",))
 
     # -- 5. timing ----------------------------------------------------------
     tp = time_pipeline(flagship_config(), (SIZE, SIZE), BATCH, device=dev)
+    tsk = time_pipeline(sk_cfg, (SIZE, SIZE), BATCH, device=dev)
     # 200 samples: the p95 has 10 samples beyond it
     lat = time_latency(flagship_config(), (SIZE, SIZE), repeats=200, device=dev)
     lat2 = time_latency(latency_config(), (SIZE, SIZE), repeats=200, device=dev)
     torch.cuda.synchronize()
-    print(f"throughput flagship b{BATCH} {SIZE}^2: "
-          f"{tp['slices_per_sec']:.1f} slices/s | {tp['ms_per_batch']:.4f} "
-          f"ms/batch | {card}")
+    for label, t in (("flagship", tp), ("skimage yaml", tsk)):
+        print(f"throughput {label} b{BATCH} {SIZE}^2: "
+              f"{t['slices_per_sec']:.1f} slices/s | {t['ms_per_batch']:.4f} "
+              f"ms/batch | {card}")
     print(f"latency flagship b1 {SIZE}^2 (200 x 32 calls): p50 "
           f"{lat['p50_ms']:.4f} ms | p95 "
           f"{lat['p95_ms']:.4f} ms | latency_config p50 {lat2['p50_ms']:.4f} "
           f"ms p95 {lat2['p95_ms']:.4f} ms | {card}")
+    for label, c in (("flagship", flagship_config()), ("skimage yaml", sk_cfg)):
+        prof = profile_pipeline(c, (SIZE, SIZE), BATCH, device=dev)
+        top = "; ".join(f"{name[:48]} {ms:.4f}" for name, ms in
+                        list(prof["by_kernel"].items())[:8])
+        print(f"profile {label} b{BATCH} {SIZE}^2: device "
+              f"{prof['device_ms_per_batch']:.4f} ms of "
+              f"{prof['ms_per_batch']:.4f} ms/batch (busy "
+              f"{prof['busy_share']:.1%}), {len(prof['by_kernel'])} device "
+              f"ops | top ms: {top} | {card}")
 
-    sources = {
-        "K1": ("tile_hists", "mies_tpu_torch/csrc/clahe.cu",
-               "mies_tpu/kernels/clahe.py:923"),
-        "K2": ("clahe_apply_lut", "mies_tpu_torch/csrc/clahe.cu",
-               "mies_tpu/kernels/clahe.py:242"),
-        "K3": ("bilateral", "mies_tpu_torch/csrc/bilateral.cu",
-               "mies_tpu/kernels/bilateral.py:106"),
-        "K4": ("unsharp_quant", "mies_tpu_torch/csrc/unsharp.cu",
-               "mies_tpu/kernels/unsharp_gauss.py:159"),
-    }
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": rec[k][0],
-         "ms": rec[k][1], "plain_ms": rec[k][2]}
-        for k, (name, src, rep) in sources.items()
-    ]
+    # name, record, counter, the run whose launches count, source, TPU kernel
+    sources = (
+        ("tile_hists", "K1", launches, "mies_tpu_torch/csrc/clahe.cu",
+         "mies_tpu/kernels/clahe.py:923"),
+        ("tile_hists_bins", "K1b", sk_launches, "mies_tpu_torch/csrc/clahe.cu",
+         "mies_tpu/kernels/clahe.py:923"),
+        ("clahe_apply_lut", "K2", launches, "mies_tpu_torch/csrc/clahe.cu",
+         "mies_tpu/kernels/clahe.py:242"),
+        ("clahe_apply_lut", "K2c", fr_launches, "mies_tpu_torch/csrc/clahe.cu",
+         "mies_tpu/kernels/clahe.py:242"),
+        ("bilateral", "K3", launches, "mies_tpu_torch/csrc/bilateral.cu",
+         "mies_tpu/kernels/bilateral.py:106"),
+        ("unsharp_quant", "K4", launches, "mies_tpu_torch/csrc/unsharp.cu",
+         "mies_tpu/kernels/unsharp_gauss.py:159"),
+        ("skimage_maps", "K6a", sk_launches,
+         "mies_tpu_torch/csrc/clahe_skimage.cu",
+         "mies_tpu/ops/histogram.py:602"),
+        ("skimage_apply", "K6", sk_launches,
+         "mies_tpu_torch/csrc/clahe_skimage.cu",
+         "mies_tpu/kernels/clahe.py:1271"),
+    )
+    names = {"K1b": "tile_hists_bins", "K2c": "clahe_apply_lut[clip01]",
+             "K2": "clahe_apply_lut[u8norm]"}
+    kernels = []
+    for counter, k, counts, src, rep in sources:
+        _require(counts[counter] >= 1, f"{k} never launched on its path")
+        kernels.append({"name": names.get(k, counter), "route": "cuda",
+                        "source": src, "replaces": rep,
+                        "launches": counts[counter], **rec[k]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@ hand-written CUDA kernels (``csrc/``, built with nvcc at first use) where
 the reference had Pallas TPU kernels. It imports neither jax nor mies_tpu.
 
 Ported so far: the flagship CLAHE -> bilateral -> unsharp chain
-(``pipeline.presets.flagship_config``). ROADMAP.md lists what follows.
+(``pipeline.presets.flagship_config``) and the clahe op in its four
+conventions (opencv, fraction, skimage, kornia; e.g.
+``configs/xray_adapthist_skimage.yaml``). ROADMAP.md lists what follows.
 
     import torch, mies_tpu_torch
     cfg = mies_tpu_torch.load_config("configs/xray_clahe.yaml")

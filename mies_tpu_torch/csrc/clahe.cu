@@ -2,7 +2,12 @@
 //
 // K1 (mies_tile_hists) replaces mies_tpu/kernels/clahe.py:_hist_rows_kernel
 // (and answers _hist_kernel): per-tile 256-bin counts with the uint8 level
-// quantize done in the kernel. The TPU built its histograms from nibble
+// quantize done in the kernel. Its bins mode (mies_tile_hists_bins) counts
+// int32 bin indices that are already computed into nbins bins per region,
+// over a window of a larger array at a row and column offset: the skimage
+// convention's regions (_hist_rows_kernel with quantize_input=False, and
+// _hist_kernel for odd region columns or kc % 64 != 0) without a copy of
+// the crop. The TPU built its histograms from nibble
 // onehot matmuls because it has no scatter; Hopper has shared-memory
 // atomics, so one block owns one tile and counts into a 256-bin shared
 // histogram. Bound: one read of the image (4 B/pixel) plus shared-memory
@@ -13,7 +18,9 @@
 // K2 (mies_apply_lut) replaces mies_tpu/kernels/clahe.py:_apply33_kernel
 // (and answers _apply_kernel_slab, _apply_kernel and the clahe_variants
 // kernels): the OpenCV bilinear blend of the four neighbouring tiles' LUTs
-// at each pixel's level, then the u8norm epilogue clip(rint(v),0,255)/255.
+// at each pixel's level, then the u8norm epilogue clip(rint(v),0,255)/255
+// (opencv: integer LUTs) or the clip01 epilogue clip(v, 0, 1) (fraction:
+// fractional LUTs cdf / tile_area).
 // The TPU selected LUT entries by onehot matmul because it has no gather;
 // here one block owns one tile, stages the 3x3 neighbour LUTs (9 x 256 f32)
 // in shared memory and gathers from them. Bound: 4 B read + 4 B written per
@@ -63,10 +70,36 @@ tile_hists_kernel(const float* __restrict__ x, int* __restrict__ hist,
   for (int k = threadIdx.x; k < kBins; k += blockDim.x) out[k] = counts[k];
 }
 
+// One block per region of the window whose top-left corner is (y0, x0) in
+// each [H, W] slice; nbins int counters in dynamic shared memory. A bin
+// outside [0, nbins) is not counted (the wrapper's binning never makes one).
+__global__ void __launch_bounds__(kThreads)
+tile_hists_bins_kernel(const int* __restrict__ bins, int* __restrict__ hist,
+                       int H, int W, int y0, int x0, int gy, int gx, int th,
+                       int tw, int nbins) {
+  extern __shared__ int counts_dyn[];
+  const int j = blockIdx.x, i = blockIdx.y, b = blockIdx.z;
+  for (int k = threadIdx.x; k < nbins; k += blockDim.x) counts_dyn[k] = 0;
+  __syncthreads();
+
+  const int* tile = bins + static_cast<size_t>(b) * H * W +
+                    static_cast<size_t>(y0 + i * th) * W + x0 + j * tw;
+  const int npx = th * tw;
+  for (int p = threadIdx.x; p < npx; p += blockDim.x) {
+    const int v = tile[static_cast<size_t>(p / tw) * W + p % tw];
+    if (static_cast<unsigned>(v) < static_cast<unsigned>(nbins))
+      atomicAdd(&counts_dyn[v], 1);
+  }
+  __syncthreads();
+
+  int* out = hist + ((static_cast<size_t>(b) * gy + i) * gx + j) * nbins;
+  for (int k = threadIdx.x; k < nbins; k += blockDim.x) out[k] = counts_dyn[k];
+}
+
 __global__ void __launch_bounds__(kThreads)
 apply_lut_kernel(const float* __restrict__ x, const float* __restrict__ luts,
                  float* __restrict__ out, int H, int W, int gy, int gx,
-                 int th, int tw, float inv_th, float inv_tw) {
+                 int th, int tw, float inv_th, float inv_tw, int clip01) {
   // stack[(s * 3 + c) * 256 + bin]: LUT of tile (i - 1 + s, j - 1 + c),
   // clamped to the grid like the TPU kernel's edge-padded LUT stack
   __shared__ float stack[9 * kBins];
@@ -110,7 +143,8 @@ apply_lut_kernel(const float* __restrict__ x, const float* __restrict__ luts,
     const float top = __fadd_rn(__fmul_rn(row1[c1], omx), __fmul_rn(row1[c2], xa));
     const float bot = __fadd_rn(__fmul_rn(row2[c1], omx), __fmul_rn(row2[c2], xa));
     const float res = __fadd_rn(__fmul_rn(top, omy), __fmul_rn(bot, ya));
-    dst[at] = __fdiv_rn(fminf(fmaxf(rintf(res), 0.0f), 255.0f), 255.0f);
+    dst[at] = clip01 ? fminf(fmaxf(res, 0.0f), 1.0f)
+                     : __fdiv_rn(fminf(fmaxf(rintf(res), 0.0f), 255.0f), 255.0f);
   }
 }
 
@@ -126,13 +160,26 @@ extern "C" int mies_tile_hists(const float* x, int* hist, int B, int H, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x, out: [B, H, W] f32; luts: [B, gy, gx, 256] f32, integer-valued.
-// inv_th / inv_tw are the host's correctly rounded f32 reciprocals.
+// bins: [B, H, W] int32; hist: [B, gy, gx, nbins] int32, counted over the
+// window rows [y0, y0 + gy*th) and columns [x0, x0 + gx*tw).
+extern "C" int mies_tile_hists_bins(const int* bins, int* hist, int B, int H,
+                                    int W, int y0, int x0, int gy, int gx,
+                                    int th, int tw, int nbins,
+                                    cudaStream_t stream) {
+  tile_hists_bins_kernel<<<dim3(gx, gy, B), kThreads,
+                           nbins * sizeof(int), stream>>>(
+      bins, hist, H, W, y0, x0, gy, gx, th, tw, nbins);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, out: [B, H, W] f32; luts: [B, gy, gx, 256] f32 (integer-valued for
+// the u8norm epilogue, fractional for clip01). inv_th / inv_tw are the
+// host's correctly rounded f32 reciprocals; clip01 selects the epilogue.
 extern "C" int mies_apply_lut(const float* x, const float* luts, float* out,
                               int B, int H, int W, int gy, int gx, int th,
-                              int tw, float inv_th, float inv_tw,
+                              int tw, float inv_th, float inv_tw, int clip01,
                               cudaStream_t stream) {
   apply_lut_kernel<<<dim3(gx, gy, B), kThreads, 0, stream>>>(
-      x, luts, out, H, W, gy, gx, th, tw, inv_th, inv_tw);
+      x, luts, out, H, W, gy, gx, th, tw, inv_th, inv_tw, clip01);
   return static_cast<int>(cudaGetLastError());
 }

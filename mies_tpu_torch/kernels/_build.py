@@ -1,6 +1,7 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-All of ``mies_tpu_torch/csrc/*.cu`` compiles with ONE ``nvcc`` call into
+Each ``mies_tpu_torch/csrc/*.cu`` compiles to an object with its own
+``nvcc``, all started together, and one more ``nvcc`` links them into
 ``mies_tpu_torch/_build/libmies_kernels.so`` (a plain C interface, no
 PyTorch headers, so the build takes seconds), at first use, and again
 whenever the sources' hash changes. The library is loaded with ``ctypes``.
@@ -36,7 +37,7 @@ LIBRARY = BUILD_DIR / "libmies_kernels.so"
 CUDA_HOMES = ("/usr/local/cuda",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -44,13 +45,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes never truncates a 64-bit address to an int)
 _SIGNATURES = {
     "mies_tile_hists": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "mies_apply_lut": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "mies_tile_hists_bins": (_P, _P, *(_I,) * 10, _P),
+    "mies_apply_lut": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+    "mies_skimage_maps": (_P, _P, _I, _I, _I, _F, _P),
+    "mies_skimage_apply": (_P, _P, _P, *(_I,) * 12, _P),
     "mies_bilateral": (_P, _P, _I, _I, _I, _I, _P, _F, _I, _P),
     "mies_unsharp": (_P, _P, _I, _I, _I, _P, _I, _F, _I, _P),
 }
 
 # launches per kernel wrapper since the last reset_launches()
-LAUNCHES = {"tile_hists": 0, "clahe_apply_lut": 0, "bilateral": 0,
+LAUNCHES = {"tile_hists": 0, "tile_hists_bins": 0, "clahe_apply_lut": 0,
+            "skimage_maps": 0, "skimage_apply": 0, "bilateral": 0,
             "unsharp_quant": 0}
 
 _lib: ctypes.CDLL | None = None
@@ -99,22 +104,31 @@ def build() -> bool:
         return False
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        lib = Path(tmp) / LIBRARY.name
+        _run_all([[nvcc, "-shared", "-o", str(lib), *map(str, objs)]])
+        os.replace(lib, LIBRARY)
     stamp.write_text(digest)
     return True
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Start every command at once, wait for all of them, and raise with
+    the compiler's output if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(proc.args)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def library() -> ctypes.CDLL:

@@ -1,15 +1,22 @@
-"""CLAHE on the card: K1 (tile histograms) -> LUT build -> K2 (LUT apply).
+"""CLAHE on the card: the kernels of ``csrc/clahe.cu`` and
+``csrc/clahe_skimage.cu`` and the compositions of the four conventions.
 
-``clahe_cuda`` composes the two hand-written kernels of ``csrc/clahe.cu``
-with the small LUT build (clip/redistribute, cumsum, rint) left to plain
-torch on the device, as ``mies_tpu.kernels.clahe.clahe_tpu`` leaves it to
-XLA. The kernel wrappers ``tile_hists`` and ``clahe_apply_lut`` launch
-their kernel for a CUDA tensor and run their plain version (from
-``ops.histogram``) only for a CPU tensor.
+* opencv and fraction (``clahe_cuda``): K1 (tile histograms) -> the small
+  LUT build in plain torch on the device, as
+  ``mies_tpu.kernels.clahe.clahe_tpu`` leaves it to XLA -> K2 (LUT apply,
+  epilogue u8norm or clip01).
+* skimage (``clahe_skimage_cuda``, after ``clahe_skimage_tpu``): the 14-bit
+  scale-in, pad and binning in plain torch on the device -> K1 in bins
+  mode (region histograms over the crop of the padded binned image) ->
+  K6a (clip + redistribution + map build) -> K6 (map blend) -> the
+  per-image stretch in plain torch.
+* kornia has no kernel here, as it has none in the JAX package: it runs
+  its plain torch on the device.
 
-Any image shape runs: a ragged image's OpenCV bottom/right reflect-101
-pad is resolved inside K1, and K2 writes only the unpadded pixels, so no
-padded copy of the batch is ever made.
+Each kernel wrapper launches its kernel for a CUDA tensor and runs its
+plain version (``*_plain``, from ``ops.histogram``) only for a CPU tensor.
+Any image shape runs: a ragged image's OpenCV bottom/right reflect-101 pad
+is resolved inside K1, and K2 and K6 write only the unpadded pixels.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from mies_tpu_torch.kernels import _build
 from mies_tpu_torch.ops import histogram as H
 
 NBINS = H.NBINS
+MAX_BINS = 1024  # K6a runs one thread per bin, and a block has at most 1024
+_FINALIZE = {"u8norm": 0, "clip01": 1}
 
 
 def _tile_shape(shape, grid_size) -> tuple[int, int]:
@@ -36,6 +45,22 @@ def _tile_shape(shape, grid_size) -> tuple[int, int]:
             f"image {h}x{w} is too small for a {gy}x{gx} CLAHE grid"
         )
     return (h + ph) // gy, (w + pw) // gx
+
+
+def _check_nbins(nbins: int) -> None:
+    if not 2 <= nbins <= MAX_BINS:
+        raise ValueError(
+            f"nbins={nbins}: the skimage kernels take 2..{MAX_BINS} bins "
+            f"(K6a runs one thread per bin)"
+        )
+
+
+def _same_device(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+    if a.device != b.device:
+        raise ValueError(f"{what} on {a.device}, expected {b.device}")
+
+
+# --- K1: tile histograms ----------------------------------------------------
 
 
 def tile_hists_plain(x: torch.Tensor, grid_size) -> torch.Tensor:
@@ -63,53 +88,200 @@ def tile_hists(x: torch.Tensor, grid_size) -> torch.Tensor:
     return out
 
 
-def clahe_apply_lut_plain(x: torch.Tensor, luts: torch.Tensor, grid_size
-                          ) -> torch.Tensor:
-    """Plain version of K2: bilinear LUT blend + u8norm epilogue."""
+def tile_hists_bins_plain(bins: torch.Tensor, origin, grid_size, tile,
+                          nbins: int) -> torch.Tensor:
+    """Plain version of K1's bins mode: counts of the window of ``bins``."""
+    (y0, x0), (gy, gx), (th, tw) = origin, grid_size, tile
+    win = bins[:, y0:y0 + gy * th, x0:x0 + gx * tw]
+    counts = H._tile_histograms(win, (gy, gx), nbins)
+    return counts.reshape(bins.shape[0], gy, gx, nbins).to(torch.int32)
+
+
+def tile_hists_bins(bins: torch.Tensor, origin, grid_size, tile,
+                    nbins: int) -> torch.Tensor:
+    """K1, bins mode: ``nbins``-bin counts of int32 bin indices over the
+    gy x gx regions of th x tw pixels whose grid starts at ``origin``
+    (row, column) of each slice, read in place.
+
+    bins: [B, H, W] int32 in [0, nbins), contiguous. Returns
+    [B, gy, gx, nbins] int32."""
+    _build.check_tensor(bins, "tile_hists_bins: bins", dtype=torch.int32)
+    _check_nbins(nbins)
+    (y0, x0), (gy, gx), (th, tw) = origin, grid_size, tile
+    B, h, w = bins.shape
+    if min(y0, x0) < 0 or min(gy, gx, th, tw) < 1 or \
+            y0 + gy * th > h or x0 + gx * tw > w:
+        raise ValueError(
+            f"window at {tuple(origin)} of {gy}x{gx} regions of {th}x{tw} "
+            f"does not fit a {h}x{w} slice"
+        )
+    if bins.device.type == "cpu":
+        return tile_hists_bins_plain(bins, origin, grid_size, tile, nbins)
+    out = torch.empty((B, gy, gx, nbins), dtype=torch.int32, device=bins.device)
+    _build.launch("tile_hists_bins", "mies_tile_hists_bins", bins.device,
+                  bins.data_ptr(), out.data_ptr(), B, h, w, y0, x0, gy, gx,
+                  th, tw, nbins)
+    return out
+
+
+# --- K2: LUT apply ----------------------------------------------------------
+
+
+def clahe_apply_lut_plain(x: torch.Tensor, luts: torch.Tensor, grid_size,
+                          finalize: str = "u8norm") -> torch.Tensor:
+    """Plain version of K2: bilinear LUT blend + the epilogue."""
     th, tw = _tile_shape(x.shape[-2:], grid_size)
     res = H._bilinear_lut_apply(H._levels(x), luts, tuple(grid_size),
                                 tile_shape=(th, tw))
-    return H._u8norm(res)
+    if finalize == "u8norm":
+        return H._u8norm(res)
+    return torch.clamp(res, 0.0, 1.0)
 
 
-def clahe_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid_size
-                    ) -> torch.Tensor:
+def clahe_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid_size,
+                    finalize: str = "u8norm") -> torch.Tensor:
     """K2: OpenCV bilinear LUT interpolation at each pixel's uint8 level,
-    finalized as clip(rint(v), 0, 255) / 255.
+    finalized as clip(rint(v), 0, 255) / 255 ("u8norm", integer LUTs) or
+    clip(v, 0, 1) ("clip01", the fraction convention's LUTs).
 
-    x: [B, H, W] float32 in [0, 1]; luts: [B, gy, gx, 256] float32
-    (integer-valued), both contiguous. Returns [B, H, W] float32."""
+    x: [B, H, W] float32 in [0, 1]; luts: [B, gy, gx, 256] float32, both
+    contiguous. Returns [B, H, W] float32."""
     _build.check_tensor(x, "clahe_apply_lut: x")
     _build.check_tensor(luts, "clahe_apply_lut: luts", ndim=4)
+    if finalize not in _FINALIZE:
+        raise ValueError(f"finalize must be one of {sorted(_FINALIZE)}, "
+                         f"got {finalize!r}")
     gy, gx = grid_size
     B, h, w = x.shape
     if tuple(luts.shape) != (B, gy, gx, NBINS):
         raise ValueError(f"luts: expected {(B, gy, gx, NBINS)}, got "
                          f"{tuple(luts.shape)}")
-    if luts.device != x.device:
-        raise ValueError(f"luts on {luts.device}, x on {x.device}")
+    _same_device(luts, x, "luts")
     th, tw = _tile_shape((h, w), (gy, gx))
     if x.device.type == "cpu":
-        return clahe_apply_lut_plain(x, luts, (gy, gx))
+        return clahe_apply_lut_plain(x, luts, (gy, gx), finalize)
     out = torch.empty_like(x)
     inv_th = float(np.float32(1.0) / np.float32(th))
     inv_tw = float(np.float32(1.0) / np.float32(tw))
     _build.launch("clahe_apply_lut", "mies_apply_lut", x.device,
                   x.data_ptr(), luts.data_ptr(), out.data_ptr(),
-                  B, h, w, gy, gx, th, tw, inv_th, inv_tw)
+                  B, h, w, gy, gx, th, tw, inv_th, inv_tw,
+                  _FINALIZE[finalize])
     return out
 
 
+# --- K6a and K6: the skimage map build and blend ----------------------------
+
+
+def skimage_maps_plain(hists: torch.Tensor, clim: int, k_elems: int
+                       ) -> torch.Tensor:
+    """Plain version of K6a: skimage clip + redistribution, then maps."""
+    clipped = H._clip_histogram_skimage(hists, clim, hists.shape[-1])
+    return H._skimage_maps(clipped, k_elems)
+
+
+def skimage_maps(hists: torch.Tensor, clim: int, k_elems: int) -> torch.Tensor:
+    """K6a: region maps from integer region histograms.
+
+    hists: [B, nr, nc, nbins] int32 counts, contiguous; clim: the integer
+    clip limit; k_elems: pixels per region. Returns float32 maps of the
+    same shape, floor(min(cumsum(clipped) * f32(16383 / k_elems), 16383))."""
+    _build.check_tensor(hists, "skimage_maps: hists", ndim=4, dtype=torch.int32)
+    nbins = hists.shape[-1]
+    _check_nbins(nbins)
+    if hists.device.type == "cpu":
+        return skimage_maps_plain(hists, clim, k_elems)
+    out = torch.empty(hists.shape, dtype=torch.float32, device=hists.device)
+    scale = float(np.float32((H.NR_OF_GRAY - 1) / k_elems))
+    _build.launch("skimage_maps", "mies_skimage_maps", hists.device,
+                  hists.data_ptr(), out.data_ptr(), hists.numel() // nbins,
+                  nbins, int(clim), scale)
+    return out
+
+
+def skimage_apply_plain(binned: torch.Tensor, maps: torch.Tensor,
+                        kernel_size, origin, out_shape) -> torch.Tensor:
+    """Plain version of K6."""
+    return H._skimage_apply(binned, maps, tuple(kernel_size), tuple(origin),
+                            tuple(out_shape))
+
+
+def skimage_apply(binned: torch.Tensor, maps: torch.Tensor, kernel_size,
+                  origin, out_shape) -> torch.Tensor:
+    """K6: skimage's bilinear blend of the four neighbouring region maps,
+    floored, at the pixels of the ``out_shape`` crop whose top-left corner
+    is ``origin`` of the padded binned image.
+
+    binned: [B, H, W] int32 bins in [0, nbins); maps: [B, nr, nc, nbins]
+    float32 integer-valued; both contiguous. Returns [B, H0, W0] float32."""
+    _build.check_tensor(binned, "skimage_apply: binned", dtype=torch.int32)
+    _build.check_tensor(maps, "skimage_apply: maps", ndim=4)
+    _same_device(maps, binned, "maps")
+    (kr, kc), (y0, x0), (h0, w0) = kernel_size, origin, out_shape
+    B, h, w = binned.shape
+    _, nr, nc, nbins = maps.shape
+    _check_nbins(nbins)
+    if maps.shape[0] != B or min(kr, kc, h0, w0) < 1 or min(y0, x0) < 0 \
+            or y0 + h0 > h or x0 + w0 > w:
+        raise ValueError(
+            f"skimage_apply: crop {tuple(out_shape)} at {tuple(origin)} of "
+            f"{tuple(binned.shape)} with maps {tuple(maps.shape)}"
+        )
+    if binned.device.type == "cpu":
+        return skimage_apply_plain(binned, maps, kernel_size, origin, out_shape)
+    out = torch.empty((B, h0, w0), dtype=torch.float32, device=binned.device)
+    _build.launch("skimage_apply", "mies_skimage_apply", binned.device,
+                  binned.data_ptr(), maps.data_ptr(), out.data_ptr(), B, h, w,
+                  nr, nc, kr, kc, nbins, y0, x0, h0, w0)
+    return out
+
+
+# --- the conventions --------------------------------------------------------
+
+
 def clahe_cuda(
-    x: torch.Tensor, clip_limit: float = 2.0, grid_size=(8, 8)
+    x: torch.Tensor, clip_limit: float = 2.0, grid_size=(8, 8),
+    convention: str = "opencv",
 ) -> torch.Tensor:
-    """OpenCV-convention CLAHE of [B, H, W] float32: K1 -> LUT build in
-    plain torch on x's device -> K2. Same numbers as ops.histogram.clahe."""
+    """opencv- or fraction-convention CLAHE of [B, H, W] float32: K1 -> LUT
+    build in plain torch on x's device -> K2. Same numbers as
+    ops.histogram.clahe."""
+    if convention not in ("opencv", "fraction"):
+        raise ValueError(f"clahe_cuda runs 'opencv' and 'fraction', not "
+                         f"{convention!r}")
     gy, gx = grid_size
     th, tw = _tile_shape(x.shape[-2:], (gy, gx))
     hists = tile_hists(x, (gy, gx)).reshape(x.shape[0], gy * gx, NBINS)
-    luts = H._luts_opencv(hists.to(torch.float32), clip_limit, th * tw)
-    return clahe_apply_lut(x, luts.reshape(x.shape[0], gy, gx, NBINS), (gy, gx))
+    if convention == "opencv":
+        luts = H._luts_opencv(hists.to(torch.float32), clip_limit, th * tw)
+        finalize = "u8norm"
+    else:
+        luts = H._luts_fraction(hists.to(torch.float32), clip_limit, th * tw)
+        finalize = "clip01"
+    return clahe_apply_lut(x, luts.reshape(x.shape[0], gy, gx, NBINS),
+                           (gy, gx), finalize)
+
+
+def clahe_skimage_cuda(
+    batch: torch.Tensor, kernel_size, clip_limit: float = 0.01,
+    nbins: int = NBINS,
+) -> torch.Tensor:
+    """skimage-convention CLAHE of [B, H, W] float32 with regions of
+    ``kernel_size``: plain scale-in and binning -> K1 bins -> K6a -> K6 ->
+    plain stretch. Same numbers as ops.histogram.clahe(convention=
+    "skimage")."""
+    _build.check_tensor(batch, "clahe_skimage: batch")
+    _check_nbins(nbins)
+    kr, kc = kernel_size
+    h0, w0 = batch.shape[-2:]
+    (pr0, _, pc0, _), (nr, nc) = H.skimage_geometry((h0, w0), (kr, kc))
+    binned = H._skimage_binned(batch, (kr, kc), nbins)
+    k_elems = kr * kc
+    clim = int(np.clip(clip_limit * k_elems, 1, None))
+    hists = tile_hists_bins(binned, (pr0, pc0), (nr, nc), (kr, kc), nbins)
+    maps = skimage_maps(hists, clim, k_elems)
+    result = skimage_apply(binned, maps, (kr, kc), (pr0, pc0), (h0, w0))
+    return H._skimage_stretch_out(result)
 
 
 def clahe_batched(
@@ -120,10 +292,15 @@ def clahe_batched(
     nbins: int = NBINS,
     kernel_size=None,
 ) -> torch.Tensor:
-    """The pipeline's batched CLAHE: the kernels for a CUDA tensor, the
-    plain ``ops.histogram.clahe`` over the batch for a CPU tensor."""
+    """The pipeline's batched CLAHE. For a CUDA tensor: skimage through
+    K1 bins / K6a / K6, opencv and fraction through K1 / K2, kornia in
+    plain torch on the card. For a CPU tensor: ``ops.histogram.clahe``."""
     H.check_convention(convention, nbins)
+    grid = tuple(grid_size)
     if batch.device.type == "cuda":
-        return clahe_cuda(batch, clip_limit, tuple(grid_size))
-    return H.clahe(batch, clip_limit, tuple(grid_size), convention, nbins,
-                   kernel_size)
+        if convention == "skimage":
+            ks = H.skimage_kernel_size(batch.shape[-2:], grid, kernel_size)
+            return clahe_skimage_cuda(batch, ks, clip_limit, nbins)
+        if convention in ("opencv", "fraction"):
+            return clahe_cuda(batch, clip_limit, grid, convention)
+    return H.clahe(batch, clip_limit, grid, convention, nbins, kernel_size)

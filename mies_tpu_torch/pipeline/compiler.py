@@ -7,10 +7,13 @@ runs on the input tensor's device: on a CUDA tensor the batched stages
 launch the hand-written kernels of ``mies_tpu_torch.kernels``, on a CPU
 tensor they run their plain PyTorch versions.
 
-Batched chain, the flagship path:
-  ingest (uint8 / uint16 -> float [0, 1])
-  -> clahe (K1, LUT build, K2) -> bilateral_blur (K3)
-  -> unsharp_mask + uint8 quantize as one kernel (K4, the tail peephole).
+Batched chains on the card:
+  flagship: ingest (uint8 / uint16 -> float [0, 1])
+    -> clahe opencv (K1, LUT build, K2) -> bilateral_blur (K3)
+    -> unsharp_mask + uint8 quantize as one kernel (K4, the tail peephole);
+  configs/xray_adapthist_skimage.yaml: ingest
+    -> clahe skimage (K1 bins, K6a, K6) -> unsharp + quantize (K4).
+The fraction convention runs K1 and K2 (clip01), kornia plain torch.
 """
 
 from __future__ import annotations
@@ -46,8 +49,9 @@ _BATCHED_OPS: dict[str, Callable] = {
 
 
 def _check_ported(cfg: PipelineConfig) -> None:
-    """Fail at chain-build time for what the port does not run yet (a
-    config built in code has not been through load_config's checks)."""
+    """Fail at chain-build time for a config the port cannot run (one
+    built in code has not been through load_config's checks), including
+    the clahe op's own argument rules."""
     validate(cfg)
     for s in cfg.stages:
         if s.op == "clahe":

@@ -1,4 +1,10 @@
-"""Throughput and latency harnesses on the card, timed with CUDA events.
+"""Throughput, latency and device-time harnesses on the card (CUDA events,
+``torch.profiler``).
+
+    python -m mies_tpu_torch.pipeline.runner configs/xray_adapthist_skimage.yaml
+
+prints one JSON line: the config's batched throughput at b32 512^2 (and,
+with --profile, its device time by kernel and busy share).
 
 A measurement needs a CUDA device: asked for any other device, or run
 where there is no card, these raise instead of timing the CPU.
@@ -6,11 +12,14 @@ where there is no card, these raise instead of timing the CPU.
 
 from __future__ import annotations
 
+import argparse
+import json
+
 import numpy as np
 import torch
 
 from mies_tpu_torch.pipeline.compiler import compile_pipeline
-from mies_tpu_torch.pipeline.config import PipelineConfig
+from mies_tpu_torch.pipeline.config import PipelineConfig, load_config
 
 
 def _cuda_device(device) -> torch.device:
@@ -104,3 +113,73 @@ def time_latency(
         "program": "single-slice",
         "device": torch.cuda.get_device_name(dev),
     }
+
+
+def profile_pipeline(
+    cfg: PipelineConfig,
+    shape: tuple[int, int] = (512, 512),
+    batch_size: int = 32,
+    iters: int = 10,
+    device="cuda",
+) -> dict:
+    """Where a batched call's time goes: device time per batch by kernel
+    name (``torch.profiler`` over ``iters`` calls, kernels, copies and
+    fills alike), the unprofiled event-timed ms per batch over as many
+    calls, and their ratio, the device's busy share (the rest is time the
+    host keeps the card waiting)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _cuda_device(device)
+    rng = np.random.default_rng(0)
+    batch = torch.from_numpy(
+        rng.random((batch_size, *shape), dtype=np.float32)
+    ).to(dev)
+    fn = compile_pipeline(cfg, batched=True, quantize=True)
+    with torch.cuda.device(dev):
+        for _ in range(3):
+            fn(batch)
+        torch.cuda.synchronize(dev)
+        wall = _ms_per_call(fn, batch, iters)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn(batch)
+            torch.cuda.synchronize(dev)
+    by_kernel = {
+        evt.key: evt.self_device_time_total / 1e3 / iters
+        for evt in prof.key_averages()
+        if evt.device_type == torch.autograd.DeviceType.CUDA
+        and evt.self_device_time_total > 0
+    }
+    device_ms = sum(by_kernel.values())
+    return {
+        "ms_per_batch": wall,
+        "device_ms_per_batch": device_ms,
+        "busy_share": device_ms / wall,
+        "by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])),
+        "batch_size": batch_size,
+        "shape": list(shape),
+        "device": torch.cuda.get_device_name(dev),
+    }
+
+
+def main(argv: list[str] | None = None) -> int:
+    from mies_tpu_torch.pipeline.presets import flagship_config
+
+    ap = argparse.ArgumentParser(
+        description="Time a config's batched chain on the card; one JSON line.")
+    ap.add_argument("config", nargs="?",
+                    help="a .yaml/.json config (default: the flagship chain)")
+    ap.add_argument("--profile", action="store_true",
+                    help="also report device time by kernel (torch.profiler)")
+    args = ap.parse_args(argv)
+    cfg = load_config(args.config) if args.config else flagship_config()
+    result = {"config": cfg.name, **time_pipeline(cfg)}
+    if args.profile:
+        result["profile"] = profile_pipeline(cfg)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -206,3 +206,61 @@ def test_k4_on_card_equals_plain(cuda_device, quantize):
     got = KU.unsharp_quant_cuda(x, 1.5, 1.0, quantize=quantize)
     assert torch.equal(got, KU.unsharp_quant_plain(x, 1.5, 1.0,
                                                    quantize=quantize))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("origin,grid,tile,nbins", [
+    ((32, 32), (4, 5), (64, 64), 256),
+    ((15, 20), (8, 8), (31, 41), 253),
+])
+def test_k1_bins_on_card_equals_plain(cuda_device, origin, grid, tile, nbins):
+    rng = np.random.default_rng(4)
+    bins = torch.from_numpy(
+        rng.integers(0, nbins, (2, 300, 400)).astype(np.int32)).to(cuda_device)
+    _build.reset_launches()
+    got = KC.tile_hists_bins(bins, origin, grid, tile, nbins)
+    assert _build.LAUNCHES["tile_hists_bins"] == 1
+    assert torch.equal(got, KC.tile_hists_bins_plain(bins, origin, grid, tile,
+                                                      nbins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbins,clim", [(256, 12), (100, 25), (1000, 3)])
+def test_k6a_on_card_equals_plain(cuda_device, nbins, clim):
+    rng = np.random.default_rng(5)
+    hists = rng.poisson(np.linspace(1.0, 40.0, nbins), (2, 4, 4, nbins))
+    hists = torch.from_numpy(hists.astype(np.int32)).to(cuda_device)
+    _, steps = TH._clip_histogram_skimage(hists, clim, nbins, with_steps=True)
+    assert steps.max().item() > 0  # phase 3 runs
+    got = KC.skimage_maps(hists, clim, 4096)
+    assert torch.equal(got, KC.skimage_maps_plain(hists, clim, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ks", [((2, 128, 128), (64, 64)),
+                                      ((1, 251, 333), (31, 41))])
+def test_skimage_on_card_equals_plain(cuda_device, shape, ks):
+    x = _on(cuda_device, shape, 6)
+    _build.reset_launches()
+    got = KC.clahe_skimage_cuda(x, ks, 0.01)
+    for name in ("tile_hists_bins", "skimage_maps", "skimage_apply"):
+        assert _build.LAUNCHES[name] == 1
+    assert torch.equal(got, TH.clahe(x, 0.01, convention="skimage",
+                                     kernel_size=ks))
+    (pr0, _, pc0, _), (nr, nc) = TH.skimage_geometry(shape[1:], ks)
+    binned = TH._skimage_binned(x, ks, 256)
+    maps = KC.skimage_maps(
+        KC.tile_hists_bins(binned, (pr0, pc0), (nr, nc), ks, 256), 10, 4096)
+    args = (ks, (pr0, pc0), shape[1:])
+    assert torch.equal(KC.skimage_apply(binned, maps, *args),
+                       KC.skimage_apply_plain(binned, maps, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 128), (1, 251, 333)])
+def test_k2_clip01_on_card_equals_plain(cuda_device, shape):
+    x = _on(cuda_device, shape, 7)
+    _build.reset_launches()
+    got = KC.clahe_cuda(x, 0.01, (8, 8), "fraction")
+    assert _build.LAUNCHES["clahe_apply_lut"] == 1
+    assert torch.equal(got, TH.clahe(x, 0.01, (8, 8), "fraction"))

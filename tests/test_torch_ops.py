@@ -73,10 +73,19 @@ def test_clahe_batch_dims_match_per_slice(rng):
         assert torch.equal(batched[i], single)
 
 
-@pytest.mark.parametrize("convention", ["skimage", "fraction", "kornia"])
-def test_clahe_unported_convention_raises(convention):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TH.clahe(torch.zeros(16, 16), convention=convention)
+@pytest.mark.parametrize("convention,nbins,exc,match", [
+    ("nope", 256, ValueError, "unknown CLAHE convention"),
+    ("opencv", 128, NotImplementedError, "only the skimage convention"),
+    ("skimage", 1, ValueError, "nbins must be >= 2"),
+])
+def test_clahe_argument_errors_match_jax(convention, nbins, exc, match):
+    """Every convention is ported; the reference's own argument rules
+    remain, with the same exception in both packages."""
+    with pytest.raises(exc, match=match):
+        JH.clahe(jnp.zeros((16, 16), jnp.float32), convention=convention,
+                 nbins=nbins)
+    with pytest.raises(exc, match=match):
+        TH.clahe(torch.zeros(16, 16), convention=convention, nbins=nbins)
 
 
 @pytest.mark.parametrize("clip_value", [1.0, 8.0, 32.0, 100.0])

@@ -23,7 +23,12 @@ from mies_tpu.pipeline.presets import flagship_config as jax_flagship
 from mies_tpu_torch.kernels import _build
 from mies_tpu_torch.pipeline.compiler import build_chain
 from mies_tpu_torch.pipeline.presets import flagship_config, latency_config
-from mies_tpu_torch.pipeline.runner import time_latency, time_pipeline
+from mies_tpu_torch.pipeline.runner import main as runner_main
+from mies_tpu_torch.pipeline.runner import (
+    profile_pipeline,
+    time_latency,
+    time_pipeline,
+)
 
 torch.set_num_threads(2)
 
@@ -103,10 +108,27 @@ def test_bad_config_raises_at_load(tmp_path, stage, match):
         mies_tpu_torch.load_config(_write_config(tmp_path, [stage]))
 
 
-def test_unported_clahe_convention_raises_at_build():
+@pytest.mark.parametrize("convention,clip", [
+    ("opencv", 2.0), ("fraction", 0.01), ("skimage", 0.01), ("kornia", 40.0)])
+def test_every_clahe_convention_runs_through_compile_pipeline(rng, convention,
+                                                              clip):
+    stages = [("clahe", {"clip_limit": clip, "grid_size": (4, 4),
+                         "convention": convention})]
+    x = rng.random((2, 64, 96)).astype(np.float32)
+    ref = np.asarray(mies_tpu.compile_pipeline(
+        mies_tpu.PipelineConfig.make(stages), batched=True, donate=False)(
+            jnp.asarray(x)))
+    out = mies_tpu_torch.compile_pipeline(
+        mies_tpu_torch.PipelineConfig.make(stages), batched=True)(
+            torch.from_numpy(x)).numpy()
+    d = np.abs(out.astype(int) - ref.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
+
+
+def test_clahe_argument_rules_raise_at_build():
     cfg = mies_tpu_torch.PipelineConfig.make(
-        [("clahe", {"convention": "skimage"})])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        [("clahe", {"convention": "opencv", "nbins": 128})])
+    with pytest.raises(NotImplementedError, match="only the skimage"):
         mies_tpu_torch.compile_pipeline(cfg, batched=True)
 
 
@@ -122,6 +144,11 @@ def test_timing_refuses_the_cpu():
         time_pipeline(flagship_config(), (64, 64), 2, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA device"):
         time_latency(latency_config(), (64, 64), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        profile_pipeline(latency_config(), (64, 64), 2, device="cpu")
+    if not torch.cuda.is_available():  # the CLI times the card or raises
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            runner_main([str(REPO / "configs" / "xray_adapthist_skimage.yaml")])
 
 
 def test_port_imports_neither_jax_nor_mies_tpu():
