@@ -8,23 +8,28 @@ Phases, one printed line each (or a few):
   2. build   — compile the CUDA kernels (csrc/*.cu) with nvcc;
   3. kernels — each kernel against its plain PyTorch version on the card
                at the main paths' shapes ([32, 512, 512]: the flagship's
-               8x8 tiles, the skimage config's 8x8 regions of 64x64), with
-               the kernel's, the plain version's and (where one PyTorch call
-               computes the same function) the library call's time (CUDA
-               events) and the bound (least time for the bytes and the
-               operations); then on one ragged 251x333 slice (skimage
-               regions 31x41: odd region columns, kc % 64 != 0);
+               8x8 tiles, the skimage config's 8x8 regions of 64x64; the
+               restoration kernels K9-K12 on the inputs their chains give
+               them, at the shipped parameters), with the kernel's, the
+               plain version's and (where one PyTorch call computes the
+               same function) the library call's time (CUDA events) and
+               the bound (least time for the bytes and the operations);
+               then on ragged 251x333 slices (skimage regions 31x41: odd
+               region columns, kc % 64 != 0);
   4. slices  — through load_config / compile_pipeline(batched=True) on
-               float32 and uint8 batches: the flagship chain and
-               configs/xray_adapthist_skimage.yaml, each kernel of the path
-               launched exactly once per call and no other, output against
-               the same chain in plain PyTorch on the card and on the CPU,
-               single-slice == batched row; a fraction and a kornia config
-               once each;
-  5. timing  — slices/s at batch 32 of 512^2 for the flagship and the
-               skimage config, flagship batch-1 latency p50/p95, and each
-               chain's device time by kernel (torch.profiler) against its
-               event-timed time per batch: the device's busy share.
+               float32, uint8 and int16 batches: the flagship chain,
+               configs/xray_adapthist_skimage.yaml, configs/ct_lowdose_nlm
+               .yaml (int16 HU), configs/ultrasound_despeckle.yaml and the
+               BASELINE w10, w9 and w8 chains, each kernel of the path launched
+               exactly as often per call as the design says and no other,
+               output against the same chain in plain PyTorch on the card
+               (and the CPU), single-slice == batched row; a fraction and a
+               kornia config once each;
+  5. timing  — slices/s at batch 32 of 512^2 for every chain of phase 4
+               but fraction and kornia, flagship batch-1 latency p50/p95,
+               and each timed chain's device time by kernel
+               (torch.profiler; not w10's) against its event-timed time
+               per batch: the device's busy share.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -98,6 +103,53 @@ def _xray_batch(b: int, h: int, w: int, seed: int) -> np.ndarray:
     return out
 
 
+def _ct_batch(b: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Synthetic int16 low-dose CT slices in Hounsfield units: an
+    elliptical soft-tissue body (40 HU) in air (-1000) with a fat rim
+    (-100), two lungs (-850), a contrast-filled vessel (200) and a bone
+    ring (700), smoothed edges, plus quantum noise (sigma 25 HU); each
+    slice shifted and scaled."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = np.empty((b, h, w), np.int16)
+    for i in range(b):
+        cy, cx = h / 2 + rng.uniform(-20, 20), w / 2 + rng.uniform(-20, 20)
+        ry, rx = h * rng.uniform(0.36, 0.42), w * rng.uniform(0.42, 0.47)
+        r = np.sqrt(((y - cy) / ry) ** 2 + ((x - cx) / rx) ** 2)
+        hu = np.where(r < 1.0, 40.0, -1000.0)
+        hu = np.where((r > 0.93) & (r < 1.0), -100.0, hu)
+        for side in (-1, 1):
+            rl = np.sqrt(((y - cy + 0.1 * ry) / (0.55 * ry)) ** 2
+                         + ((x - cx - side * 0.45 * rx) / (0.3 * rx)) ** 2)
+            hu = np.where(rl < 1.0, -850.0, hu)
+        hu = np.where(np.abs(r - 0.85) < 0.025, 700.0, hu)
+        hu = np.where((y - cy - 0.3 * ry) ** 2 + (x - cx) ** 2
+                      < (0.08 * rx) ** 2, 200.0, hu)
+        hu = 0.25 * (hu + np.roll(hu, 1, 0) + np.roll(hu, 1, 1)
+                     + np.roll(hu, (1, 1), (0, 1)))
+        hu = hu + 25.0 * rng.standard_normal((h, w))
+        out[i] = np.clip(np.rint(hu), -1024, 3071).astype(np.int16)
+    return out
+
+
+def _us_batch(b: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Synthetic uint8 B-mode ultrasound slices: a smooth tissue
+    echogenicity with a dark cyst and a bright boundary, times fully
+    developed speckle (unit-mean Rayleigh amplitude); each slice shifted."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = np.empty((b, h, w), np.uint8)
+    for i in range(b):
+        cy, cx = h / 2 + rng.uniform(-40, 40), w / 2 + rng.uniform(-40, 40)
+        r = np.sqrt((y - cy) ** 2 + (x - cx) ** 2) / (h / 6)
+        echo = 0.35 + 0.1 * np.sin(y / 37.0) * np.cos(x / 53.0)
+        echo = np.where(r < 1.0, 0.08, echo)
+        echo = np.where(np.abs(r - 1.0) < 0.06, 0.7, echo)
+        speckle = rng.rayleigh(np.sqrt(2.0 / np.pi), (h, w))
+        out[i] = np.clip(np.rint(255.0 * echo * speckle), 1, 255)
+    return out
+
+
 def main() -> int:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -109,9 +161,14 @@ def main() -> int:
     from mies_tpu_torch.kernels import _build
     from mies_tpu_torch.kernels import bilateral as KB
     from mies_tpu_torch.kernels import clahe as KC
+    from mies_tpu_torch.kernels import diffusion as KD
+    from mies_tpu_torch.kernels import nlmeans as KN
+    from mies_tpu_torch.kernels import tv as KT
     from mies_tpu_torch.kernels import unsharp_gauss as KU
     from mies_tpu_torch.ops import filters as F
     from mies_tpu_torch.ops import histogram as H
+    from mies_tpu_torch.ops import intensity as I
+    from mies_tpu_torch.ops import restoration as R
     from mies_tpu_torch.pipeline.compiler import (
         OP_REGISTRY,
         _ingest,
@@ -267,6 +324,72 @@ def main() -> int:
     record("K6", err, lambda: KC.skimage_apply(binned, mk, ks, origin, out_hw),
            lambda: KC.skimage_apply_plain(binned, mk, ks, origin, out_hw),
            8 * npx + 4 * mk.numel(), 16 * npx)
+    # the restoration kernels on the inputs their chains give them, at the
+    # shipped parameters: NL-means and TV of configs/ct_lowdose_nlm.yaml
+    # on the windowed int16 phantom, SRAD of ultrasound_despeckle.yaml on
+    # the uint8 phantom, Perona-Malik of w8 (benchmarks/workloads.py) on
+    # the X-ray batch. Each is bit-equal or within the reference's own
+    # contract (1e-6; TV 2e-6 with equal per-slice stop iterations).
+    ct = torch.from_numpy(_ct_batch(BATCH, SIZE, SIZE, seed=1)).to(dev)
+    us = torch.from_numpy(_us_batch(BATCH, SIZE, SIZE, seed=2)).to(dev)
+    ctw = I.window_hu(ct, 40.0, 400.0)
+    usf = _ingest(us)
+    nlm = (5, 6, 0.06, 0.04)
+    tvp = (0.03, 2e-4, 60)
+    srp, pmp = (15, 0.15), (6, 0.05, 0.2, 1)
+
+    def within(got, want, tol, what):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        _require(bool(torch.isfinite(got).all()), f"{what}: not finite")
+        _require(err <= tol, f"{what}: max abs error {err} > {tol}")
+        return err, bool(torch.equal(got, want))
+
+    equal = {}
+    nk = KN.nl_means_cuda(ctw, *nlm)
+    err, equal["K11"] = within(nk, R.denoise_nl_means(ctw, *nlm), 1e-6,
+                               "K11")
+    s_, d_ = nlm[0] + 1 - nlm[0] % 2, nlm[1]
+    pairs = len(R.half_shift_table(d_))
+    # per pair and pixel: difference and square, the s-wide box along rows
+    # and columns, the weight (bias, max, scale, cutoff, exp, select), the
+    # two ends' accumulations (2 multiplies, 4 adds)
+    record("K11", err, lambda: KN.nl_means_cuda(ctw, *nlm),
+           lambda: R.denoise_nl_means(ctw, *nlm), 8 * npx,
+           pairs * (14 + 2 * (s_ - 1)) * npx, plain_iters=3)
+
+    tk, tk_iters = KT.denoise_tv_cuda(nk, *tvp, return_iters=True)
+    tp, tp_iters = R.tv_chambolle(nk, *tvp)
+    err, equal["K12"] = within(tk, tp, 2e-6, "K12")
+    _require(torch.equal(tk_iters, tp_iters),
+             f"K12 stop iterations {tk_iters.tolist()} != plain "
+             f"{tp_iters.tolist()}")
+    # 22 operations per pixel and iteration actually run (a stopped
+    # slice's steps return at once)
+    record("K12", err, lambda: KT.denoise_tv_cuda(nk, *tvp),
+           lambda: R.denoise_tv(nk, *tvp), 8 * npx,
+           22 * int(tk_iters.sum().item()) * SIZE * SIZE, plain_iters=3)
+    print(f"K12 per-slice stop iterations: kernel {tk_iters.tolist()} | "
+          f"plain {tp_iters.tolist()}")
+
+    sk10 = KD.srad_cuda(usf, *srp)
+    err, equal["K10"] = within(sk10, R.srad(usf, *srp), 1e-6, "K10")
+    # 42 per pixel and iteration: 4 differences, one conduction (29),
+    # the divergence (7) and the update (2)
+    record("K10", err, lambda: KD.srad_cuda(usf, *srp),
+           lambda: R.srad(usf, *srp), 8 * npx, 42 * srp[0] * npx,
+           plain_iters=5)
+
+    pk = KD.anisotropic_diffusion_cuda(x, *pmp)
+    err, equal["K9"] = within(pk, R.anisotropic_diffusion(x, *pmp), 1e-6,
+                              "K9")
+    # 18 per pixel and iteration: two differences, two fluxes (6 each),
+    # the divergence (2) and the update (2)
+    record("K9", err, lambda: KD.anisotropic_diffusion_cuda(x, *pmp),
+           lambda: R.anisotropic_diffusion(x, *pmp), 8 * npx,
+           18 * pmp[0] * npx)
+    print(f"K9-K12 bit-equal to their plain versions: {equal}")
+
     torch.cuda.synchronize()
     for k, r in rec.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -275,8 +398,8 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | library "
               f"{lib} | {card}")
 
-    # the ragged edge: one 251x333 slice, every border mode of K3, the
-    # skimage regions 31x41 (odd region columns, kc % 64 != 0)
+    # the ragged edge: 251x333 slices, every border mode of K3, the
+    # skimage regions 31x41 (odd region columns, kc % 64 != 0), K9-K12
     r = x[:1, :251, :333].contiguous()
     _require(torch.equal(KC.clahe_cuda(r, 2.0, GRID), H.clahe(r, 2.0, GRID)),
              "K1+K2 on 251x333 differ from the plain CLAHE")
@@ -311,11 +434,31 @@ def main() -> int:
     _require(torch.equal(KU.unsharp_quant_cuda(r, 1.5, 1.0),
                          KU.unsharp_quant_plain(r, 1.5, 1.0)),
              "K4 on 251x333 differs from the plain version")
+    rag = {}
+    r2 = ctw[:2, :251, :333].contiguous()
+    rn = KN.nl_means_cuda(r2, *nlm)
+    rag["K11"] = within(rn, R.denoise_nl_means(r2, *nlm), 1e-6,
+                        "K11 on 251x333")[0]
+    rt, rt_iters = KT.denoise_tv_cuda(rn, *tvp, return_iters=True)
+    rp, rp_iters = R.tv_chambolle(rn, *tvp)
+    rag["K12"] = within(rt, rp, 2e-6, "K12 on 251x333")[0]
+    _require(torch.equal(rt_iters, rp_iters),
+             f"K12 on 251x333: stop iterations {rt_iters.tolist()} != plain "
+             f"{rp_iters.tolist()}")
+    ru = usf[:2, :251, :333].contiguous()
+    rag["K10"] = within(KD.srad_cuda(ru, *srp), R.srad(ru, *srp), 1e-6,
+                        "K10 on 251x333")[0]
+    for opt in (1, 2):
+        pm = (*pmp[:3], opt)
+        rag[f"K9 option {opt}"] = within(
+            KD.anisotropic_diffusion_cuda(r, *pm),
+            R.anisotropic_diffusion(r, *pm), 1e-6, "K9 on 251x333")[0]
     torch.cuda.synchronize()
     print(f"ragged 251x333: K1+K2 equal (opencv, fraction/clip01), skimage "
           f"regions {rks[0]}x{rks[1]} x {rreg[0]}x{rreg[1]}: K1 bins, K6a, "
           f"K6 and the path equal, K3 max abs {worst} (3 modes x k 3/5/9), "
-          f"K4 equal")
+          f"K4 equal; max abs {rag}, K12 stop iterations {rt_iters.tolist()}"
+          f" (plain {rp_iters.tolist()})")
 
     # -- 4. the slices through the port's entry points ------------------
     def plain_chain(cfg, batch: torch.Tensor) -> torch.Tensor:
@@ -334,15 +477,17 @@ def main() -> int:
     def drive(cfg, name, inputs, want):
         """Call the batched chain on each input with the counts set to 0
         just before and read just after; every kernel of the path must
-        launch exactly once and no other kernel at all."""
+        launch exactly as often as ``want`` says (a name alone: once) and
+        no other kernel at all."""
         fn = compile_pipeline(cfg, batched=True)
+        want = want if isinstance(want, dict) else dict.fromkeys(want, 1)
         counts = None
         for dtype, inp in inputs:
             _build.reset_launches()
             out = fn(inp)
             torch.cuda.synchronize()
             counts = dict(_build.LAUNCHES)
-            expect = {k: int(k in want) for k in counts}
+            expect = {k: want.get(k, 0) for k in counts}
             _require(counts == expect, f"{name} {dtype}: launches {counts}, "
                      f"want {expect}")
             _require(out.shape == inp.shape and out.dtype == torch.uint8,
@@ -363,7 +508,7 @@ def main() -> int:
     _require(torch.equal(KC.clahe_batched(x, **kw), H.clahe(x, **kw)),
              "CLAHE stage (K1 + K2) differs from the plain CLAHE")
     out = fn(x)
-    cpu = compile_pipeline(cfg, batched=True)(x[:2].cpu())
+    cpu = compile_pipeline(cfg, batched=True, device="cpu")(x[:2].cpu())
     n, total = close(out[:2].cpu(), cpu, "flagship card vs CPU reference")
     fout = compile_pipeline(cfg, batched=True, quantize=False)(x)
     _require(bool(torch.isfinite(fout).all()) and fout.min().item() >= 0.0
@@ -386,7 +531,7 @@ def main() -> int:
     _require(torch.equal(KC.clahe_batched(x, **kw), H.clahe(x, **kw)),
              "skimage CLAHE stage (K1 bins + K6a + K6) differs from plain")
     out = sk_fn(x8)
-    cpu = compile_pipeline(sk_cfg, batched=True)(x8[:2].cpu())
+    cpu = compile_pipeline(sk_cfg, batched=True, device="cpu")(x8[:2].cpu())
     n, total = close(out[:2].cpu(), cpu, "skimage card vs CPU reference")
     _require(torch.equal(compile_pipeline(sk_cfg)(x8[1]), out[1]),
              "skimage single-slice output differs from the batched row")
@@ -404,14 +549,62 @@ def main() -> int:
                     "convention": "kornia"}), tail], name="kornia")
     drive(ko_cfg, "kornia (plain torch CLAHE)", both[:1], ("unsharp_quant",))
 
+    # the restoration chains: NL-means one launch, TV and the diffusions
+    # one launch per iteration, CLAHE K1 and K2 once
+    clahe_k = {"tile_hists": 1, "clahe_apply_lut": 1}
+    ct_cfg = load_config(repo / "configs" / "ct_lowdose_nlm.yaml")
+    ct_fn, ct_launches = drive(ct_cfg, "ct_lowdose_nlm yaml", (("int16", ct),),
+                               {"nl_means": 1, "tv": tvp[2], **clahe_k})
+    out = ct_fn(ct)
+    cpu = compile_pipeline(ct_cfg, batched=True, device="cpu")(ct[:2].cpu())
+    n, total = close(out[:2].cpu(), cpu, "CT card vs CPU reference")
+    _require(torch.equal(compile_pipeline(ct_cfg)(ct[1]), out[1]),
+             "CT single-slice output differs from the batched row")
+    print(f"CT checks: card vs CPU plain chain {n} of {total} pixels differ, "
+          f"single == batched row")
+    us_cfg = load_config(repo / "configs" / "ultrasound_despeckle.yaml")
+    _, us_launches = drive(us_cfg, "ultrasound_despeckle yaml",
+                           (("uint8", us),), {"srad": srp[0], **clahe_k})
+    # BASELINE w10 (int16 in), w9 and w8 (float32 in), as
+    # benchmarks/workloads.py defines them
+    w10_cfg = PipelineConfig.make(
+        [("window_hu", {"center": 40.0, "width": 400.0}),
+         ("denoise_nl_means", {"patch_size": nlm[0], "patch_distance": nlm[1],
+                               "h": nlm[2], "sigma": nlm[3]})], name="w10")
+    drive(w10_cfg, "w10 window+nl_means", (("int16", ct),), {"nl_means": 1})
+    w9_cfg = PipelineConfig.make(
+        [("srad", {"niter": srp[0], "dt": srp[1]}),
+         ("clahe", {"clip_limit": 2.0, "grid_size": GRID,
+                    "convention": "opencv"})], name="w9")
+    drive(w9_cfg, "w9 srad+clahe", (("float32", usf),),
+          {"srad": srp[0], **clahe_k})
+    w8_cfg = PipelineConfig.make(
+        [("anisotropic_diffusion", {"niter": pmp[0], "kappa": pmp[1],
+                                    "gamma": pmp[2]}),
+         ("musica", {"levels": 5, "p": 0.6, "gain": 1.5})], name="w8")
+    _, w8_launches = drive(w8_cfg, "w8 diffusion+musica", (("float32", x),),
+                           {"perona_malik": pmp[0]})
+
     # -- 5. timing ----------------------------------------------------------
     tp = time_pipeline(flagship_config(), (SIZE, SIZE), BATCH, device=dev)
     tsk = time_pipeline(sk_cfg, (SIZE, SIZE), BATCH, device=dev)
     # 200 samples: the p95 has 10 samples beyond it
     lat = time_latency(flagship_config(), (SIZE, SIZE), repeats=200, device=dev)
     lat2 = time_latency(latency_config(), (SIZE, SIZE), repeats=200, device=dev)
+    tct = time_pipeline(ct_cfg, device=dev, batch=ct)
+    # the other restoration chains timed once each (one run of 10 calls)
+    once = {"iters": 10, "warmup": 2, "repeats": 1, "device": dev}
+    tus = time_pipeline(us_cfg, batch=us, **once)
+    tw10 = time_pipeline(w10_cfg, batch=ct, **once)
+    tw9 = time_pipeline(w9_cfg, batch=usf, **once)
+    tw8 = time_pipeline(w8_cfg, batch=x, **once)
     torch.cuda.synchronize()
-    for label, t in (("flagship", tp), ("skimage yaml", tsk)):
+    for label, t in (("flagship", tp), ("skimage yaml", tsk),
+                     ("ct_lowdose_nlm yaml int16", tct),
+                     ("ultrasound_despeckle yaml uint8", tus),
+                     ("w10 window+nl_means int16", tw10),
+                     ("w9 srad+clahe float32", tw9),
+                     ("w8 diffusion+musica float32", tw8)):
         print(f"throughput {label} b{BATCH} {SIZE}^2: "
               f"{t['slices_per_sec']:.1f} slices/s | {t['ms_per_batch']:.4f} "
               f"ms/batch | {card}")
@@ -419,15 +612,21 @@ def main() -> int:
           f"{lat['p50_ms']:.4f} ms | p95 "
           f"{lat['p95_ms']:.4f} ms | latency_config p50 {lat2['p50_ms']:.4f} "
           f"ms p95 {lat2['p95_ms']:.4f} ms | {card}")
-    for label, c in (("flagship", flagship_config()), ("skimage yaml", sk_cfg)):
-        prof = profile_pipeline(c, (SIZE, SIZE), BATCH, device=dev)
+    for label, c, inp in (("flagship", flagship_config(), None),
+                          ("skimage yaml", sk_cfg, None),
+                          ("ct_lowdose_nlm yaml", ct_cfg, ct),
+                          ("ultrasound_despeckle yaml", us_cfg, us),
+                          ("w9", w9_cfg, usf), ("w8", w8_cfg, x)):
+        prof = profile_pipeline(c, (SIZE, SIZE), BATCH, device=dev, batch=inp)
         top = "; ".join(f"{name[:48]} {ms:.4f}" for name, ms in
                         list(prof["by_kernel"].items())[:8])
+        ops = "; ".join(f"{name} {ms:.4f}" for name, ms in
+                        list(prof["by_op"].items())[:8])
         print(f"profile {label} b{BATCH} {SIZE}^2: device "
               f"{prof['device_ms_per_batch']:.4f} ms of "
               f"{prof['ms_per_batch']:.4f} ms/batch (busy "
               f"{prof['busy_share']:.1%}), {len(prof['by_kernel'])} device "
-              f"ops | top ms: {top} | {card}")
+              f"ops | top ms: {top} | by host op: {ops} | {card}")
 
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (
@@ -449,6 +648,14 @@ def main() -> int:
         ("skimage_apply", "K6", sk_launches,
          "mies_tpu_torch/csrc/clahe_skimage.cu",
          "mies_tpu/kernels/clahe.py:1271"),
+        ("perona_malik", "K9", w8_launches, "mies_tpu_torch/csrc/diffusion.cu",
+         "mies_tpu/kernels/diffusion.py:52"),
+        ("srad", "K10", us_launches, "mies_tpu_torch/csrc/diffusion.cu",
+         "mies_tpu/kernels/diffusion.py:145"),
+        ("nl_means", "K11", ct_launches, "mies_tpu_torch/csrc/nlmeans.cu",
+         "mies_tpu/kernels/nlmeans.py:160"),
+        ("tv", "K12", ct_launches, "mies_tpu_torch/csrc/tv.cu",
+         "mies_tpu/kernels/tv.py:55"),
     )
     names = {"K1b": "tile_hists_bins", "K2c": "clahe_apply_lut[clip01]",
              "K2": "clahe_apply_lut[u8norm]"}

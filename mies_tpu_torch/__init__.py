@@ -6,13 +6,23 @@ hand-written CUDA kernels (``csrc/``, built with nvcc at first use) where
 the reference had Pallas TPU kernels. It imports neither jax nor mies_tpu.
 
 Ported so far: the flagship CLAHE -> bilateral -> unsharp chain
-(``pipeline.presets.flagship_config``) and the clahe op in its four
+(``pipeline.presets.flagship_config``); the clahe op in its four
 conventions (opencv, fraction, skimage, kornia; e.g.
-``configs/xray_adapthist_skimage.yaml``). ROADMAP.md lists what follows.
+``configs/xray_adapthist_skimage.yaml``); the low-dose CT chain
+``configs/ct_lowdose_nlm.yaml`` (window_hu -> NL-means -> TV -> clahe on
+int16 Hounsfield units), the ultrasound chain
+``configs/ultrasound_despeckle.yaml`` (SRAD -> Lee -> clahe) and
+Perona-Malik diffusion -> MUSICA. ROADMAP.md lists what follows.
 
     import torch, mies_tpu_torch
-    cfg = mies_tpu_torch.load_config("configs/xray_clahe.yaml")
-    out = mies_tpu_torch.compile_pipeline(cfg, batched=True)(x.cuda())
+    cfg = mies_tpu_torch.load_config("configs/ct_lowdose_nlm.yaml")
+    out = mies_tpu_torch.compile_pipeline(cfg, batched=True)(hu)  # on the card
+    ref = mies_tpu_torch.compile_pipeline(cfg, batched=True, device="cpu")(hu)
+
+``compile_pipeline`` runs on the card unless asked otherwise: it moves its
+input (a tensor or a numpy array) to ``device`` ("cuda" by default, where
+the kernels launch) and raises where there is no card; ``device="cpu"``
+runs the plain PyTorch versions.
 """
 
 from mies_tpu_torch.pipeline.compiler import compile_pipeline

@@ -7,10 +7,10 @@ PyTorch headers, so the build takes seconds), at first use, and again
 whenever the sources' hash changes. The library is loaded with ``ctypes``.
 
 No ``--use_fast_math``: it would turn the explicit ``_rn`` arithmetic of
-K2/K4 into approximations (breaking their bit-exactness) and ``expf`` in
-K3 into ``__expf``. Without ``nvcc``, or when the build fails, this raises
-``RuntimeError`` with the compiler's output: there is no plain fallback
-for a tensor on the card.
+the kernels into approximations (breaking their bit-exactness) and
+``expf`` in K3 and K9-K11 into ``__expf``. Without ``nvcc``, or when the
+build fails, this raises ``RuntimeError`` with the compiler's output:
+there is no plain fallback for a tensor on the card.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``launch`` raises if that is not 0 and otherwise adds one to the kernel's
@@ -51,12 +51,17 @@ _SIGNATURES = {
     "mies_skimage_apply": (_P, _P, _P, *(_I,) * 12, _P),
     "mies_bilateral": (_P, _P, _I, _I, _I, _I, _P, _F, _I, _P),
     "mies_unsharp": (_P, _P, _I, _I, _I, _P, _I, _F, _I, _P),
+    "mies_nl_means": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    "mies_tv_step": (*(_P,) * 9, _I, _I, _I, _F, _F, _F, _F, _P),
+    "mies_perona_malik": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
+    "mies_srad": (_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P),
 }
 
 # launches per kernel wrapper since the last reset_launches()
 LAUNCHES = {"tile_hists": 0, "tile_hists_bins": 0, "clahe_apply_lut": 0,
             "skimage_maps": 0, "skimage_apply": 0, "bilateral": 0,
-            "unsharp_quant": 0}
+            "unsharp_quant": 0, "nl_means": 0, "tv": 0, "srad": 0,
+            "perona_malik": 0}
 
 _lib: ctypes.CDLL | None = None
 

@@ -1,0 +1,65 @@
+"""Non-local means on the card: K11 (``csrc/nlmeans.cu``).
+
+``nl_means_cuda`` launches the kernel once per call for a CUDA tensor (the
+whole half shift table in one launch) and runs the plain
+``ops.restoration.denoise_nl_means`` for a CPU tensor. Any image shape
+runs whose numpy-'reflect' extension fits (s // 2 + d < every dim, the
+op's own error); the kernel's one real limit is shared memory for the
+tile's halo, and a call past it raises with the reason.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mies_tpu_torch.kernels import _build
+from mies_tpu_torch.ops import restoration as R
+
+TILE = (8, 32)  # the kernel's output tile, rows x columns
+MAX_SHARED_BYTES = 232448  # dynamic shared memory one Hopper block may use
+
+
+def shared_bytes(s: int, d: int) -> int:
+    """Shared memory of one block: its tile and the halo s // 2 + d."""
+    r = s // 2 + d
+    return (TILE[0] + 2 * r) * (TILE[1] + 2 * r) * 4
+
+
+def check_shared(s: int, d: int) -> None:
+    """Raise if the kernel's block cannot hold its tile and halo."""
+    need = shared_bytes(s, d)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"NL-means s={s}, d={d}: the halo s//2 + d = {s // 2 + d} needs "
+            f"{need} bytes of shared memory per block, more than the "
+            f"{MAX_SHARED_BYTES} a block may use"
+        )
+
+
+def nl_means_cuda(
+    batch: torch.Tensor,
+    patch_size: int = 7,
+    patch_distance: int = 11,
+    h: float = 0.1,
+    sigma: float = 0.0,
+) -> torch.Tensor:
+    """K11: NL-means of [B, H, W] float32 (defaults = the op's)."""
+    _build.check_tensor(batch, "denoise_nl_means: batch")
+    if int(patch_distance) < 0 or int(patch_size) < 1:
+        raise ValueError(f"patch_size must be >= 1 and patch_distance >= 0, "
+                         f"got {patch_size}, {patch_distance}")
+    s, d, bias, inv_h2sn = R.nl_means_params(
+        tuple(batch.shape[-2:]), patch_size, patch_distance, h, sigma)
+    if batch.device.type == "cpu":
+        return R.denoise_nl_means(batch, patch_size, patch_distance, h, sigma)
+    check_shared(s, d)
+    B, hh, ww = batch.shape
+    out = torch.empty_like(batch)
+    _build.launch("nl_means", "mies_nl_means", batch.device,
+                  batch.data_ptr(), out.data_ptr(), B, hh, ww, s, d, bias,
+                  inv_h2sn)
+    return out
+
+
+# the pipeline's batched NL-means: the wrapper already dispatches by device
+nl_means_batched = nl_means_cuda

@@ -103,6 +103,41 @@ def gaussian_blur(
     return _sep_conv2d(img, k, k, mode)
 
 
+def box_blur(img: torch.Tensor, kernel_size: int = 3,
+             mode: str = "reflect") -> torch.Tensor:
+    """Normalized box (mean) filter with an odd square window: two
+    separable passes of k taps of float32(1/k)."""
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+    k = np.full((kernel_size,), 1.0 / kernel_size, np.float32)
+    return _sep_conv2d(img, k, k, mode)
+
+
+def lee_filter(
+    img: torch.Tensor,
+    kernel_size: int = 5,
+    sigma: float | None = None,
+    mode: str = "reflect",
+) -> torch.Tensor:
+    """Lee despeckle filter (Lee, IEEE TPAMI 1980): ``m + k (x - m)`` with
+    ``m, v`` the window mean and variance and ``k = v / (v + sigma^2)``.
+    ``sigma=None`` takes sigma^2 as each slice's own mean local variance
+    (per slice of [..., H, W], as the reference under ``vmap``)."""
+    if kernel_size % 2 != 1 or kernel_size < 3:
+        raise ValueError("kernel_size must be odd and >= 3")
+    if sigma is not None and sigma <= 0:
+        raise ValueError("sigma must be > 0 (or omitted to estimate)")
+    x = img.to(torch.float32)
+    m = box_blur(x, kernel_size, mode)
+    v = torch.clamp_min(box_blur(x * x, kernel_size, mode) - m * m, 0.0)
+    if sigma is None:
+        noise_var = v.mean(dim=(-2, -1), keepdim=True)
+    else:
+        noise_var = float(np.float32(float(sigma) * float(sigma)))
+    k = v / (v + noise_var + 1e-12)
+    return m + k * (x - m)
+
+
 def unsharp_mask(
     img: torch.Tensor,
     radius: float = 1.0,

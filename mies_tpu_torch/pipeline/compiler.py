@@ -3,16 +3,25 @@
 The port of ``mies_tpu.pipeline.compiler`` for the ops ported so far.
 PyTorch runs eagerly, so "compiling" binds each stage's parameters once;
 there is no trace, no cache of programs and no input donation. The chain
-runs on the input tensor's device: on a CUDA tensor the batched stages
-launch the hand-written kernels of ``mies_tpu_torch.kernels``, on a CPU
-tensor they run their plain PyTorch versions.
+runs on the card by default: ``device="cuda"`` moves its input (a tensor
+or a numpy array) there, where the batched stages launch the hand-written
+kernels of ``mies_tpu_torch.kernels``; ``device="cpu"`` runs their plain
+PyTorch versions. Without a card the default raises instead of running
+on the CPU.
 
 Batched chains on the card:
   flagship: ingest (uint8 / uint16 -> float [0, 1])
     -> clahe opencv (K1, LUT build, K2) -> bilateral_blur (K3)
     -> unsharp_mask + uint8 quantize as one kernel (K4, the tail peephole);
   configs/xray_adapthist_skimage.yaml: ingest
-    -> clahe skimage (K1 bins, K6a, K6) -> unsharp + quantize (K4).
+    -> clahe skimage (K1 bins, K6a, K6) -> unsharp + quantize (K4);
+  configs/ct_lowdose_nlm.yaml: int16 HU -> window_hu (plain torch)
+    -> denoise_nl_means (K11, one launch) -> denoise_tv (K12, one launch
+    per iteration) -> clahe opencv (K1, K2) -> uint8;
+  configs/ultrasound_despeckle.yaml: srad (K10, one launch per iteration)
+    -> lee_filter (plain torch) -> clahe opencv (K1, K2) -> uint8;
+  anisotropic_diffusion (K9, one launch per iteration) -> musica (plain
+    torch), as BASELINE w8.
 The fraction convention runs K1 and K2 (clip01), kornia plain torch.
 """
 
@@ -21,16 +30,26 @@ from __future__ import annotations
 import functools
 from typing import Callable
 
+import numpy as np
 import torch
 
 from mies_tpu_torch.kernels.bilateral import bilateral_batched
 from mies_tpu_torch.kernels.clahe import clahe_batched
+from mies_tpu_torch.kernels.diffusion import (
+    anisotropic_diffusion_batched,
+    srad_batched,
+)
+from mies_tpu_torch.kernels.nlmeans import nl_means_batched
+from mies_tpu_torch.kernels.tv import denoise_tv_batched
 from mies_tpu_torch.kernels.unsharp_gauss import (
     unsharp_quant_cuda,
     unsharp_quant_supported,
 )
 from mies_tpu_torch.ops import filters as F
 from mies_tpu_torch.ops import histogram as H
+from mies_tpu_torch.ops import intensity as I
+from mies_tpu_torch.ops import pyramid as P
+from mies_tpu_torch.ops import restoration as R
 from mies_tpu_torch.pipeline.config import PipelineConfig, validate
 
 # Every op a config can name in the port. Signature: fn(img, **params),
@@ -39,12 +58,23 @@ OP_REGISTRY: dict[str, Callable] = {
     "clahe": H.clahe,
     "bilateral_blur": F.bilateral_blur,
     "unsharp_mask": F.unsharp_mask,
+    "window_hu": I.window_hu,
+    "denoise_nl_means": R.denoise_nl_means,
+    "denoise_tv": R.denoise_tv,
+    "srad": R.srad,
+    "anisotropic_diffusion": R.anisotropic_diffusion,
+    "lee_filter": F.lee_filter,
+    "musica": P.musica,
 }
 
 # Ops with a batched kernel path: fn([B, H, W], **params).
 _BATCHED_OPS: dict[str, Callable] = {
     "clahe": clahe_batched,
     "bilateral_blur": bilateral_batched,
+    "denoise_nl_means": nl_means_batched,
+    "denoise_tv": denoise_tv_batched,
+    "srad": srad_batched,
+    "anisotropic_diffusion": anisotropic_diffusion_batched,
 }
 
 
@@ -85,15 +115,37 @@ def _try_fuse_unsharp_quant(cfg: PipelineConfig, quantize: bool):
     return cfg.stages[:-1], fused
 
 
+def resolve_device(device) -> torch.device:
+    """The chain's device: "cuda" (any CUDA device) or "cpu". Asked for a
+    card where there is none, raise: nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"device {device!r}: expected 'cuda' or 'cpu'")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} asked for, but torch.cuda.is_available() is "
+            f"False; pass device='cpu' for the plain PyTorch chain"
+        )
+    return dev
+
+
+def _to_device(x, dev: torch.device) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(x)
+    return x.to(dev)
+
+
 def build_batched_chain(
-    cfg: PipelineConfig, quantize: bool | None = None
+    cfg: PipelineConfig, quantize: bool | None = None, device="cuda"
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Batch-level chain [B, H, W] -> [B, H, W].
+    """Batch-level chain [B, H, W] -> [B, H, W] on ``device`` (the input,
+    a tensor or numpy array, is moved there first).
 
     When ``quantize`` is not None the chain also owns the final uint8
     conversion (quantize=True), which lets the unsharp tail fuse with it.
     """
     _check_ported(cfg)
+    dev = resolve_device(device)
     stages, fused_tail = (
         _try_fuse_unsharp_quant(cfg, bool(quantize)) if quantize is not None
         else (cfg.stages, None)
@@ -101,7 +153,7 @@ def build_batched_chain(
     bound = [_bind_batched_stage(s) for s in stages]
 
     def chain(batch: torch.Tensor) -> torch.Tensor:
-        x = _ingest(batch)
+        x = _ingest(_to_device(batch, dev))
         for fn in bound:
             x = fn(x)
         if fused_tail is not None:
@@ -111,10 +163,12 @@ def build_batched_chain(
     return chain
 
 
-def build_chain(cfg: PipelineConfig) -> Callable[[torch.Tensor], torch.Tensor]:
-    """One-slice chain [H, W] -> [H, W] float: the batched chain on a
-    batch of one."""
-    bchain = build_batched_chain(cfg)
+def build_chain(
+    cfg: PipelineConfig, device="cuda"
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """One-slice chain [H, W] -> [H, W] float on ``device``: the batched
+    chain on a batch of one."""
+    bchain = build_batched_chain(cfg, device=device)
     return lambda img: bchain(img[None])[0]
 
 
@@ -127,7 +181,8 @@ def _ingest(x: torch.Tensor) -> torch.Tensor:
     """Normalize integer inputs to the float [0, 1] convention on the
     input's device (uint8 / 255, uint16 / 65535, by true division — a
     tensor divisor, since CUDA torch multiplies by the reciprocal of a
-    Python scalar); floating inputs become float32."""
+    Python scalar); floating inputs become float32; int16 (CT Hounsfield
+    units) passes through for window_hu."""
     if x.dtype == torch.uint8:
         return x.to(torch.float32) / torch.full((), 255.0, device=x.device)
     if x.dtype == torch.uint16:
@@ -138,17 +193,23 @@ def _ingest(x: torch.Tensor) -> torch.Tensor:
 
 
 def compile_pipeline(
-    cfg: PipelineConfig, batched: bool = False, quantize: bool = True
+    cfg: PipelineConfig, batched: bool = False, quantize: bool = True,
+    device="cuda",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Config -> callable on the input tensor's device.
+    """Config -> callable that runs on ``device``.
 
     batched=False: input [H, W] (or [C, H, W] per-channel); batched=True:
-    input [B, H, W] (or [B, C, H, W], channels folded into the batch).
-    quantize=True ends the chain in uint8.
+    input [B, H, W] (or [B, C, H, W], channels folded into the batch); a
+    tensor or numpy array, moved to ``device`` first. quantize=True ends
+    the chain in uint8. ``device="cuda"`` (the default) runs the kernels
+    on the card and raises RuntimeError where there is none;
+    ``device="cpu"`` runs the plain PyTorch versions.
     """
-    bchain = build_batched_chain(cfg, quantize=quantize)
+    dev = resolve_device(device)
+    bchain = build_batched_chain(cfg, quantize=quantize, device=dev)
 
     def run(x: torch.Tensor) -> torch.Tensor:
+        x = _to_device(x, dev)
         if batched and x.dim() == 4:
             b, c = x.shape[:2]
             out = bchain(x.reshape(b * c, *x.shape[2:]))

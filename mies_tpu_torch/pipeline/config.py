@@ -31,6 +31,8 @@ import json
 from pathlib import Path
 from typing import Any, Mapping, Sequence
 
+from mies_tpu_torch.ops.intensity import HU_PRESETS
+
 
 def _freeze(v: Any) -> Any:
     """Recursively convert JSON-ish values to hashable equivalents."""
@@ -202,6 +204,10 @@ def _mode_ok(v) -> bool:
     return v in _PAD_MODES
 
 
+def _hu_preset_ok(v) -> bool:
+    return v is None or (isinstance(v, str) and v in HU_PRESETS)
+
+
 _VALUE_RULES: dict[str, dict[str, tuple]] = {
     "clahe": {
         "clip_limit": (_pos, "a number > 0"),
@@ -228,6 +234,63 @@ _VALUE_RULES: dict[str, dict[str, tuple]] = {
         "sigma_color": (_pos, "a number > 0"),
         "sigma_space": (_pos, "a number > 0"),
         "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    "window_hu": {
+        "center": (lambda v: v is None or _is_num(v), "a number"),
+        "width": (lambda v: v is None or _pos(v), "a number > 0"),
+        "preset": (
+            _hu_preset_ok,
+            "a named clinical window (see mies_tpu_torch.ops.intensity"
+            ".HU_PRESETS)",
+        ),
+    },
+    "denoise_nl_means": {
+        "patch_size": (_pos_int, "an int >= 1"),
+        "patch_distance": (_pos_int, "an int >= 1"),
+        "h": (_pos, "a number > 0"),
+        "sigma": (_nonneg, "a number >= 0"),
+    },
+    "denoise_tv": {
+        "weight": (_pos, "a number > 0"),
+        "eps": (_nonneg, "a number >= 0"),
+        "max_num_iter": (_pos_int, "an int >= 1"),
+    },
+    "srad": {
+        "niter": (_pos_int, "an int >= 1"),
+        "dt": (lambda v: _is_num(v) and 0.0 < v <= 0.25,
+               "a number in (0, 0.25] (step size)"),
+        "q0": (_pos, "a number > 0 (speckle scale at t=0)"),
+        "rho": (_nonneg, "a number >= 0 (q0 decay rate)"),
+        "eps": (_pos, "a number > 0"),
+    },
+    "lee_filter": {
+        "kernel_size": (lambda v: _odd_kernel(v) and v >= 3,
+                        "an odd int >= 3"),
+        "sigma": (lambda v: v is None or _pos(v),
+                  "a number > 0 (noise STD; or omitted: each image's "
+                  "mean local variance)"),
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    "anisotropic_diffusion": {
+        "niter": (_pos_int, "an int >= 1"),
+        "kappa": (_pos, "a number > 0 (gradient scale, intensity units)"),
+        "gamma": (_pos, "a number > 0 (step size; stability <= 1/4)"),
+        "option": (lambda v: v in (1, 2),
+                   "1 (exponential conduction) or 2 (inverse quadratic)"),
+    },
+    "musica": {
+        "levels": (_pos_int, "an int >= 1"),
+        "p": (lambda v: _is_num(v) and 0.0 < v <= 1.0,
+              "a number in (0, 1] (band compression exponent)"),
+        "gain": (
+            lambda v: _pos(v) or (
+                isinstance(v, (tuple, list)) and len(v) >= 1
+                and all(_pos(x) for x in v)
+            ),
+            "a number > 0 or a list of numbers > 0 (one per level)",
+        ),
+        "m": (_pos, "a number > 0 (amplitude bound; 1.0 for [0,1] input)"),
+        "clip": (lambda v: isinstance(v, bool), "a bool"),
     },
 }
 

@@ -3,8 +3,9 @@
 
     python -m mies_tpu_torch.pipeline.runner configs/xray_adapthist_skimage.yaml
 
-prints one JSON line: the config's batched throughput at b32 512^2 (and,
-with --profile, its device time by kernel and busy share).
+prints one JSON line: the config's batched throughput at b32 512^2 on
+seeded slices of the config's ``io.dtype`` (and, with --profile, its
+device time by kernel and busy share).
 
 A measurement needs a CUDA device: asked for any other device, or run
 where there is no card, these raise instead of timing the CPU.
@@ -30,6 +31,23 @@ def _cuda_device(device) -> torch.device:
             f"(torch.cuda.is_available() = {torch.cuda.is_available()})"
         )
     return dev
+
+
+def make_batch(cfg: PipelineConfig, shape: tuple[int, int], batch_size: int,
+               device, seed: int = 0) -> torch.Tensor:
+    """Seeded input of the config's ``io.dtype`` on ``device``: int16
+    Hounsfield units in [-1000, 1500), uint8 levels, or float32 in [0, 1)
+    (no ``io.dtype``)."""
+    rng = np.random.default_rng(seed)
+    size = (batch_size, *shape)
+    dtype = cfg.io_dict().get("dtype", "float32")
+    if dtype == "int16":
+        a = rng.integers(-1000, 1500, size, dtype=np.int16)
+    elif dtype == "uint8":
+        a = rng.integers(0, 256, size, dtype=np.uint8)
+    else:
+        a = rng.random(size, dtype=np.float32)
+    return torch.from_numpy(a).to(device)
 
 
 def _ms_per_call(fn, x: torch.Tensor, iters: int) -> float:
@@ -61,16 +79,16 @@ def time_pipeline(
     warmup: int = 3,
     repeats: int = 5,
     device="cuda",
+    batch: torch.Tensor | None = None,
 ) -> dict:
-    """Batched throughput of ``cfg`` (quantize on) on seeded float32
-    slices: CUDA events around ``iters`` calls after ``warmup``, the
-    median of ``repeats`` such runs."""
+    """Batched throughput of ``cfg`` (quantize on) on ``batch`` (default:
+    ``make_batch``'s seeded slices): CUDA events around ``iters`` calls
+    after ``warmup``, the median of ``repeats`` such runs."""
     dev = _cuda_device(device)
-    rng = np.random.default_rng(0)
-    batch = torch.from_numpy(
-        rng.random((batch_size, *shape), dtype=np.float32)
-    ).to(dev)
-    fn = compile_pipeline(cfg, batched=True, quantize=True)
+    if batch is None:
+        batch = make_batch(cfg, shape, batch_size, dev)
+    batch_size, shape = batch.shape[0], tuple(batch.shape[1:])
+    fn = compile_pipeline(cfg, batched=True, quantize=True, device=dev)
     with torch.cuda.device(dev):
         for _ in range(warmup):
             fn(batch)
@@ -100,7 +118,7 @@ def time_latency(
     dev = _cuda_device(device)
     rng = np.random.default_rng(0)
     img = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
-    fn = compile_pipeline(cfg, batched=False, quantize=True)
+    fn = compile_pipeline(cfg, batched=False, quantize=True, device=dev)
     with torch.cuda.device(dev):
         for _ in range(3):
             fn(img)
@@ -121,20 +139,21 @@ def profile_pipeline(
     batch_size: int = 32,
     iters: int = 10,
     device="cuda",
+    batch: torch.Tensor | None = None,
 ) -> dict:
     """Where a batched call's time goes: device time per batch by kernel
     name (``torch.profiler`` over ``iters`` calls, kernels, copies and
-    fills alike), the unprofiled event-timed ms per batch over as many
-    calls, and their ratio, the device's busy share (the rest is time the
-    host keeps the card waiting)."""
+    fills alike) and by the host op that launched it, the unprofiled
+    event-timed ms per batch over as many calls, and their ratio, the
+    device's busy share (the rest is time the host keeps the card
+    waiting)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = _cuda_device(device)
-    rng = np.random.default_rng(0)
-    batch = torch.from_numpy(
-        rng.random((batch_size, *shape), dtype=np.float32)
-    ).to(dev)
-    fn = compile_pipeline(cfg, batched=True, quantize=True)
+    if batch is None:
+        batch = make_batch(cfg, shape, batch_size, dev)
+    batch_size, shape = batch.shape[0], tuple(batch.shape[1:])
+    fn = compile_pipeline(cfg, batched=True, quantize=True, device=dev)
     with torch.cuda.device(dev):
         for _ in range(3):
             fn(batch)
@@ -145,10 +164,18 @@ def profile_pipeline(
             for _ in range(iters):
                 fn(batch)
             torch.cuda.synchronize(dev)
+    events = prof.key_averages()
     by_kernel = {
         evt.key: evt.self_device_time_total / 1e3 / iters
-        for evt in prof.key_averages()
+        for evt in events
         if evt.device_type == torch.autograd.DeviceType.CUDA
+        and evt.self_device_time_total > 0
+    }
+    # the same device time by the host op that launched it (aten::...)
+    by_op = {
+        evt.key: evt.self_device_time_total / 1e3 / iters
+        for evt in events
+        if evt.device_type == torch.autograd.DeviceType.CPU
         and evt.self_device_time_total > 0
     }
     device_ms = sum(by_kernel.values())
@@ -157,6 +184,7 @@ def profile_pipeline(
         "device_ms_per_batch": device_ms,
         "busy_share": device_ms / wall,
         "by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])),
+        "by_op": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
         "batch_size": batch_size,
         "shape": list(shape),
         "device": torch.cuda.get_device_name(dev),

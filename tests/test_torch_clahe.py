@@ -256,13 +256,14 @@ def test_skimage_yaml_matches_jax(xray, rng, dtype):
             jnp.asarray(x)))
     _build.reset_launches()
     fn = mies_tpu_torch.compile_pipeline(
-        mies_tpu_torch.load_config(SKIMAGE_YAML), batched=True)
+        mies_tpu_torch.load_config(SKIMAGE_YAML), batched=True, device="cpu")
     out = fn(torch.from_numpy(x))
     assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0)  # CPU: plain
     assert out.dtype == torch.uint8 and tuple(out.shape) == x.shape
     _levels_close(out.numpy(), ref)
     single = mies_tpu_torch.compile_pipeline(
-        mies_tpu_torch.load_config(SKIMAGE_YAML))(torch.from_numpy(x[1]))
+        mies_tpu_torch.load_config(SKIMAGE_YAML), device="cpu")(
+            torch.from_numpy(x[1]))
     assert torch.equal(single, out[1])
 
 

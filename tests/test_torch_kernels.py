@@ -19,9 +19,13 @@ from pytest import skip
 from mies_tpu_torch.kernels import _build
 from mies_tpu_torch.kernels import bilateral as KB
 from mies_tpu_torch.kernels import clahe as KC
+from mies_tpu_torch.kernels import diffusion as KD
+from mies_tpu_torch.kernels import nlmeans as KN
+from mies_tpu_torch.kernels import tv as KT
 from mies_tpu_torch.kernels import unsharp_gauss as KU
 from mies_tpu_torch.ops import filters as TF
 from mies_tpu_torch.ops import histogram as TH
+from mies_tpu_torch.ops import restoration as TR
 
 torch.set_num_threads(2)
 
@@ -264,3 +268,62 @@ def test_k2_clip01_on_card_equals_plain(cuda_device, shape):
     got = KC.clahe_cuda(x, 0.01, (8, 8), "fraction")
     assert _build.LAUNCHES["clahe_apply_lut"] == 1
     assert torch.equal(got, TH.clahe(x, 0.01, (8, 8), "fraction"))
+
+
+# K9-K12 run one launch per iteration (K11: one per call); measured
+# bit-equal to their plain versions, held here to the reference's own
+# contracts (1e-6, TV 2e-6) with TV's per-slice stop iterations equal.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 128), (1, 251, 333)])
+@pytest.mark.parametrize("option", [1, 2])
+def test_k9_on_card_matches_plain(cuda_device, shape, option):
+    x = _on(cuda_device, shape, 8)
+    _build.reset_launches()
+    got = KD.anisotropic_diffusion_cuda(x, 6, 0.05, 0.2, option)
+    assert _build.LAUNCHES["perona_malik"] == 6
+    want = TR.anisotropic_diffusion(x, 6, 0.05, 0.2, option)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 128), (1, 251, 333)])
+def test_k10_on_card_matches_plain(cuda_device, shape):
+    x = _on(cuda_device, shape, 9) * 0.9 + 0.05
+    _build.reset_launches()
+    got = KD.srad_cuda(x, 15, 0.15)
+    assert _build.LAUNCHES["srad"] == 15
+    want = TR.srad(x, 15, 0.15)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 128), (1, 251, 333)])
+@pytest.mark.parametrize("s,d,h,sigma", [(5, 6, 0.06, 0.04), (4, 3, 0.1, 0.0)])
+def test_k11_on_card_matches_plain(cuda_device, shape, s, d, h, sigma):
+    x = _on(cuda_device, shape, 10)
+    _build.reset_launches()
+    got = KN.nl_means_cuda(x, s, d, h, sigma)
+    assert _build.LAUNCHES["nl_means"] == 1
+    want = TR.denoise_nl_means(x, s, d, h, sigma)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 128, 128), (2, 251, 333)])
+@pytest.mark.parametrize("weight,max_iter", [(0.1, 60), (0.2, 200)])
+def test_k12_on_card_matches_plain(cuda_device, shape, weight, max_iter):
+    x = _on(cuda_device, shape, 11)
+    x[0] = torch.linspace(0, 1, shape[2], device=cuda_device) + 0.02 * x[0]
+    _build.reset_launches()
+    got, iters = KT.denoise_tv_cuda(x, weight, 2e-4, max_iter,
+                                    return_iters=True)
+    assert _build.LAUNCHES["tv"] == max_iter
+    want, want_iters = TR.tv_chambolle(x, weight, 2e-4, max_iter)
+    torch.cuda.synchronize()
+    assert torch.equal(iters, want_iters), (iters, want_iters)
+    assert (got - want).abs().max().item() <= 2e-6

@@ -48,7 +48,7 @@ def test_flagship_batched_matches_jax(xray, rng, dtype):
     ref = np.asarray(mies_tpu.compile_pipeline(
         jax_flagship(), batched=True, donate=False)(jnp.asarray(x)))
     out = mies_tpu_torch.compile_pipeline(
-        flagship_config(), batched=True)(torch.from_numpy(x)).numpy()
+        flagship_config(), batched=True, device="cpu")(x).numpy()
     assert out.dtype == np.uint8 and out.shape == x.shape
     d = np.abs(out.astype(int) - ref.astype(int))
     assert d.max() <= 1, f"max level diff {d.max()}"
@@ -58,14 +58,16 @@ def test_flagship_batched_matches_jax(xray, rng, dtype):
 def test_single_slice_equals_batched(rng):
     x = torch.from_numpy(rng.random((2, 96, 128)).astype(np.float32))
     cfg = flagship_config()
-    batched = mies_tpu_torch.compile_pipeline(cfg, batched=True)(x)
-    single = mies_tpu_torch.compile_pipeline(cfg)(x[1])
+    batched = mies_tpu_torch.compile_pipeline(cfg, batched=True,
+                                              device="cpu")(x)
+    single = mies_tpu_torch.compile_pipeline(cfg, device="cpu")(x[1])
     assert torch.equal(single, batched[1])
 
 
 def test_per_channel_fold_equals_batched(rng):
     x = torch.from_numpy(rng.random((2, 3, 48, 64)).astype(np.float32))
-    fn = mies_tpu_torch.compile_pipeline(latency_config(), batched=True)
+    fn = mies_tpu_torch.compile_pipeline(latency_config(), batched=True,
+                                         device="cpu")
     out = fn(x)
     assert out.shape == x.shape
     assert torch.equal(out, fn(x.reshape(6, 48, 64)).reshape(x.shape))
@@ -74,12 +76,14 @@ def test_per_channel_fold_equals_batched(rng):
 def test_quantize_false_returns_float(rng):
     x = torch.from_numpy(rng.random((1, 64, 64)).astype(np.float32))
     fn = mies_tpu_torch.compile_pipeline(flagship_config(), batched=True,
-                                         quantize=False)
+                                         quantize=False, device="cpu")
     out = fn(x)
     assert out.dtype == torch.float32
-    q = mies_tpu_torch.compile_pipeline(flagship_config(), batched=True)(x)
+    q = mies_tpu_torch.compile_pipeline(flagship_config(), batched=True,
+                                        device="cpu")(x)
     assert torch.equal(torch.round(out * 255.0).to(torch.uint8), q)
-    assert torch.equal(build_chain(flagship_config())(x[0]), out[0])
+    assert torch.equal(build_chain(flagship_config(), device="cpu")(x[0]),
+                       out[0])
 
 
 def test_load_config_same_in_both_packages():
@@ -119,8 +123,8 @@ def test_every_clahe_convention_runs_through_compile_pipeline(rng, convention,
         mies_tpu.PipelineConfig.make(stages), batched=True, donate=False)(
             jnp.asarray(x)))
     out = mies_tpu_torch.compile_pipeline(
-        mies_tpu_torch.PipelineConfig.make(stages), batched=True)(
-            torch.from_numpy(x)).numpy()
+        mies_tpu_torch.PipelineConfig.make(stages), batched=True,
+        device="cpu")(torch.from_numpy(x)).numpy()
     d = np.abs(out.astype(int) - ref.astype(int))
     assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
 
@@ -129,13 +133,14 @@ def test_clahe_argument_rules_raise_at_build():
     cfg = mies_tpu_torch.PipelineConfig.make(
         [("clahe", {"convention": "opencv", "nbins": 128})])
     with pytest.raises(NotImplementedError, match="only the skimage"):
-        mies_tpu_torch.compile_pipeline(cfg, batched=True)
+        mies_tpu_torch.compile_pipeline(cfg, batched=True, device="cpu")
 
 
 def test_chain_on_cpu_launches_no_kernel(rng):
     _build.reset_launches()
     x = torch.from_numpy(rng.random((2, 64, 64)).astype(np.float32))
-    mies_tpu_torch.compile_pipeline(flagship_config(), batched=True)(x)
+    mies_tpu_torch.compile_pipeline(flagship_config(), batched=True,
+                                    device="cpu")(x)
     assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0)
 
 
@@ -157,7 +162,8 @@ def test_port_imports_neither_jax_nor_mies_tpu():
         "import mies_tpu_torch\n"
         "from mies_tpu_torch.pipeline.presets import flagship_config\n"
         "from mies_tpu_torch.pipeline import runner\n"
-        "fn = mies_tpu_torch.compile_pipeline(flagship_config(), batched=True)\n"
+        "fn = mies_tpu_torch.compile_pipeline(flagship_config(), batched=True,\n"
+        "                                     device='cpu')\n"
         "assert fn(torch.rand(2, 64, 64)).dtype == torch.uint8\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'mies_tpu'))\n"
