@@ -10,26 +10,35 @@ Phases, one printed line each (or a few):
                at the main paths' shapes ([32, 512, 512]: the flagship's
                8x8 tiles, the skimage config's 8x8 regions of 64x64; the
                restoration kernels K9-K12 on the inputs their chains give
-               them, at the shipped parameters), with the kernel's, the
-               plain version's and (where one PyTorch call computes the
-               same function) the library call's time (CUDA events) and
-               the bound (least time for the bytes and the operations);
-               then on ragged 251x333 slices (skimage regions 31x41: odd
-               region columns, kc % 64 != 0);
+               them, at the shipped parameters; the 3-D CLAHE kernels K8
+               (both epilogues) and K8s on a [32, 512, 512] volume at grid
+               (4, 8, 8); K7, K3 and K4 at [8, 1024, 1024]), with the
+               kernel's, the plain version's and (where one PyTorch call
+               computes the same function) the library call's time (CUDA
+               events) and the bound (least time for the bytes and the
+               operations); then on ragged shapes (251x333 slices, skimage
+               regions 31x41: odd region columns, kc % 64 != 0; volumes
+               [12, 96, 160] at grid (3, 3, 5) and [20, 251, 333]);
   4. slices  — through load_config / compile_pipeline(batched=True) on
-               float32, uint8 and int16 batches: the flagship chain,
-               configs/xray_adapthist_skimage.yaml, configs/ct_lowdose_nlm
-               .yaml (int16 HU), configs/ultrasound_despeckle.yaml and the
-               BASELINE w10, w9 and w8 chains, each kernel of the path launched
-               exactly as often per call as the design says and no other,
-               output against the same chain in plain PyTorch on the card
-               (and the CPU), single-slice == batched row; a fraction and a
-               kornia config once each;
-  5. timing  — slices/s at batch 32 of 512^2 for every chain of phase 4
-               but fraction and kornia, flagship batch-1 latency p50/p95,
-               and each timed chain's device time by kernel
-               (torch.profiler; not w10's) against its event-timed time
-               per batch: the device's busy share.
+               float32, uint8, uint16 and int16 batches: the flagship chain
+               (at 512^2 and 1024^2), configs/xray_adapthist_skimage.yaml,
+               configs/ct_lowdose_nlm.yaml (int16 HU), configs/ultrasound_
+               despeckle.yaml, configs/mammogram_sharpen.yaml (uint16,
+               1024^2) and the BASELINE w10, w9, w8 and w3 (1024^2) chains;
+               and through compile_volume_pipeline: configs/ct_volume_3d.yaml
+               on an int16 [256, 512, 512] phantom, BASELINE w6 and clahe3d
+               fraction and skimage at [32, 512, 512]. Each kernel of the
+               path launched exactly as often per call as the design says
+               and no other, output against the same chain in plain PyTorch
+               on the card (and the CPU), single-slice == batched row; a
+               fraction and a kornia config once each;
+  5. timing  — slices/s at batch 32 of 512^2 for every 2-D chain of phase 4
+               but fraction and kornia, at batch 8 of 1024^2 for w3, the
+               mammogram config and the flagship, z-slices/s for w6 and
+               the CT volume config, flagship batch-1 latency p50/p95, and
+               each timed chain's device time by kernel (torch.profiler;
+               not w10's) against its event-timed time per call: the
+               device's busy share.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -150,6 +159,37 @@ def _us_batch(b: int, h: int, w: int, seed: int) -> np.ndarray:
     return out
 
 
+def _ct_volume(z: int, h: int, w: int, seed: int,
+               dev: torch.device) -> torch.Tensor:
+    """Synthetic int16 CT volume in Hounsfield units, made on the card: an
+    elliptic soft-tissue body (40 HU) in air (-1000) whose section shrinks
+    towards both ends, a fat rim (-100), two ellipsoidal lungs (-850), a
+    contrast-filled vessel along z (200) and a bone ring (700), smoothed
+    in-plane edges, plus quantum noise (sigma 25 HU) from a seeded
+    generator."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    zz = torch.linspace(-1.0, 1.0, z, device=dev)[:, None, None]
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    cy, cx = h / 2, w / 2
+    shrink = 1.0 - 0.15 * zz * zz
+    ry, rx = 0.39 * h * shrink, 0.45 * w * shrink
+    r = torch.sqrt(((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2)
+    hu = torch.where(r < 1.0, 40.0, -1000.0)
+    hu = torch.where((r > 0.93) & (r < 1.0), -100.0, hu)
+    for side in (-1, 1):
+        rl = torch.sqrt(((yy - cy + 0.1 * ry) / (0.55 * ry)) ** 2
+                        + ((xx - cx - side * 0.45 * rx) / (0.3 * rx)) ** 2
+                        + (zz / 0.8) ** 2)
+        hu = torch.where(rl < 1.0, -850.0, hu)
+    hu = torch.where((r - 0.85).abs() < 0.025, 700.0, hu)
+    hu = torch.where((yy - cy - 0.3 * ry) ** 2 + (xx - cx) ** 2
+                     < (0.08 * rx) ** 2, 200.0, hu)
+    hu = 0.25 * (hu + hu.roll(1, 1) + hu.roll(1, 2) + hu.roll((1, 1), (1, 2)))
+    hu = hu + 25.0 * torch.randn(hu.shape, generator=gen, device=dev)
+    return torch.clamp(torch.round(hu), -1024, 3071).to(torch.int16)
+
+
 def main() -> int:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -161,6 +201,7 @@ def main() -> int:
     from mies_tpu_torch.kernels import _build
     from mies_tpu_torch.kernels import bilateral as KB
     from mies_tpu_torch.kernels import clahe as KC
+    from mies_tpu_torch.kernels import clahe3d as K3D
     from mies_tpu_torch.kernels import diffusion as KD
     from mies_tpu_torch.kernels import nlmeans as KN
     from mies_tpu_torch.kernels import tv as KT
@@ -169,18 +210,23 @@ def main() -> int:
     from mies_tpu_torch.ops import histogram as H
     from mies_tpu_torch.ops import intensity as I
     from mies_tpu_torch.ops import restoration as R
+    from mies_tpu_torch.ops import volume3d as V
     from mies_tpu_torch.pipeline.compiler import (
         OP_REGISTRY,
         _ingest,
         _quantize_u8,
         compile_pipeline,
+        compile_volume_pipeline,
     )
     from mies_tpu_torch.pipeline.config import PipelineConfig, load_config
     from mies_tpu_torch.pipeline.presets import flagship_config, latency_config
     from mies_tpu_torch.pipeline.runner import (
+        make_batch,
         profile_pipeline,
+        profile_volume,
         time_latency,
         time_pipeline,
+        time_volume,
     )
 
     dev = torch.device("cuda", 0)
@@ -209,14 +255,15 @@ def main() -> int:
     x = torch.from_numpy(_xray_batch(BATCH, SIZE, SIZE, seed=0)).to(dev)
     npx = x.numel()
     th, tw = SIZE // GRID[0], SIZE // GRID[1]
-    rec = {}
+    rec, rec_at = {}, {}
 
     def record(key, err, kernel, plain, nbytes, ops, library=None,
-               plain_iters=20):
+               plain_iters=20, at=f"[{BATCH},{SIZE},{SIZE}]"):
         bound_ms, bound_by = _bound(nbytes, ops)
         rec[key] = {"max_abs_err": err, "ms": _ms(kernel),
                     "plain_ms": _ms(plain, plain_iters), "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": library}
+        rec_at[key] = at
 
     # K1, float mode: 4 B read per pixel; level quantize (4 ops) + one count
     hk, hp = KC.tile_hists(x, GRID), KC.tile_hists_plain(x, GRID)
@@ -390,10 +437,81 @@ def main() -> int:
            18 * pmp[0] * npx)
     print(f"K9-K12 bit-equal to their plain versions: {equal}")
 
+    # the 3-D CLAHE kernels on the X-ray batch as one [32, 512, 512] volume
+    # at the grid (4, 8, 8) of w6 and configs/ct_volume_3d.yaml: K1 over the
+    # slices summed per z-tile, K8 in both epilogues (opencv integer LUTs,
+    # fraction LUTs), and K8s on the skimage path's 8 x 64 x 64 regions
+    g3 = (4, 8, 8)
+    tz3 = BATCH // g3[0]
+    h3 = hk.reshape(g3[0], tz3, GRID[0] * GRID[1], 256).sum(1, dtype=torch.int32)
+    # per voxel: level (4), three axis fractions (5 each), seven lerps (4
+    # each), the epilogue (u8norm 4, clip01 2)
+    for key, conv, clip, fin, ops in (("K8", "opencv", 2.0, "u8norm", 51),
+                                      ("K8c", "fraction", 0.01, "clip01", 49)):
+        l3 = V.luts_3d(h3.float(), clip, tz3 * th * tw, conv).reshape(*g3, 256)
+        _require(conv == "opencv" or not torch.equal(l3, torch.round(l3)),
+                 "3-D fraction LUTs not fractional")
+        ek = K3D.clahe3d_apply_lut(x, l3, g3, fin)
+        ep = K3D.clahe3d_apply_lut_plain(x, l3, g3, fin)
+        err = (ek - ep).abs().max().item()
+        _require(torch.equal(ek, ep), f"{key} ({fin}) differs by up to {err}")
+        record(key, err, lambda l3=l3, fin=fin: K3D.clahe3d_apply_lut(x, l3, g3, fin),
+               lambda l3=l3, fin=fin: K3D.clahe3d_apply_lut_plain(x, l3, g3, fin),
+               8 * npx + 4 * l3.numel(), ops * npx, plain_iters=5)
+    ks3 = V.skimage3d_kernel_size(x.shape, g3)
+    pad3, _, ns3 = V.skimage3d_geometry(x.shape, ks3)
+    b3 = V._skimage3d_binned(x, ks3, nbins)
+    k3e = ks3[0] * ks3[1] * ks3[2]
+    sh3 = KC.tile_hists_bins(b3[pad3[0]:pad3[0] + ns3[0] * ks3[0]], pad3[1:],
+                             ns3[1:], ks3[1:], nbins)
+    sh3 = sh3.reshape(ns3[0], ks3[0], *ns3[1:], nbins).sum(1, dtype=torch.int32)
+    m3 = V._edge_pad_maps(KC.skimage_maps(sh3, int(np.clip(0.01 * k3e, 1, None)),
+                                          k3e))
+    sk3 = K3D.clahe3d_skimage_apply(b3, m3, ks3, pad3, x.shape)
+    sp3 = K3D.clahe3d_skimage_apply_plain(b3, m3, ks3, pad3, x.shape)
+    err = (sk3 - sp3).abs().max().item()
+    _require(torch.equal(sk3, sp3), f"K8s differs by up to {err}")
+    # per voxel: three weights (3 each), 8 coefficients (2 each), 8
+    # multiplies and 7 adds, the floor
+    record("K8s", err, lambda: K3D.clahe3d_skimage_apply(b3, m3, ks3, pad3, x.shape),
+           lambda: K3D.clahe3d_skimage_apply_plain(b3, m3, ks3, pad3, x.shape),
+           8 * npx + 4 * m3.numel(), 41 * npx, plain_iters=5)
+    for conv, clip in (("opencv", 2.0), ("fraction", 0.01), ("skimage", 0.01)):
+        _require(torch.equal(K3D.clahe3d_volume(x, clip, g3, conv),
+                             V.clahe3d(x, clip, g3, conv)),
+                 f"clahe3d {conv} on the card differs from the plain op")
+
+    # the 1024^2 mammography shapes, batch 8 (w3): K7, and K3 and K4 where
+    # the TPU took its pre-padded kernels (rows 21-22)
+    MB, MS = 8, 1024
+    xm_np = _xray_batch(MB, MS, MS, seed=3)
+    xm = torch.from_numpy(xm_np).to(dev)
+    npm, at_m = xm.numel(), f"[{MB},{MS},{MS}]"
+    gk, gp = KU.unsharp_gauss_cuda(xm, 1.5, 1.0, 1.5), KU.unsharp_gauss_plain(xm, 1.5, 1.0, 1.5)
+    err = (gk - gp).abs().max().item()
+    _require(torch.equal(gk, gp), f"K7 differs by up to {err}")
+    # per pixel: four 13-tap passes (13 multiplies, 12 adds) and the blend (5)
+    record("K7", err, lambda: KU.unsharp_gauss_cuda(xm, 1.5, 1.0, 1.5),
+           lambda: KU.unsharp_gauss_plain(xm, 1.5, 1.0, 1.5), 8 * npm,
+           105 * npm, at=at_m)
+    cm = KC.clahe_cuda(xm, 2.0, GRID)
+    bkm = KB.bilateral_cuda(cm, 5, 0.1, 1.5, "reflect")
+    err = (bkm - F.bilateral_blur(cm, 5, 0.1, 1.5, "reflect")).abs().max().item()
+    _require(err <= 2e-6, f"K3 at 1024^2: max abs error {err} > 2e-6")
+    record("K3r", err, lambda: KB.bilateral_cuda(cm, 5, 0.1, 1.5, "reflect"),
+           lambda: F.bilateral_blur(cm, 5, 0.1, 1.5, "reflect"), 8 * npm,
+           (8 * 25 + 1) * npm, at=at_m)
+    ukm, upm = KU.unsharp_quant_cuda(bkm, 1.5, 1.0), KU.unsharp_quant_plain(bkm, 1.5, 1.0)
+    err = (ukm.int() - upm.int()).abs().max().item()
+    _require(torch.equal(ukm, upm), f"K4 at 1024^2 differs by up to {err} levels")
+    record("K4r", err, lambda: KU.unsharp_quant_cuda(bkm, 1.5, 1.0),
+           lambda: KU.unsharp_quant_plain(bkm, 1.5, 1.0), 5 * npm,
+           (4 * 13 + 8) * npm, at=at_m)
+
     torch.cuda.synchronize()
     for k, r in rec.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"{k} [{BATCH},{SIZE},{SIZE}]: max_abs_err {r['max_abs_err']} | "
+        print(f"{k} {rec_at[k]}: max_abs_err {r['max_abs_err']} | "
               f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | library "
               f"{lib} | {card}")
@@ -453,7 +571,23 @@ def main() -> int:
         rag[f"K9 option {opt}"] = within(
             KD.anisotropic_diffusion_cuda(r, *pm),
             R.anisotropic_diffusion(r, *pm), 1e-6, "K9 on 251x333")[0]
+    rv = x[:12, :96, :160].contiguous()  # tw = 32, gy = 3
+    for conv, clip in (("opencv", 2.0), ("fraction", 0.01)):
+        _require(torch.equal(K3D.clahe3d_cuda(rv, clip, (3, 3, 5), conv),
+                             V.clahe3d(rv, clip, (3, 3, 5), conv)),
+                 f"K1+K8 {conv} on [12, 96, 160] differ from the plain op")
+    rs = x[:20, :251, :333].contiguous()
+    rks3 = V.skimage3d_kernel_size(rs.shape, g3)
+    _require(torch.equal(K3D.clahe3d_skimage_cuda(rs, rks3, 0.01),
+                         V.clahe3d(rs, 0.01, g3, "skimage")),
+             "skimage 3-D path (K1 bins, K6a, K8s) on [20, 251, 333] differs")
+    _require(torch.equal(KU.unsharp_gauss_cuda(r, 1.5, 1.0, 1.5),
+                         KU.unsharp_gauss_plain(r, 1.5, 1.0, 1.5)),
+             "K7 on 251x333 differs from the plain pair")
     torch.cuda.synchronize()
+    print(f"ragged volumes: K1+K8 equal on [12, 96, 160] at grid (3, 3, 5) "
+          f"(opencv, fraction), skimage 3-D path equal on [20, 251, 333] "
+          f"(regions {rks3}); K7 equal on 251x333")
     print(f"ragged 251x333: K1+K2 equal (opencv, fraction/clip01), skimage "
           f"regions {rks[0]}x{rks[1]} x {rreg[0]}x{rreg[1]}: K1 bins, K6a, "
           f"K6 and the path equal, K3 max abs {worst} (3 modes x k 3/5/9), "
@@ -493,7 +627,7 @@ def main() -> int:
             _require(out.shape == inp.shape and out.dtype == torch.uint8,
                      f"{name} {dtype} output {tuple(out.shape)} {out.dtype}")
             n, total = close(out, plain_chain(cfg, inp), f"{name} {dtype}")
-            print(f"slice {name} {dtype} [{BATCH},{SIZE},{SIZE}]: launches "
+            print(f"slice {name} {dtype} {list(inp.shape)}: launches "
                   f"{ {k: v for k, v in counts.items() if v} } | vs plain "
                   f"chain on the card: {n} of {total} pixels differ by 1 level")
         return fn, counts
@@ -585,6 +719,84 @@ def main() -> int:
     _, w8_launches = drive(w8_cfg, "w8 diffusion+musica", (("float32", x),),
                            {"perona_malik": pmp[0]})
 
+    # the 1024^2 mammography chains at batch 8: w3 (K7 once, no K4), the
+    # uint16 mammogram config (plain Gaussian, then K4) and the flagship
+    # (K3 and K4 at the shape where the TPU took its pre-padded kernels)
+    xm16 = torch.from_numpy(np.rint(xm_np * 65535.0).astype(np.uint16)).to(dev)
+    w3_cfg = PipelineConfig.make(
+        [("unsharp_mask", {"radius": 1.5, "amount": 1.0}),
+         ("gaussian_blur", {"sigma": 1.5})], name="w3")
+    _, w3_launches = drive(w3_cfg, "w3 unsharp+gaussian", (("float32", xm),),
+                           {"unsharp_gauss": 1})
+    mm_cfg = load_config(repo / "configs" / "mammogram_sharpen.yaml")
+    _, mm_launches = drive(mm_cfg, "mammogram_sharpen yaml", (("uint16", xm16),),
+                           {"unsharp_quant": 1})
+    _, fm_launches = drive(flagship_config(), "flagship 1024^2",
+                           (("float32", xm),),
+                           ("tile_hists", "clahe_apply_lut", "bilateral",
+                            "unsharp_quant"))
+
+    # the volume chains through compile_volume_pipeline: the stages in plain
+    # PyTorch on the card are the reference, as for the slices
+    def plain_volume(cfg, vol, quantize=True):
+        y = vol
+        for s in cfg.stages:
+            y = OP_REGISTRY[s.op](y, **s.kwargs())
+        return _quantize_u8(y) if quantize else y
+
+    def drive_volume(cfg, name, vol, want, quantize=True):
+        """One call of the volume program with the counts set to 0 just
+        before and read just after: each kernel of ``want`` exactly once
+        and no other kernel."""
+        fn = compile_volume_pipeline(cfg, quantize=quantize)
+        _build.reset_launches()
+        out = fn(vol)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        expect = {k: int(k in want) for k in counts}
+        _require(counts == expect, f"{name}: launches {counts}, want {expect}")
+        _require(out.shape == vol.shape and out.dtype == (
+            torch.uint8 if quantize else torch.float32),
+            f"{name} output {tuple(out.shape)} {out.dtype}")
+        ref = plain_volume(cfg, vol, quantize)
+        if quantize:
+            n, total = close(out, ref, name)
+            vs = f"{n} of {total} voxels differ by 1 level"
+        else:
+            _require(torch.equal(out, ref), f"{name}: differs from plain")
+            vs = "equal"
+        print(f"volume {name} {vol.dtype} {list(vol.shape)}: launches "
+              f"{ {k: v for k, v in counts.items() if v} } | vs plain chain "
+              f"on the card: {vs}")
+        return fn, counts
+
+    ctv_cfg = load_config(repo / "configs" / "ct_volume_3d.yaml")
+    ctv = _ct_volume(256, SIZE, SIZE, seed=4, dev=dev)
+    ctv_fn, ctv_launches = drive_volume(ctv_cfg, "ct_volume_3d yaml", ctv,
+                                        ("tile_hists", "clahe3d_apply"))
+    crop = ctv[112:144, 192:320, 192:320].contiguous()
+    cpu = compile_volume_pipeline(ctv_cfg, device="cpu")(crop.cpu())
+    n, total = close(ctv_fn(crop).cpu(), cpu, "CT volume card vs CPU reference")
+    print(f"CT volume checks: card vs CPU plain chain on a [32, 128, 128] "
+          f"crop {n} of {total} voxels differ")
+    w6_cfg = PipelineConfig.make(
+        [("clahe3d", {"clip_limit": 2.0, "grid_size": g3,
+                      "convention": "opencv"})], name="w6")
+    w6vol = make_batch(w6_cfg, (SIZE, SIZE), BATCH, dev)
+    drive_volume(w6_cfg, "w6 clahe3d opencv", w6vol,
+                 ("tile_hists", "clahe3d_apply"), quantize=False)
+    fr3_cfg = PipelineConfig.make(
+        [("clahe3d", {"clip_limit": 0.01, "grid_size": g3,
+                      "convention": "fraction"})], name="clahe3d-fraction")
+    _, fr3_launches = drive_volume(fr3_cfg, "clahe3d fraction", x,
+                                   ("tile_hists", "clahe3d_apply"))
+    sk3_cfg = PipelineConfig.make(
+        [("clahe3d", {"clip_limit": 0.01, "grid_size": g3,
+                      "convention": "skimage"})], name="clahe3d-skimage")
+    _, sk3_launches = drive_volume(sk3_cfg, "clahe3d skimage", x,
+                                   ("tile_hists_bins", "skimage_maps",
+                                    "clahe3d_skimage_apply"))
+
     # -- 5. timing ----------------------------------------------------------
     tp = time_pipeline(flagship_config(), (SIZE, SIZE), BATCH, device=dev)
     tsk = time_pipeline(sk_cfg, (SIZE, SIZE), BATCH, device=dev)
@@ -598,33 +810,55 @@ def main() -> int:
     tw10 = time_pipeline(w10_cfg, batch=ct, **once)
     tw9 = time_pipeline(w9_cfg, batch=usf, **once)
     tw8 = time_pipeline(w8_cfg, batch=x, **once)
+    tw3 = time_pipeline(w3_cfg, batch=xm, **once)
+    tmm = time_pipeline(mm_cfg, batch=xm16, **once)
+    tfm = time_pipeline(flagship_config(), batch=xm, **once)
+    vonce = {"iters": 10, "warmup": 2, "repeats": 1, "device": dev}
+    tw6 = time_volume(w6_cfg, vol=w6vol, quantize=False, **vonce)
+    tctv = time_volume(ctv_cfg, vol=ctv, **vonce)
     torch.cuda.synchronize()
     for label, t in (("flagship", tp), ("skimage yaml", tsk),
                      ("ct_lowdose_nlm yaml int16", tct),
                      ("ultrasound_despeckle yaml uint8", tus),
                      ("w10 window+nl_means int16", tw10),
                      ("w9 srad+clahe float32", tw9),
-                     ("w8 diffusion+musica float32", tw8)):
-        print(f"throughput {label} b{BATCH} {SIZE}^2: "
+                     ("w8 diffusion+musica float32", tw8),
+                     ("w3 unsharp+gaussian float32", tw3),
+                     ("mammogram_sharpen yaml uint16", tmm),
+                     ("flagship 1024^2 float32", tfm)):
+        print(f"throughput {label} b{t['batch_size']} {t['shape'][0]}^2: "
               f"{t['slices_per_sec']:.1f} slices/s | {t['ms_per_batch']:.4f} "
               f"ms/batch | {card}")
+    for label, t in (("w6 clahe3d opencv float32", tw6),
+                     ("ct_volume_3d yaml int16", tctv)):
+        print(f"throughput {label} {t['shape']}: {t['z_slices_per_sec']:.1f} "
+              f"z-slices/s | {t['ms_per_volume']:.4f} ms/volume | {card}")
     print(f"latency flagship b1 {SIZE}^2 (200 x 32 calls): p50 "
           f"{lat['p50_ms']:.4f} ms | p95 "
           f"{lat['p95_ms']:.4f} ms | latency_config p50 {lat2['p50_ms']:.4f} "
           f"ms p95 {lat2['p95_ms']:.4f} ms | {card}")
-    for label, c, inp in (("flagship", flagship_config(), None),
-                          ("skimage yaml", sk_cfg, None),
-                          ("ct_lowdose_nlm yaml", ct_cfg, ct),
-                          ("ultrasound_despeckle yaml", us_cfg, us),
-                          ("w9", w9_cfg, usf), ("w8", w8_cfg, x)):
-        prof = profile_pipeline(c, (SIZE, SIZE), BATCH, device=dev, batch=inp)
+    profiles = [(label, profile_pipeline(c, (SIZE, SIZE), BATCH, device=dev,
+                                         batch=inp))
+                for label, c, inp in (
+                    ("flagship", flagship_config(), None),
+                    ("skimage yaml", sk_cfg, None),
+                    ("ct_lowdose_nlm yaml", ct_cfg, ct),
+                    ("ultrasound_despeckle yaml", us_cfg, us),
+                    ("w9", w9_cfg, usf), ("w8", w8_cfg, x),
+                    ("w3", w3_cfg, xm), ("mammogram_sharpen yaml", mm_cfg, xm16),
+                    ("flagship 1024^2", flagship_config(), xm))]
+    profiles += [
+        ("w6 volume", profile_volume(w6_cfg, vol=w6vol, quantize=False,
+                                     device=dev)),
+        ("ct_volume_3d yaml", profile_volume(ctv_cfg, vol=ctv, device=dev))]
+    for label, prof in profiles:
         top = "; ".join(f"{name[:48]} {ms:.4f}" for name, ms in
                         list(prof["by_kernel"].items())[:8])
         ops = "; ".join(f"{name} {ms:.4f}" for name, ms in
                         list(prof["by_op"].items())[:8])
-        print(f"profile {label} b{BATCH} {SIZE}^2: device "
-              f"{prof['device_ms_per_batch']:.4f} ms of "
-              f"{prof['ms_per_batch']:.4f} ms/batch (busy "
+        print(f"profile {label} {prof['shape']}: device "
+              f"{prof['device_ms_per_call']:.4f} ms of "
+              f"{prof['ms_per_call']:.4f} ms/call (busy "
               f"{prof['busy_share']:.1%}), {len(prof['by_kernel'])} device "
               f"ops | top ms: {top} | by host op: {ops} | {card}")
 
@@ -656,9 +890,25 @@ def main() -> int:
          "mies_tpu/kernels/nlmeans.py:160"),
         ("tv", "K12", ct_launches, "mies_tpu_torch/csrc/tv.cu",
          "mies_tpu/kernels/tv.py:55"),
+        ("unsharp_gauss", "K7", w3_launches,
+         "mies_tpu_torch/csrc/unsharp_gauss.cu",
+         "mies_tpu/kernels/unsharp_gauss.py:58"),
+        ("clahe3d_apply", "K8", ctv_launches, "mies_tpu_torch/csrc/clahe3d.cu",
+         "mies_tpu/kernels/clahe.py:348"),
+        ("clahe3d_apply", "K8c", fr3_launches, "mies_tpu_torch/csrc/clahe3d.cu",
+         "mies_tpu/kernels/clahe.py:348"),
+        ("clahe3d_skimage_apply", "K8s", sk3_launches,
+         "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/kernels/clahe.py:1062"),
+        ("bilateral", "K3r", fm_launches, "mies_tpu_torch/csrc/bilateral.cu",
+         "mies_tpu/kernels/bilateral.py:48"),
+        ("unsharp_quant", "K4r", mm_launches, "mies_tpu_torch/csrc/unsharp.cu",
+         "mies_tpu/kernels/unsharp_gauss.py:134"),
     )
     names = {"K1b": "tile_hists_bins", "K2c": "clahe_apply_lut[clip01]",
-             "K2": "clahe_apply_lut[u8norm]"}
+             "K2": "clahe_apply_lut[u8norm]", "K8": "clahe3d_apply[u8norm]",
+             "K8c": "clahe3d_apply[clip01]",
+             "K3r": "bilateral[8x1024x1024]",
+             "K4r": "unsharp_quant[8x1024x1024]"}
     kernels = []
     for counter, k, counts, src, rep in sources:
         _require(counts[counter] >= 1, f"{k} never launched on its path")

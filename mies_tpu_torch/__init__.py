@@ -11,8 +11,12 @@ conventions (opencv, fraction, skimage, kornia; e.g.
 ``configs/xray_adapthist_skimage.yaml``); the low-dose CT chain
 ``configs/ct_lowdose_nlm.yaml`` (window_hu -> NL-means -> TV -> clahe on
 int16 Hounsfield units), the ultrasound chain
-``configs/ultrasound_despeckle.yaml`` (SRAD -> Lee -> clahe) and
-Perona-Malik diffusion -> MUSICA. ROADMAP.md lists what follows.
+``configs/ultrasound_despeckle.yaml`` (SRAD -> Lee -> clahe),
+Perona-Malik diffusion -> MUSICA, the 1024^2 mammography chains (unsharp
+-> gaussian as one kernel; ``configs/mammogram_sharpen.yaml``) and the
+volume program ``pipeline.compiler.compile_volume_pipeline``
+(``configs/ct_volume_3d.yaml``: window_hu -> clahe3d -> gaussian_blur3d on
+a [Z, H, W] volume). ROADMAP.md lists what follows.
 
     import torch, mies_tpu_torch
     cfg = mies_tpu_torch.load_config("configs/ct_lowdose_nlm.yaml")

@@ -1,0 +1,195 @@
+"""3-D CLAHE on the card: the kernels of ``csrc/clahe3d.cu`` and the
+compositions of the volume conventions.
+
+* opencv and fraction (``clahe3d_cuda``), in the TPU's own order
+  (``mies_tpu.ops.volume3d.clahe3d``'s fast path): K1 (tile histograms,
+  the Z slices as the batch) -> an int32 sum over each group of tz slices
+  -> the LUT build in plain torch on the device -> K8 (trilinear apply,
+  level quantize in the kernel, epilogue u8norm or clip01).
+* skimage (``clahe3d_skimage_cuda``): the 14-bit scale-in, pad and binning
+  in plain torch on the device -> K1 in bins mode over the region window of
+  each padded slice, summed over each group of kz slices to the cubic
+  regions' counts -> K6a (clip + redistribution + maps, k_elems = kz ky kx)
+  -> the edge pad of the maps -> K8s (8-map blend + floor over the crop)
+  -> the stretch over the volume in plain torch.
+
+Each kernel wrapper launches its kernel for a CUDA tensor and runs its
+plain version (``*_plain``, from ``ops.volume3d``) only for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mies_tpu_torch.kernels import _build
+from mies_tpu_torch.kernels import clahe as KC
+from mies_tpu_torch.ops import histogram as H
+from mies_tpu_torch.ops import volume3d as V
+
+NBINS = H.NBINS
+MAX_GRID_DIM = 65535  # the kernels put H (or H0) and Z (Z0) on grid y and z
+
+
+def _check_launch_dims(z: int, h: int, what: str) -> None:
+    if z > MAX_GRID_DIM or h > MAX_GRID_DIM:
+        raise ValueError(f"{what}: Z={z}, H={h}; the kernel takes at most "
+                         f"{MAX_GRID_DIM} of each")
+
+
+# --- K8: trilinear LUT apply ------------------------------------------------
+
+
+def clahe3d_apply_lut_plain(x: torch.Tensor, luts: torch.Tensor, grid,
+                            finalize: str = "u8norm") -> torch.Tensor:
+    """Plain version of K8: the gather form + the epilogue."""
+    res = V._apply_luts_trilinear_gather(H._levels(x), luts, tuple(grid))
+    return V.finalize_3d(res, finalize)
+
+
+def clahe3d_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid,
+                      finalize: str = "u8norm") -> torch.Tensor:
+    """K8: OpenCV trilinear LUT interpolation at each voxel's uint8 level,
+    finalized as clip(rint(v), 0, 255) / 255 ("u8norm", integer LUTs) or
+    clip(v, 0, 1) ("clip01", the fraction convention's LUTs).
+
+    x: [Z, H, W] float32 in [0, 1], divisible by grid (gz, gy, gx); luts:
+    [gz, gy, gx, 256] float32; both contiguous. Returns [Z, H, W] float32."""
+    _build.check_tensor(x, "clahe3d_apply_lut: x")
+    _build.check_tensor(luts, "clahe3d_apply_lut: luts", ndim=4)
+    if finalize not in KC._FINALIZE:
+        raise ValueError(f"finalize must be one of {sorted(KC._FINALIZE)}, "
+                         f"got {finalize!r}")
+    grid = tuple(int(g) for g in grid)
+    tz, th, tw = V.tile_shape_3d(x.shape, grid)
+    if tuple(luts.shape) != (*grid, NBINS):
+        raise ValueError(f"luts: expected {(*grid, NBINS)}, got "
+                         f"{tuple(luts.shape)}")
+    KC._same_device(luts, x, "luts")
+    if x.device.type == "cpu":
+        return clahe3d_apply_lut_plain(x, luts, grid, finalize)
+    z, h, w = x.shape
+    _check_launch_dims(z, h, "clahe3d_apply_lut")
+    out = torch.empty_like(x)
+    inv = [float(np.float32(1.0) / np.float32(t)) for t in (tz, th, tw)]
+    _build.launch("clahe3d_apply", "mies_clahe3d_apply", x.device,
+                  x.data_ptr(), luts.data_ptr(), out.data_ptr(), z, h, w,
+                  *grid, *inv, KC._FINALIZE[finalize])
+    return out
+
+
+def clahe3d_cuda(vol: torch.Tensor, clip_limit: float = 2.0,
+                 grid_size=(4, 8, 8), convention: str = "opencv"
+                 ) -> torch.Tensor:
+    """opencv- or fraction-convention 3-D CLAHE of a [Z, H, W] float32
+    volume: K1 over the slices -> per-z-tile int32 sums -> LUT build in
+    plain torch -> K8. Same numbers as ops.volume3d.clahe3d."""
+    if convention not in ("opencv", "fraction"):
+        raise ValueError(f"clahe3d_cuda runs 'opencv' and 'fraction', not "
+                         f"{convention!r}")
+    grid = tuple(int(g) for g in grid_size)
+    gz, gy, gx = grid
+    tz, th, tw = V.tile_shape_3d(vol.shape, grid)
+    hists = KC.tile_hists(vol, (gy, gx))  # [Z, gy, gx, 256]
+    hists = hists.reshape(gz, tz, gy * gx, NBINS).sum(1, dtype=torch.int32)
+    luts = V.luts_3d(hists.to(torch.float32), clip_limit, tz * th * tw,
+                     convention)
+    finalize = "u8norm" if convention == "opencv" else "clip01"
+    return clahe3d_apply_lut(vol, luts.reshape(*grid, NBINS), grid, finalize)
+
+
+# --- K8s: skimage 8-map blend -----------------------------------------------
+
+
+def clahe3d_skimage_apply_plain(binned: torch.Tensor, map_array: torch.Tensor,
+                                kernel_size, origin, out_shape
+                                ) -> torch.Tensor:
+    """Plain version of K8s."""
+    return V._apply_maps_3d(binned, map_array, tuple(kernel_size),
+                            tuple(origin), tuple(out_shape))
+
+
+def clahe3d_skimage_apply(binned: torch.Tensor, map_array: torch.Tensor,
+                          kernel_size, origin, out_shape) -> torch.Tensor:
+    """K8s: skimage's trilinear blend of the 8 neighbouring region maps,
+    floored, at the voxels of the ``out_shape`` crop whose first corner is
+    ``origin`` of the padded binned volume.
+
+    binned: [Zp, Hp, Wp] int32 bins in [0, nbins); map_array: [nz + 1,
+    ny + 1, nx + 1, nbins] float32, the edge-padded integer-valued maps
+    (block b of an axis reads its corners b and b + 1); both contiguous.
+    Returns [Z0, H0, W0] float32."""
+    _build.check_tensor(binned, "clahe3d_skimage_apply: binned",
+                        dtype=torch.int32)
+    _build.check_tensor(map_array, "clahe3d_skimage_apply: map_array", ndim=4)
+    KC._same_device(map_array, binned, "map_array")
+    ks = tuple(int(k) for k in kernel_size)
+    origin, out_shape = tuple(origin), tuple(out_shape)
+    nz1, ny1, nx1, nbins = map_array.shape
+    if min(ks) < 1 or min(out_shape) < 1 or min(origin) < 0 or any(
+            o + n > s for o, n, s in zip(origin, out_shape, binned.shape)):
+        raise ValueError(
+            f"clahe3d_skimage_apply: crop {out_shape} at {origin} of "
+            f"{tuple(binned.shape)} with regions {ks}"
+        )
+    if any((o + n - 1) // k + 1 >= m for o, n, k, m in
+           zip(origin, out_shape, ks, (nz1, ny1, nx1))):
+        raise ValueError(
+            f"clahe3d_skimage_apply: map_array {tuple(map_array.shape)} does "
+            f"not cover the crop {out_shape} at {origin} with regions {ks}"
+        )
+    if binned.device.type == "cpu":
+        return clahe3d_skimage_apply_plain(binned, map_array, ks, origin,
+                                           out_shape)
+    _check_launch_dims(out_shape[0], out_shape[1], "clahe3d_skimage_apply")
+    out = torch.empty(out_shape, dtype=torch.float32, device=binned.device)
+    _build.launch("clahe3d_skimage_apply", "mies_clahe3d_skimage_apply",
+                  binned.device, binned.data_ptr(), map_array.data_ptr(),
+                  out.data_ptr(), binned.shape[1], binned.shape[2], ny1, nx1,
+                  *ks, nbins, *origin, *out_shape)
+    return out
+
+
+def clahe3d_skimage_cuda(vol: torch.Tensor, kernel_size,
+                         clip_limit: float = 0.01, nbins: int = NBINS
+                         ) -> torch.Tensor:
+    """skimage-convention 3-D CLAHE of a [Z, H, W] float32 volume with
+    cubic regions of ``kernel_size``: plain scale-in and binning -> K1
+    bins per slice, summed per kz slices -> K6a -> edge pad -> K8s ->
+    plain stretch. Same numbers as ops.volume3d.clahe3d(convention=
+    "skimage")."""
+    _build.check_tensor(vol, "clahe3d_skimage: vol")
+    KC._check_nbins(nbins)
+    ks = tuple(int(k) for k in kernel_size)
+    kz, ky, kx = ks
+    pad0, _, ns = V.skimage3d_geometry(vol.shape, ks)
+    binned = V._skimage3d_binned(vol, ks, nbins)
+    k_elems = kz * ky * kx
+    clim = int(np.clip(clip_limit * k_elems, 1, None))
+    # the region slices of the padded volume: a contiguous run of slices
+    slab = binned[pad0[0]:pad0[0] + ns[0] * kz]
+    hists = KC.tile_hists_bins(slab, pad0[1:], ns[1:], (ky, kx), nbins)
+    hists = hists.reshape(ns[0], kz, ns[1], ns[2], nbins).sum(
+        1, dtype=torch.int32)
+    maps = KC.skimage_maps(hists, clim, k_elems)
+    result = clahe3d_skimage_apply(binned, V._edge_pad_maps(maps), ks, pad0,
+                                   vol.shape)
+    return V._skimage3d_stretch_out(result)
+
+
+def clahe3d_volume(vol: torch.Tensor, clip_limit: float = 2.0,
+                   grid_size=(4, 8, 8), convention: str = "opencv",
+                   kernel_size=None) -> torch.Tensor:
+    """The volume pipeline's clahe3d. For a CUDA tensor: opencv and
+    fraction through K1 / K8, skimage through K1 bins / K6a / K8s. For a
+    CPU tensor: ``ops.volume3d.clahe3d``."""
+    if vol.device.type != "cuda":
+        return V.clahe3d(vol, clip_limit, grid_size, convention, kernel_size)
+    V._check_volume(vol, "clahe3d")
+    if convention not in V.CONVENTIONS_3D:
+        raise ValueError(f"unknown CLAHE convention: {convention!r}")
+    x = vol.to(torch.float32).contiguous()
+    if convention == "skimage":
+        ks = V.skimage3d_kernel_size(x.shape, grid_size, kernel_size)
+        return clahe3d_skimage_cuda(x, ks, clip_limit)
+    return clahe3d_cuda(x, clip_limit, grid_size, convention)

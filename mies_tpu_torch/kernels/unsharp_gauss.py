@@ -1,11 +1,18 @@
-"""Unsharp mask + uint8 quantize on the card: K4 (``csrc/unsharp.cu``).
+"""The unsharp-mask kernels on the card: K4 (``csrc/unsharp.cu``) and K7
+(``csrc/unsharp_gauss.cu``).
 
-The pipeline's tail peephole (``compiler._try_fuse_unsharp_quant``) runs a
+K4: the pipeline's tail peephole (``compiler._try_fuse_unsharp_quant``) runs a
 trailing ``unsharp_mask(mode='nearest', clip=True)`` and the uint8
 quantize as this one kernel: no blurred intermediate and no separate
 quantize pass in device memory, and the output is stored as uint8.
 Bit-exact against the plain unsharp + quantize (same ascending-tap order,
 no FMA contraction; 'nearest' borders as clamped load indices).
+
+K7: the pairwise peephole (``compiler._try_fuse_unsharp_gauss``) runs an
+``unsharp_mask('nearest', clip=True)`` followed by a ``gaussian_blur
+('nearest')`` as one kernel, BASELINE w3: one read and one write of the
+image, bit-exact against the unfused pair (scipy's per-pass borders are
+reproduced by index: see the source's note).
 """
 
 from __future__ import annotations
@@ -16,6 +23,11 @@ from mies_tpu_torch.kernels import _build
 from mies_tpu_torch.ops import filters as F
 
 MAX_RADIUS = 16  # the kernel's shared-memory halo (csrc/unsharp.cu kMaxR)
+# K7 (csrc/unsharp_gauss.cu): the widest radius its taps hold, its output
+# tile, and the shared memory a block may use on sm_90
+UG_MAX_RADIUS = 64
+UG_TILE = 32
+UG_SMEM_MAX = 232448
 
 
 def _tap_radius(radius: float, truncate: float) -> int:
@@ -69,4 +81,70 @@ def unsharp_quant_cuda(
     _build.launch("unsharp_quant", "mies_unsharp", batch.device,
                   batch.data_ptr(), out.data_ptr(), B, h, w,
                   taps.ctypes.data, len(taps), float(amount), int(quantize))
+    return out
+
+
+# --- K7: unsharp -> gaussian --------------------------------------------------
+
+
+def unsharp_gauss_smem(r1: int, r2: int) -> int:
+    """Shared memory bytes of a K7 block: the taps, x with an r1 + r2
+    halo, the G1 row pass and U over an r2 halo (csrc/unsharp_gauss.cu
+    smem_bytes)."""
+    xw, uw = UG_TILE + 2 * (r1 + r2), UG_TILE + 2 * r2
+    return 4 * (2 * (r1 + r2) + 2 + xw * xw + uw * xw + uw * uw)
+
+
+def unsharp_gauss_supported(radius: float, sigma: float,
+                            truncate: float = 4.0) -> bool:
+    """Whether K7 holds these two Gaussians: each radius within its taps
+    and the staged tiles within a block's shared memory (decided from the
+    config)."""
+    if radius <= 0 or sigma <= 0:
+        return False
+    r1, r2 = _tap_radius(radius, truncate), _tap_radius(sigma, truncate)
+    return (max(r1, r2) <= UG_MAX_RADIUS
+            and unsharp_gauss_smem(r1, r2) <= UG_SMEM_MAX)
+
+
+def unsharp_gauss_plain(
+    batch: torch.Tensor,
+    radius: float = 1.5,
+    amount: float = 1.0,
+    sigma: float = 1.5,
+    truncate: float = 4.0,
+) -> torch.Tensor:
+    """Plain version of K7: gaussian_blur(unsharp_mask(x)), both 'nearest',
+    the unsharp clipped."""
+    u = unsharp_quant_plain(batch, radius, amount, truncate, quantize=False)
+    return F.gaussian_blur(u, sigma=sigma, truncate=truncate, mode="nearest")
+
+
+def unsharp_gauss_cuda(
+    batch: torch.Tensor,
+    radius: float = 1.5,
+    amount: float = 1.0,
+    sigma: float = 1.5,
+    truncate: float = 4.0,
+) -> torch.Tensor:
+    """K7: G2 * clip(x + amount * (x - G1 * x), 0, 1) of [B, H, W]
+    float32, G1 of sigma ``radius`` and G2 of sigma ``sigma``, each pass
+    with scipy's 'nearest' border."""
+    _build.check_tensor(batch, "unsharp_gauss: batch")
+    if not unsharp_gauss_supported(radius, sigma, truncate):
+        raise ValueError(
+            f"unsharp radius {radius} -> gaussian sigma {sigma} (truncate "
+            f"{truncate}): K7 takes radii 0..{UG_MAX_RADIUS} whose staged "
+            f"tiles fit {UG_SMEM_MAX} bytes of shared memory"
+        )
+    if batch.device.type == "cpu":
+        return unsharp_gauss_plain(batch, radius, amount, sigma, truncate)
+    B, h, w = batch.shape
+    k1 = F.gaussian_kernel1d(float(radius), _tap_radius(radius, truncate))
+    k2 = F.gaussian_kernel1d(float(sigma), _tap_radius(sigma, truncate))
+    out = torch.empty_like(batch)
+    _build.launch("unsharp_gauss", "mies_unsharp_gauss", batch.device,
+                  batch.data_ptr(), out.data_ptr(), B, h, w,
+                  k1.ctypes.data, len(k1), k2.ctypes.data, len(k2),
+                  float(amount))
     return out

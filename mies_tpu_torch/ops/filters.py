@@ -34,12 +34,12 @@ _PAD_MODE = {
 
 
 def _pad_axis(x: torch.Tensor, r: int, axis: int, mode: str) -> torch.Tensor:
-    """Pad ``axis`` (-2 or -1) by ``r`` on both sides, np.pad semantics."""
+    """Pad ``axis`` (negative) by ``r`` on both sides, np.pad semantics."""
     if r == 0:
         return x
     np_mode = _PAD_MODE[mode]
     if np_mode == "constant":
-        return F.pad(x, (r, r) if axis == -1 else (0, 0, r, r))
+        return F.pad(x, (0, 0) * (-1 - axis) + (r, r))
     idx = np.pad(np.arange(x.shape[axis]), r, mode=np_mode)
     return x.index_select(axis, torch.as_tensor(idx, device=x.device))
 

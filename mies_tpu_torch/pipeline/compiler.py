@@ -21,8 +21,18 @@ Batched chains on the card:
   configs/ultrasound_despeckle.yaml: srad (K10, one launch per iteration)
     -> lee_filter (plain torch) -> clahe opencv (K1, K2) -> uint8;
   anisotropic_diffusion (K9, one launch per iteration) -> musica (plain
-    torch), as BASELINE w8.
+    torch), as BASELINE w8;
+  BASELINE w3: unsharp_mask -> gaussian_blur as one kernel (K7, the
+    pairwise peephole) -> uint8;
+  configs/mammogram_sharpen.yaml: uint16 ingest -> gaussian_blur (plain
+    torch) -> unsharp + quantize (K4).
 The fraction convention runs K1 and K2 (clip01), kornia plain torch.
+
+Volume chains (``compile_volume_pipeline``, [Z, H, W] -> [Z, H, W]):
+  configs/ct_volume_3d.yaml: int16 HU -> window_hu (plain torch)
+    -> clahe3d opencv (K1 over the slices, LUT build, K8)
+    -> gaussian_blur3d (plain torch) -> uint8;
+  clahe3d fraction runs K1 and K8 (clip01), skimage K1 bins, K6a, K8s.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 
 from mies_tpu_torch.kernels.bilateral import bilateral_batched
 from mies_tpu_torch.kernels.clahe import clahe_batched
+from mies_tpu_torch.kernels.clahe3d import clahe3d_volume
 from mies_tpu_torch.kernels.diffusion import (
     anisotropic_diffusion_batched,
     srad_batched,
@@ -42,6 +53,8 @@ from mies_tpu_torch.kernels.diffusion import (
 from mies_tpu_torch.kernels.nlmeans import nl_means_batched
 from mies_tpu_torch.kernels.tv import denoise_tv_batched
 from mies_tpu_torch.kernels.unsharp_gauss import (
+    unsharp_gauss_cuda,
+    unsharp_gauss_supported,
     unsharp_quant_cuda,
     unsharp_quant_supported,
 )
@@ -50,6 +63,7 @@ from mies_tpu_torch.ops import histogram as H
 from mies_tpu_torch.ops import intensity as I
 from mies_tpu_torch.ops import pyramid as P
 from mies_tpu_torch.ops import restoration as R
+from mies_tpu_torch.ops import volume3d as V
 from mies_tpu_torch.pipeline.config import PipelineConfig, validate
 
 # Every op a config can name in the port. Signature: fn(img, **params),
@@ -57,6 +71,7 @@ from mies_tpu_torch.pipeline.config import PipelineConfig, validate
 OP_REGISTRY: dict[str, Callable] = {
     "clahe": H.clahe,
     "bilateral_blur": F.bilateral_blur,
+    "gaussian_blur": F.gaussian_blur,
     "unsharp_mask": F.unsharp_mask,
     "window_hu": I.window_hu,
     "denoise_nl_means": R.denoise_nl_means,
@@ -65,7 +80,14 @@ OP_REGISTRY: dict[str, Callable] = {
     "anisotropic_diffusion": R.anisotropic_diffusion,
     "lee_filter": F.lee_filter,
     "musica": P.musica,
+    "clahe3d": V.clahe3d,
+    "gaussian_blur3d": V.gaussian_blur3d,
 }
+
+# The registry's ops that take a whole [Z, H, W] volume: a 2-D chain
+# refuses them at build time (the reference's other volume-only ops are not
+# ported, so validate refuses them first).
+VOLUME_ONLY_OPS = frozenset({"clahe3d", "gaussian_blur3d"})
 
 # Ops with a batched kernel path: fn([B, H, W], **params).
 _BATCHED_OPS: dict[str, Callable] = {
@@ -88,6 +110,18 @@ def _check_ported(cfg: PipelineConfig) -> None:
             kw = s.kwargs()
             H.check_convention(kw.get("convention", "opencv"),
                                kw.get("nbins", H.NBINS))
+
+
+def _reject_volume_only(cfg: PipelineConfig) -> None:
+    """A 2-D chain fails at build time on a volume-only op, with the op
+    named (validate accepts them: the same config may drive the volume
+    pipeline)."""
+    bad = [s.op for s in cfg.stages if s.op in VOLUME_ONLY_OPS]
+    if bad:
+        raise ValueError(
+            f"op(s) {bad} are volume-only ([Z, H, W]); run this config "
+            f"through compile_volume_pipeline"
+        )
 
 
 def _bind_batched_stage(s) -> Callable:
@@ -113,6 +147,48 @@ def _try_fuse_unsharp_quant(cfg: PipelineConfig, quantize: bool):
         truncate=truncate, quantize=quantize,
     )
     return cfg.stages[:-1], fused
+
+
+def _try_fuse_unsharp_gauss(a, b):
+    """Peephole: adjacent [unsharp_mask -> gaussian_blur], both 'nearest'
+    and the unsharp clipped, with one truncate, run as ONE kernel (K7,
+    BASELINE w3), bit-exact against the pair. Decided from the config
+    alone. Returns the fused batched fn, or None."""
+    if a.op != "unsharp_mask" or b.op != "gaussian_blur":
+        return None
+    ak, bk = a.kwargs(), b.kwargs()
+    if ak.get("mode", "nearest") != "nearest" or not ak.get("clip", True):
+        return None
+    if bk.get("mode", "nearest") != "nearest":
+        return None
+    # unsharp_mask's own Gaussian is truncated at 4 sigma
+    truncate = float(bk.get("truncate", 4.0))
+    if truncate != 4.0:
+        return None
+    radius = float(ak.get("radius", 1.0))
+    sigma = float(bk.get("sigma", 1.0))
+    if not unsharp_gauss_supported(radius, sigma, truncate):
+        return None
+    return functools.partial(
+        unsharp_gauss_cuda, radius=radius, amount=float(ak.get("amount", 1.0)),
+        sigma=sigma, truncate=truncate,
+    )
+
+
+def _bind_stages(stages) -> list[Callable]:
+    """The stages' batched fns, adjacent pairs the pairwise peephole fuses
+    bound as one."""
+    bound, i = [], 0
+    while i < len(stages):
+        if i + 1 < len(stages):
+            fused = _try_fuse_unsharp_gauss(stages[i], stages[i + 1])
+            if fused is not None:
+                bound.append(fused)
+                i += 2
+                continue
+        bound.append(_bind_batched_stage(stages[i]))
+        i += 1
+    return bound
 
 
 def resolve_device(device) -> torch.device:
@@ -143,14 +219,17 @@ def build_batched_chain(
 
     When ``quantize`` is not None the chain also owns the final uint8
     conversion (quantize=True), which lets the unsharp tail fuse with it.
+    The peepholes run in the reference's order: the quantize tail (K4)
+    first, then the adjacent pairs (K7).
     """
     _check_ported(cfg)
+    _reject_volume_only(cfg)
     dev = resolve_device(device)
     stages, fused_tail = (
         _try_fuse_unsharp_quant(cfg, bool(quantize)) if quantize is not None
         else (cfg.stages, None)
     )
-    bound = [_bind_batched_stage(s) for s in stages]
+    bound = _bind_stages(stages)
 
     def chain(batch: torch.Tensor) -> torch.Tensor:
         x = _ingest(_to_device(batch, dev))
@@ -217,5 +296,54 @@ def compile_pipeline(
         if batched or x.dim() == 3:
             return bchain(x)
         return bchain(x[None])[0]
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Volume-level (3-D) pipelines
+# ---------------------------------------------------------------------------
+
+
+def _volume_registry() -> dict[str, Callable]:
+    """Ops the volume pipeline runs on a whole [Z, H, W] volume (the
+    reference's volume registry as far as it is ported; ROADMAP.md lists
+    the rest)."""
+    return {
+        "clahe3d": clahe3d_volume,
+        "gaussian_blur3d": V.gaussian_blur3d,
+        # pointwise, shape-polymorphic
+        "window_hu": I.window_hu,
+    }
+
+
+def compile_volume_pipeline(
+    cfg: PipelineConfig, quantize: bool = True, device="cuda"
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Config -> [Z, H, W] -> [Z, H, W] whole-volume program on ``device``.
+
+    The volume is one 3-D array, so volumetric stages (clahe3d,
+    gaussian_blur3d) see the z axis. As in the reference there is no
+    ingest step: an int16 volume goes straight to window_hu. quantize=True
+    ends in uint8. ``device="cuda"`` (the default) launches the kernels
+    and raises RuntimeError where there is no card; ``device="cpu"`` runs
+    the plain PyTorch versions."""
+    validate(cfg)
+    reg = _volume_registry()
+    bound = []
+    for s in cfg.stages:
+        if s.op not in reg:
+            raise ValueError(
+                f"op {s.op!r} is not volume-capable in mies_tpu_torch; "
+                f"available: {sorted(reg)}"
+            )
+        bound.append(functools.partial(reg[s.op], **s.kwargs()))
+    dev = resolve_device(device)
+
+    def run(vol: torch.Tensor) -> torch.Tensor:
+        x = _to_device(vol, dev)
+        for fn in bound:
+            x = fn(x)
+        return _quantize_u8(x) if quantize else x
 
     return run

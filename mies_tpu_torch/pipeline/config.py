@@ -224,6 +224,28 @@ _VALUE_RULES: dict[str, dict[str, tuple]] = {
             "a pair of ints >= 1 (or omitted)",
         ),
     },
+    "clahe3d": {
+        "clip_limit": (_pos, "a number > 0"),
+        "grid_size": (_int_pair(3), "a triple of ints >= 1"),
+        "convention": (
+            lambda v: v in ("opencv", "skimage", "fraction"),
+            "one of 'opencv', 'skimage', 'fraction'",
+        ),
+        "kernel_size": (
+            lambda v: v is None or _int_pair(3)(v),
+            "a triple of ints >= 1 (or omitted)",
+        ),
+    },
+    "gaussian_blur": {
+        "sigma": (_pos, "a number > 0"),
+        "truncate": (_pos, "a number > 0"),
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    "gaussian_blur3d": {
+        "sigma": (_pos, "a number > 0"),
+        "truncate": (_pos, "a number > 0"),
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
     "unsharp_mask": {
         "radius": (_pos, "a number > 0"),
         "amount": (_nonneg, "a number >= 0"),

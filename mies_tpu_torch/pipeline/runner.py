@@ -5,7 +5,11 @@
 
 prints one JSON line: the config's batched throughput at b32 512^2 on
 seeded slices of the config's ``io.dtype`` (and, with --profile, its
-device time by kernel and busy share).
+device time by kernel and busy share). With ``--volume Z`` the config runs
+as a volume program (``compile_volume_pipeline``) on one seeded
+[Z, 512, 512] volume, reported in z-slices/s:
+
+    python -m mies_tpu_torch.pipeline.runner configs/ct_volume_3d.yaml --volume 256
 
 A measurement needs a CUDA device: asked for any other device, or run
 where there is no card, these raise instead of timing the CPU.
@@ -19,7 +23,10 @@ import json
 import numpy as np
 import torch
 
-from mies_tpu_torch.pipeline.compiler import compile_pipeline
+from mies_tpu_torch.pipeline.compiler import (
+    compile_pipeline,
+    compile_volume_pipeline,
+)
 from mies_tpu_torch.pipeline.config import PipelineConfig, load_config
 
 
@@ -36,8 +43,8 @@ def _cuda_device(device) -> torch.device:
 def make_batch(cfg: PipelineConfig, shape: tuple[int, int], batch_size: int,
                device, seed: int = 0) -> torch.Tensor:
     """Seeded input of the config's ``io.dtype`` on ``device``: int16
-    Hounsfield units in [-1000, 1500), uint8 levels, or float32 in [0, 1)
-    (no ``io.dtype``)."""
+    Hounsfield units in [-1000, 1500), uint8 or uint16 levels over their
+    whole range, or float32 in [0, 1) (no ``io.dtype``)."""
     rng = np.random.default_rng(seed)
     size = (batch_size, *shape)
     dtype = cfg.io_dict().get("dtype", "float32")
@@ -45,6 +52,8 @@ def make_batch(cfg: PipelineConfig, shape: tuple[int, int], batch_size: int,
         a = rng.integers(-1000, 1500, size, dtype=np.int16)
     elif dtype == "uint8":
         a = rng.integers(0, 256, size, dtype=np.uint8)
+    elif dtype == "uint16":
+        a = rng.integers(0, 65536, size, dtype=np.uint16)
     else:
         a = rng.random(size, dtype=np.float32)
     return torch.from_numpy(a).to(device)
@@ -61,6 +70,18 @@ def _ms_per_call(fn, x: torch.Tensor, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _median_ms(fn, x: torch.Tensor, iters: int, warmup: int, repeats: int,
+               dev: torch.device) -> float:
+    """The median of ``repeats`` runs of ``_ms_per_call`` after ``warmup``
+    calls."""
+    with torch.cuda.device(dev):
+        for _ in range(warmup):
+            fn(x)
+        torch.cuda.synchronize(dev)
+        runs = sorted(_ms_per_call(fn, x, iters) for _ in range(repeats))
+    return runs[len(runs) // 2]
 
 
 def _percentiles_ms(samples: list[float]) -> dict:
@@ -89,12 +110,7 @@ def time_pipeline(
         batch = make_batch(cfg, shape, batch_size, dev)
     batch_size, shape = batch.shape[0], tuple(batch.shape[1:])
     fn = compile_pipeline(cfg, batched=True, quantize=True, device=dev)
-    with torch.cuda.device(dev):
-        for _ in range(warmup):
-            fn(batch)
-        torch.cuda.synchronize(dev)
-        runs = sorted(_ms_per_call(fn, batch, iters) for _ in range(repeats))
-    per_batch = runs[len(runs) // 2]
+    per_batch = _median_ms(fn, batch, iters, warmup, repeats, dev)
     return {
         "slices_per_sec": batch_size / (per_batch / 1000.0),
         "p50_ms_per_slice": per_batch / batch_size,
@@ -133,36 +149,23 @@ def time_latency(
     }
 
 
-def profile_pipeline(
-    cfg: PipelineConfig,
-    shape: tuple[int, int] = (512, 512),
-    batch_size: int = 32,
-    iters: int = 10,
-    device="cuda",
-    batch: torch.Tensor | None = None,
-) -> dict:
-    """Where a batched call's time goes: device time per batch by kernel
-    name (``torch.profiler`` over ``iters`` calls, kernels, copies and
-    fills alike) and by the host op that launched it, the unprofiled
-    event-timed ms per batch over as many calls, and their ratio, the
-    device's busy share (the rest is time the host keeps the card
-    waiting)."""
+def _profile(fn, x: torch.Tensor, iters: int, dev: torch.device) -> dict:
+    """Device time per call of ``fn(x)`` by kernel name (``torch.profiler``
+    over ``iters`` calls, kernels, copies and fills alike) and by the host
+    op that launched it, the unprofiled event-timed ms per call over as
+    many calls, and their ratio, the device's busy share (the rest is
+    time the host keeps the card waiting)."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = _cuda_device(device)
-    if batch is None:
-        batch = make_batch(cfg, shape, batch_size, dev)
-    batch_size, shape = batch.shape[0], tuple(batch.shape[1:])
-    fn = compile_pipeline(cfg, batched=True, quantize=True, device=dev)
     with torch.cuda.device(dev):
         for _ in range(3):
-            fn(batch)
+            fn(x)
         torch.cuda.synchronize(dev)
-        wall = _ms_per_call(fn, batch, iters)
+        wall = _ms_per_call(fn, x, iters)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                fn(batch)
+                fn(x)
             torch.cuda.synchronize(dev)
     events = prof.key_averages()
     by_kernel = {
@@ -180,15 +183,76 @@ def profile_pipeline(
     }
     device_ms = sum(by_kernel.values())
     return {
-        "ms_per_batch": wall,
-        "device_ms_per_batch": device_ms,
+        "ms_per_call": wall,
+        "device_ms_per_call": device_ms,
         "busy_share": device_ms / wall,
         "by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])),
         "by_op": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),
-        "batch_size": batch_size,
-        "shape": list(shape),
         "device": torch.cuda.get_device_name(dev),
     }
+
+
+def profile_pipeline(
+    cfg: PipelineConfig,
+    shape: tuple[int, int] = (512, 512),
+    batch_size: int = 32,
+    iters: int = 10,
+    device="cuda",
+    batch: torch.Tensor | None = None,
+) -> dict:
+    """Where a batched call's time goes: ``_profile`` of the batched
+    chain (quantize on) on ``batch`` (default: ``make_batch``'s seeded
+    slices)."""
+    dev = _cuda_device(device)
+    if batch is None:
+        batch = make_batch(cfg, shape, batch_size, dev)
+    fn = compile_pipeline(cfg, batched=True, quantize=True, device=dev)
+    return {**_profile(fn, batch, iters, dev),
+            "batch_size": batch.shape[0], "shape": list(batch.shape[1:])}
+
+
+def time_volume(
+    cfg: PipelineConfig,
+    shape: tuple[int, int, int] = (32, 512, 512),
+    iters: int = 10,
+    warmup: int = 2,
+    repeats: int = 3,
+    quantize: bool = True,
+    device="cuda",
+    vol: torch.Tensor | None = None,
+) -> dict:
+    """Volume throughput of ``cfg`` through ``compile_volume_pipeline`` on
+    ``vol`` (default: one seeded [Z, H, W] volume of the config's
+    ``io.dtype``): CUDA events around ``iters`` calls after ``warmup``,
+    the median of ``repeats`` such runs, in z-slices/s."""
+    dev = _cuda_device(device)
+    if vol is None:
+        vol = make_batch(cfg, tuple(shape[1:]), shape[0], dev)
+    fn = compile_volume_pipeline(cfg, quantize=quantize, device=dev)
+    per_volume = _median_ms(fn, vol, iters, warmup, repeats, dev)
+    return {
+        "z_slices_per_sec": vol.shape[0] / (per_volume / 1000.0),
+        "ms_per_volume": per_volume,
+        "shape": list(vol.shape),
+        "device": torch.cuda.get_device_name(dev),
+    }
+
+
+def profile_volume(
+    cfg: PipelineConfig,
+    shape: tuple[int, int, int] = (32, 512, 512),
+    iters: int = 10,
+    quantize: bool = True,
+    device="cuda",
+    vol: torch.Tensor | None = None,
+) -> dict:
+    """``_profile`` of the volume program on ``vol`` (default: one seeded
+    volume of ``shape``)."""
+    dev = _cuda_device(device)
+    if vol is None:
+        vol = make_batch(cfg, tuple(shape[1:]), shape[0], dev)
+    fn = compile_volume_pipeline(cfg, quantize=quantize, device=dev)
+    return {**_profile(fn, vol, iters, dev), "shape": list(vol.shape)}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -200,11 +264,20 @@ def main(argv: list[str] | None = None) -> int:
                     help="a .yaml/.json config (default: the flagship chain)")
     ap.add_argument("--profile", action="store_true",
                     help="also report device time by kernel (torch.profiler)")
+    ap.add_argument("--volume", type=int, metavar="Z",
+                    help="run the config as a volume program on one "
+                         "[Z, 512, 512] volume (z-slices/s)")
     args = ap.parse_args(argv)
     cfg = load_config(args.config) if args.config else flagship_config()
-    result = {"config": cfg.name, **time_pipeline(cfg)}
-    if args.profile:
-        result["profile"] = profile_pipeline(cfg)
+    if args.volume is not None:
+        shape = (args.volume, 512, 512)
+        result = {"config": cfg.name, **time_volume(cfg, shape)}
+        if args.profile:
+            result["profile"] = profile_volume(cfg, shape)
+    else:
+        result = {"config": cfg.name, **time_pipeline(cfg)}
+        if args.profile:
+            result["profile"] = profile_pipeline(cfg)
     print(json.dumps(result))
     return 0
 
