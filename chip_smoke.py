@@ -12,13 +12,18 @@ Phases, one printed line each (or a few):
                restoration kernels K9-K12 on the inputs their chains give
                them, at the shipped parameters; the 3-D CLAHE kernels K8
                (both epilogues) and K8s on a [32, 512, 512] volume at grid
-               (4, 8, 8); K7, K3 and K4 at [8, 1024, 1024]), with the
+               (4, 8, 8); K7, K3 and K4 at [8, 1024, 1024]; K5 at every
+               band of a 4-way row split of a 4096^2 slice, both
+               epilogues, the stitched bands against K2; K13 against K3 ->
+               K4 and its plain version at [32, 512, 512] and
+               [8, 1024, 1024]), with the
                kernel's, the plain version's and (where one PyTorch call
                computes the same function) the library call's time (CUDA
                events) and the bound (least time for the bytes and the
                operations); then on ragged shapes (251x333 slices, skimage
                regions 31x41: odd region columns, kc % 64 != 0; volumes
-               [12, 96, 160] at grid (3, 3, 5) and [20, 251, 333]);
+               [12, 96, 160] at grid (3, 3, 5) and [20, 251, 333]; K5 on a
+               3-way split at grid (6, 5); K13 in K3's three borders);
   4. slices  — through load_config / compile_pipeline(batched=True) on
                float32, uint8, uint16 and int16 batches: the flagship chain
                (at 512^2 and 1024^2), configs/xray_adapthist_skimage.yaml,
@@ -31,14 +36,21 @@ Phases, one printed line each (or a few):
                path launched exactly as often per call as the design says
                and no other, output against the same chain in plain PyTorch
                on the card (and the CPU), single-slice == batched row; a
-               fraction and a kornia config once each;
+               fraction and a kornia config once each; the row-sharded
+               flagship (mies_tpu_torch.parallel) on an NCCL process group
+               of one rank: spatial_shard_apply at [4096, 4096] and
+               batch_spatial_shard_apply at [8, 4096, 4096], each equal to
+               compile_pipeline, K1, K5, K3, K4 once per call, timed and
+               (the 4096^2 slice) profiled beside compile_pipeline;
   5. timing  — slices/s at batch 32 of 512^2 for every 2-D chain of phase 4
                but fraction and kornia, at batch 8 of 1024^2 for w3, the
                mammogram config and the flagship, z-slices/s for w6 and
                the CT volume config, flagship batch-1 latency p50/p95, and
                each timed chain's device time by kernel (torch.profiler;
                not w10's) against its event-timed time per call: the
-               device's busy share.
+               device's busy share; the fused tail's A/B on the flagship
+               (MIES_TPU_FUSE_TAIL off, on, on, off by time_pipeline;
+               with it on K1, K2, K13 once each and the same output).
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -48,13 +60,16 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 BATCH, SIZE, GRID = 32, 512, (8, 8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -203,6 +218,7 @@ def main() -> int:
     from mies_tpu_torch.kernels import clahe as KC
     from mies_tpu_torch.kernels import clahe3d as K3D
     from mies_tpu_torch.kernels import diffusion as KD
+    from mies_tpu_torch.kernels import fused as KF
     from mies_tpu_torch.kernels import nlmeans as KN
     from mies_tpu_torch.kernels import tv as KT
     from mies_tpu_torch.kernels import unsharp_gauss as KU
@@ -211,6 +227,12 @@ def main() -> int:
     from mies_tpu_torch.ops import intensity as I
     from mies_tpu_torch.ops import restoration as R
     from mies_tpu_torch.ops import volume3d as V
+    from mies_tpu_torch.parallel import (
+        batch_spatial_shard_apply,
+        init_distributed,
+        make_mesh,
+        spatial_shard_apply,
+    )
     from mies_tpu_torch.pipeline.compiler import (
         OP_REGISTRY,
         _ingest,
@@ -221,6 +243,7 @@ def main() -> int:
     from mies_tpu_torch.pipeline.config import PipelineConfig, load_config
     from mies_tpu_torch.pipeline.presets import flagship_config, latency_config
     from mies_tpu_torch.pipeline.runner import (
+        _profile,
         make_batch,
         profile_pipeline,
         profile_volume,
@@ -508,6 +531,93 @@ def main() -> int:
            lambda: KU.unsharp_quant_plain(bkm, 1.5, 1.0), 5 * npm,
            (4 * 13 + 8) * npm, at=at_m)
 
+    # K5 at every band of a 4-way row split of one 4096^2 slice (grid 8x8:
+    # two tile rows of 512 per band) against the LUTs K1 and the LUT build
+    # make over the whole slice, in both epilogues: each band equal to the
+    # plain version, the stitched bands equal to K2 on the whole slice
+    BS, NBANDS = 4096, 4
+    xs = torch.from_numpy(_xray_batch(1, BS, BS, seed=5)).to(dev)
+    tile_s, hb_s = (BS // GRID[0], BS // GRID[1]), BS // NBANDS
+    hs = KC.tile_hists(xs, GRID)
+    _require(torch.equal(hs, KC.tile_hists_plain(xs, GRID)),
+             "K1 at 4096^2 (tiles counted in strips of rows) differs from plain")
+    hs = hs.reshape(1, -1, 256).float()
+    luts_s = {
+        "u8norm": H._luts_opencv(hs, 2.0, tile_s[0] * tile_s[1]).reshape(1, *GRID, 256),
+        "clip01": H._luts_fraction(hs, 0.01, tile_s[0] * tile_s[1]).reshape(1, *GRID, 256)}
+    bands_s = [xs[:, i * hb_s:(i + 1) * hb_s].contiguous() for i in range(NBANDS)]
+
+    def band_apply(fn, fin):
+        return [fn(b, luts_s[fin], GRID, tile_s, i * hb_s, fin)
+                for i, b in enumerate(bands_s)]
+
+    k5_err = 0.0
+    for fin in luts_s:
+        got = band_apply(KC.clahe_apply_lut_band, fin)
+        for i, (g, w) in enumerate(zip(got, band_apply(KC.clahe_apply_lut_band_plain, fin))):
+            k5_err = max(k5_err, (g - w).abs().max().item())
+            _require(torch.equal(g, w), f"K5 {fin} band {i} differs from its plain version")
+        _require(torch.equal(torch.cat(got, 1), KC.clahe_apply_lut(xs, luts_s[fin], GRID, fin)),
+                 f"K5 {fin}: the stitched bands differ from K2 on the whole slice")
+    # one call = the 4 bands: 4 B in + 4 B out per pixel, 29 ops per pixel
+    record("K5", k5_err, lambda: band_apply(KC.clahe_apply_lut_band, "u8norm"),
+           lambda: band_apply(KC.clahe_apply_lut_band_plain, "u8norm"),
+           8 * BS * BS + 4 * luts_s["u8norm"].numel(), 29 * BS * BS,
+           plain_iters=5, at=f"[1,{BS},{BS}] in {NBANDS} bands")
+    # ragged: a 3-way split of 6 tile rows of 43 at grid (6, 5) (tiles 43 x
+    # 67: reciprocals that are not powers of two)
+    rgrid, rtile = (6, 5), (43, 67)
+    xr = x[:2, :6 * 43, :5 * 67].contiguous()
+    hr = KC.tile_hists(xr, rgrid).reshape(2, -1, 256).float()
+    for fin, build, clip in (("u8norm", H._luts_opencv, 2.0),
+                             ("clip01", H._luts_fraction, 0.01)):
+        lr = build(hr, clip, 43 * 67).reshape(2, *rgrid, 256)
+        parts = []
+        for i in range(3):
+            b = xr[:, i * 86:(i + 1) * 86].contiguous()
+            parts.append(KC.clahe_apply_lut_band(b, lr, rgrid, rtile, i * 86, fin))
+            _require(torch.equal(parts[-1], KC.clahe_apply_lut_band_plain(
+                b, lr, rgrid, rtile, i * 86, fin)),
+                f"K5 {fin} on [2, 258, 335] band {i} differs from its plain version")
+        _require(torch.equal(torch.cat(parts, 1), KC.clahe_apply_lut(xr, lr, rgrid, fin)),
+                 f"K5 {fin} on [2, 258, 335]: stitched bands differ from K2")
+    print(f"K5: {NBANDS} bands of [1, {BS}, {BS}] at grid {GRID} and 3 bands of "
+          f"[2, 258, 335] at grid {rgrid}, u8norm and clip01: each band equal "
+          f"to its plain version, the stitched bands equal to K2")
+
+    # K13 on the flagship's own K3 input (the CLAHE output) at [32, 512,
+    # 512] and at [8, 1024, 1024]: bit-equal to K3 -> K4, and against the
+    # plain unfused tail uint8 within 1 level on < 1e-3 of pixels, f32
+    # within 2e-6
+    kp = (5, 0.1, 1.5, "reflect", 1.5, 1.0)
+
+    def check_k13(inp, want_u8, want_f32, what):
+        worst = {}
+        for q, want in ((True, want_u8), (False, want_f32)):
+            got = KF.bilateral_unsharp_cuda(inp, *kp, q)
+            _require(torch.equal(got, want), f"K13 {what} (quantize={q}) differs from K3 -> K4")
+            plain = KF.bilateral_unsharp_plain(inp, *kp, q)
+            d = (got.float() - plain.float()).abs()
+            if q:
+                n_off = int((d > 0).sum().item())
+                _require(d.max().item() <= 1 and n_off < 1e-3 * d.numel(),
+                         f"K13 {what} uint8: {n_off} pixels off the plain tail")
+            else:
+                _require(d.max().item() <= 2e-6, f"K13 {what} f32: {d.max().item()} > 2e-6")
+            worst["u8" if q else "f32"] = d.max().item()
+        return worst
+
+    k13_err = check_k13(ck, uk, KU.unsharp_quant_cuda(bk, 1.5, 1.0, quantize=False),
+                        f"[{BATCH},{SIZE},{SIZE}]")
+    k13m_err = check_k13(cm, ukm, KU.unsharp_quant_cuda(bkm, 1.5, 1.0, quantize=False),
+                         at_m)
+    # 4 B in + 1 B out per pixel; K3's 201 and K4's 60 operations per pixel
+    record("K13", k13_err["u8"], lambda: KF.bilateral_unsharp_cuda(ck, *kp),
+           lambda: KF.bilateral_unsharp_plain(ck, *kp), 5 * npx,
+           (8 * 25 + 1 + 4 * 13 + 8) * npx)
+    print(f"K13: == K3 -> K4 at [{BATCH},{SIZE},{SIZE}] and {at_m}, both quantize "
+          f"modes; max abs vs the plain tail {k13_err} / {k13m_err}")
+
     torch.cuda.synchronize()
     for k, r in rec.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -552,6 +662,13 @@ def main() -> int:
     _require(torch.equal(KU.unsharp_quant_cuda(r, 1.5, 1.0),
                          KU.unsharp_quant_plain(r, 1.5, 1.0)),
              "K4 on 251x333 differs from the plain version")
+    for mode in ("reflect", "mirror", "nearest"):
+        for q in (True, False):
+            _require(torch.equal(
+                KF.bilateral_unsharp_cuda(r, 5, 0.1, 1.5, mode, 1.5, 1.0, q),
+                KU.unsharp_quant_cuda(KB.bilateral_cuda(r, 5, 0.1, 1.5, mode),
+                                      1.5, 1.0, quantize=q)),
+                f"K13 {mode} (quantize={q}) on 251x333 differs from K3 -> K4")
     rag = {}
     r2 = ctw[:2, :251, :333].contiguous()
     rn = KN.nl_means_cuda(r2, *nlm)
@@ -591,7 +708,8 @@ def main() -> int:
     print(f"ragged 251x333: K1+K2 equal (opencv, fraction/clip01), skimage "
           f"regions {rks[0]}x{rks[1]} x {rreg[0]}x{rreg[1]}: K1 bins, K6a, "
           f"K6 and the path equal, K3 max abs {worst} (3 modes x k 3/5/9), "
-          f"K4 equal; max abs {rag}, K12 stop iterations {rt_iters.tolist()}"
+          f"K4 equal, K13 == K3 -> K4 (3 modes); max abs {rag}, K12 stop "
+          f"iterations {rt_iters.tolist()}"
           f" (plain {rp_iters.tolist()})")
 
     # -- 4. the slices through the port's entry points ------------------
@@ -797,6 +915,55 @@ def main() -> int:
                                    ("tile_hists_bins", "skimage_maps",
                                     "clahe3d_skimage_apply"))
 
+    # the row-sharded flagship for real: an NCCL process group of one rank on
+    # a file:// store in a temporary directory, a 1 x 1 mesh, the 4096^2
+    # slice through spatial_shard_apply and a batch of 8 through
+    # batch_spatial_shard_apply; each equal to compile_pipeline's uint8
+    # output, its launches counted (K1, K5, K3, K4 once per call) and timed
+    xb8 = torch.stack([torch.roll(xs[0], (517 * k, 311 * k), (0, 1))
+                       for k in range(8)])
+    shard_want = {"tile_hists": 1, "clahe_apply_lut_band": 1, "bilateral": 1,
+                  "unsharp_quant": 1}
+    sharded = {}
+    with tempfile.TemporaryDirectory() as store:
+        init_distributed(f"file://{store}/store", 1, 0, device="cuda")
+        try:
+            mesh = make_mesh(1, 1)
+            for name, fn_s, inp in (
+                    ("spatial_shard_apply", spatial_shard_apply(cfg, mesh), xs[0]),
+                    ("batch_spatial_shard_apply",
+                     batch_spatial_shard_apply(cfg, mesh), xb8)):
+                _build.reset_launches()
+                out_s = fn_s(inp)
+                torch.cuda.synchronize()
+                counts = dict(_build.LAUNCHES)
+                expect = {k: shard_want.get(k, 0) for k in counts}
+                _require(counts == expect, f"{name}: launches {counts}, want {expect}")
+                ref_fn = compile_pipeline(cfg, batched=inp.dim() == 3)
+                _require(out_s.dtype == torch.uint8 and torch.equal(out_s, ref_fn(inp)),
+                         f"{name} on {list(inp.shape)} differs from compile_pipeline")
+                sharded[name] = (counts, _ms(lambda: fn_s(inp), 10),
+                                 _ms(lambda: ref_fn(inp), 10), list(inp.shape))
+            shard_prof = _profile(spatial_shard_apply(cfg, mesh), xs[0], 10, dev)
+            plain_prof = _profile(compile_pipeline(cfg), xs[0], 10, dev)
+        finally:
+            dist.destroy_process_group()
+    shard_launches = sharded["spatial_shard_apply"][0]
+    for name, (counts, ms_s, ms_ref, shp) in sharded.items():
+        print(f"sharded {name} {shp} (NCCL, world 1, mesh 1x1): launches "
+              f"{ {k: v for k, v in counts.items() if v} } | == compile_pipeline "
+              f"| {ms_s:.4f} ms/call (compile_pipeline {ms_ref:.4f} ms) | {card}")
+    for label, prof in (("spatial_shard_apply", shard_prof),
+                        ("compile_pipeline", plain_prof)):
+        print(f"profile {label} [{BS}, {BS}]: device "
+              f"{prof['device_ms_per_call']:.4f} ms of {prof['ms_per_call']:.4f} "
+              f"ms/call (busy {prof['busy_share']:.1%}) | top ms: "
+              + "; ".join(f"{n[:48]} {v:.4f}" for n, v in
+                          list(prof["by_kernel"].items())[:8])
+              + " | by host op: " + "; ".join(
+                  f"{n} {v:.4f}" for n, v in list(prof["by_op"].items())[:6])
+              + f" | {card}")
+
     # -- 5. timing ----------------------------------------------------------
     tp = time_pipeline(flagship_config(), (SIZE, SIZE), BATCH, device=dev)
     tsk = time_pipeline(sk_cfg, (SIZE, SIZE), BATCH, device=dev)
@@ -862,6 +1029,40 @@ def main() -> int:
               f"{prof['busy_share']:.1%}), {len(prof['by_kernel'])} device "
               f"ops | top ms: {top} | by host op: {ops} | {card}")
 
+    # the fused tail's A/B on the flagship at b32 512^2: MIES_TPU_FUSE_TAIL
+    # off, on, on, off in one run, each by time_pipeline; then one call with
+    # it on (K1, K2, K13 once each, equal to the default chain) and its
+    # device profile
+    ab = {"off": [], "on": []}
+    for tag in ("off", "on", "on", "off"):
+        os.environ.pop("MIES_TPU_FUSE_TAIL", None)
+        if tag == "on":
+            os.environ["MIES_TPU_FUSE_TAIL"] = "1"
+        ab[tag].append(time_pipeline(cfg, (SIZE, SIZE), BATCH, device=dev)["ms_per_batch"])
+    os.environ["MIES_TPU_FUSE_TAIL"] = "1"
+    try:
+        fused_fn = compile_pipeline(cfg, batched=True)
+        _build.reset_launches()
+        fused_out = fused_fn(x)
+        torch.cuda.synchronize()
+        fused_launches = dict(_build.LAUNCHES)
+        fused_prof = profile_pipeline(cfg, (SIZE, SIZE), BATCH, device=dev, batch=x)
+    finally:
+        os.environ.pop("MIES_TPU_FUSE_TAIL", None)
+    want_f = {"tile_hists": 1, "clahe_apply_lut": 1, "bilateral_unsharp": 1}
+    _require(fused_launches == {k: want_f.get(k, 0) for k in fused_launches},
+             f"fused-tail flagship launches {fused_launches}, want {want_f}")
+    _require(torch.equal(fused_out, compile_pipeline(cfg, batched=True)(x)),
+             "fused-tail flagship output differs from the default chain")
+    print(f"fused tail A/B flagship b{BATCH} {SIZE}^2 (ms/batch, off on on off): "
+          f"off {ab['off']} | on {ab['on']} | outputs equal | launches with it on "
+          f"{ {k: v for k, v in fused_launches.items() if v} } | device "
+          f"{fused_prof['device_ms_per_call']:.4f} ms of "
+          f"{fused_prof['ms_per_call']:.4f} ms/call (busy "
+          f"{fused_prof['busy_share']:.1%}) | top ms: "
+          + "; ".join(f"{n[:48]} {v:.4f}" for n, v in
+                      list(fused_prof["by_kernel"].items())[:4]) + f" | {card}")
+
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (
         ("tile_hists", "K1", launches, "mies_tpu_torch/csrc/clahe.cu",
@@ -903,6 +1104,10 @@ def main() -> int:
          "mies_tpu/kernels/bilateral.py:48"),
         ("unsharp_quant", "K4r", mm_launches, "mies_tpu_torch/csrc/unsharp.cu",
          "mies_tpu/kernels/unsharp_gauss.py:134"),
+        ("clahe_apply_lut_band", "K5", shard_launches,
+         "mies_tpu_torch/csrc/clahe.cu", "mies_tpu/kernels/clahe.py:1149"),
+        ("bilateral_unsharp", "K13", fused_launches,
+         "mies_tpu_torch/csrc/fused.cu", "mies_tpu/kernels/fused.py:43"),
     )
     names = {"K1b": "tile_hists_bins", "K2c": "clahe_apply_lut[clip01]",
              "K2": "clahe_apply_lut[u8norm]", "K8": "clahe3d_apply[u8norm]",

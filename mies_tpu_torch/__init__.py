@@ -16,7 +16,9 @@ Perona-Malik diffusion -> MUSICA, the 1024^2 mammography chains (unsharp
 -> gaussian as one kernel; ``configs/mammogram_sharpen.yaml``) and the
 volume program ``pipeline.compiler.compile_volume_pipeline``
 (``configs/ct_volume_3d.yaml``: window_hu -> clahe3d -> gaussian_blur3d on
-a [Z, H, W] volume). ROADMAP.md lists what follows.
+a [Z, H, W] volume), the row- and batch-sharded chains of ``parallel`` on
+torch.distributed, and the opt-in fused bilateral -> unsharp tail
+(``MIES_TPU_FUSE_TAIL=1``). ROADMAP.md lists what follows.
 
     import torch, mies_tpu_torch
     cfg = mies_tpu_torch.load_config("configs/ct_lowdose_nlm.yaml")

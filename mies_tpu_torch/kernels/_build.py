@@ -47,6 +47,7 @@ _SIGNATURES = {
     "mies_tile_hists": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mies_tile_hists_bins": (_P, _P, *(_I,) * 10, _P),
     "mies_apply_lut": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+    "mies_apply_lut_band": (_P, _P, _P, *(_I,) * 7, _F, _F, _I, _I, _P),
     "mies_skimage_maps": (_P, _P, _I, _I, _I, _F, _P),
     "mies_skimage_apply": (_P, _P, _P, *(_I,) * 12, _P),
     "mies_bilateral": (_P, _P, _I, _I, _I, _I, _P, _F, _I, _P),
@@ -58,13 +59,16 @@ _SIGNATURES = {
     "mies_clahe3d_apply": (_P, _P, _P, *(_I,) * 6, _F, _F, _F, _I, _P),
     "mies_clahe3d_skimage_apply": (_P, _P, _P, *(_I,) * 14, _P),
     "mies_unsharp_gauss": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _F, _P),
+    "mies_bilateral_unsharp": (_P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _I, _F,
+                               _I, _P),
 }
 
 # launches per kernel wrapper since the last reset_launches()
 LAUNCHES = {"tile_hists": 0, "tile_hists_bins": 0, "clahe_apply_lut": 0,
-            "skimage_maps": 0, "skimage_apply": 0, "bilateral": 0,
-            "unsharp_quant": 0, "nl_means": 0, "tv": 0, "srad": 0,
-            "perona_malik": 0, "clahe3d_apply": 0, "clahe3d_skimage_apply": 0,
+            "clahe_apply_lut_band": 0, "skimage_maps": 0, "skimage_apply": 0,
+            "bilateral": 0, "unsharp_quant": 0, "bilateral_unsharp": 0,
+            "nl_means": 0, "tv": 0, "srad": 0, "perona_malik": 0,
+            "clahe3d_apply": 0, "clahe3d_skimage_apply": 0,
             "unsharp_gauss": 0}
 
 _lib: ctypes.CDLL | None = None

@@ -4,7 +4,8 @@
 * opencv and fraction (``clahe_cuda``): K1 (tile histograms) -> the small
   LUT build in plain torch on the device, as
   ``mies_tpu.kernels.clahe.clahe_tpu`` leaves it to XLA -> K2 (LUT apply,
-  epilogue u8norm or clip01).
+  epilogue u8norm or clip01). K5 (``clahe_apply_lut_band``) is K2 on one
+  row band of a row-sharded slice (``parallel.clahe_shard``).
 * skimage (``clahe_skimage_cuda``, after ``clahe_skimage_tpu``): the 14-bit
   scale-in, pad and binning in plain torch on the device -> K1 in bins
   mode (region histograms over the crop of the padded binned image) ->
@@ -130,12 +131,8 @@ def tile_hists_bins(bins: torch.Tensor, origin, grid_size, tile,
 def clahe_apply_lut_plain(x: torch.Tensor, luts: torch.Tensor, grid_size,
                           finalize: str = "u8norm") -> torch.Tensor:
     """Plain version of K2: bilinear LUT blend + the epilogue."""
-    th, tw = _tile_shape(x.shape[-2:], grid_size)
-    res = H._bilinear_lut_apply(H._levels(x), luts, tuple(grid_size),
-                                tile_shape=(th, tw))
-    if finalize == "u8norm":
-        return H._u8norm(res)
-    return torch.clamp(res, 0.0, 1.0)
+    return clahe_apply_lut_band_plain(
+        x, luts, grid_size, _tile_shape(x.shape[-2:], grid_size), 0, finalize)
 
 
 def clahe_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid_size,
@@ -166,6 +163,70 @@ def clahe_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid_size,
     _build.launch("clahe_apply_lut", "mies_apply_lut", x.device,
                   x.data_ptr(), luts.data_ptr(), out.data_ptr(),
                   B, h, w, gy, gx, th, tw, inv_th, inv_tw,
+                  _FINALIZE[finalize])
+    return out
+
+
+# --- K5: LUT apply on a row band of a row-sharded slice ---------------------
+
+
+def _check_band(band_shape, grid_size, tile_shape, y_offset) -> None:
+    """The tile-aligned band contract of ``parallel.clahe_shard``: whole
+    tile rows of th, starting at a global row that is a multiple of th,
+    inside the grid, and the slice's full width of gx tiles of tw."""
+    (hb, w), (gy, gx), (th, tw) = band_shape, grid_size, tile_shape
+    if min(th, tw) < 1 or hb % th or y_offset % th or y_offset < 0 \
+            or y_offset + hb > gy * th or w != gx * tw:
+        raise ValueError(
+            f"band {tuple(band_shape)} at row {y_offset} is not tile-aligned "
+            f"for grid {tuple(grid_size)} of {th}x{tw} tiles"
+        )
+
+
+def clahe_apply_lut_band_plain(band: torch.Tensor, luts: torch.Tensor,
+                               grid_size, tile_shape, y_offset: int,
+                               finalize: str = "u8norm") -> torch.Tensor:
+    """Plain version of K5: the bilinear LUT blend at the band's global
+    rows, then K2's epilogue."""
+    res = H._bilinear_lut_apply(H._levels(band), luts, tuple(grid_size),
+                                tile_shape=tuple(tile_shape),
+                                y_offset=y_offset)
+    if finalize == "u8norm":
+        return H._u8norm(res)
+    return torch.clamp(res, 0.0, 1.0)
+
+
+def clahe_apply_lut_band(band: torch.Tensor, luts: torch.Tensor, grid_size,
+                         tile_shape, y_offset: int,
+                         finalize: str = "u8norm") -> torch.Tensor:
+    """K5: K2's blend and epilogue on a tile-aligned row band whose first
+    row is global row ``y_offset`` of a slice tiled by ``grid_size`` tiles
+    of ``tile_shape``; the fractions are taken at the global rows.
+
+    band: [B, hb, W] float32 in [0, 1]; luts: [B, gy, gx, 256] float32,
+    the whole slice's grid; both contiguous. Returns [B, hb, W] float32."""
+    _build.check_tensor(band, "clahe_apply_lut_band: band")
+    _build.check_tensor(luts, "clahe_apply_lut_band: luts", ndim=4)
+    if finalize not in _FINALIZE:
+        raise ValueError(f"finalize must be one of {sorted(_FINALIZE)}, "
+                         f"got {finalize!r}")
+    (gy, gx), (th, tw) = grid_size, tile_shape
+    B, hb, w = band.shape
+    if tuple(luts.shape) != (B, gy, gx, NBINS):
+        raise ValueError(f"luts: expected {(B, gy, gx, NBINS)}, got "
+                         f"{tuple(luts.shape)}")
+    _same_device(luts, band, "luts")
+    y_offset = int(y_offset)
+    _check_band((hb, w), (gy, gx), (th, tw), y_offset)
+    if band.device.type == "cpu":
+        return clahe_apply_lut_band_plain(band, luts, (gy, gx), (th, tw),
+                                          y_offset, finalize)
+    out = torch.empty_like(band)
+    inv_th = float(np.float32(1.0) / np.float32(th))
+    inv_tw = float(np.float32(1.0) / np.float32(tw))
+    _build.launch("clahe_apply_lut_band", "mies_apply_lut_band", band.device,
+                  band.data_ptr(), luts.data_ptr(), out.data_ptr(),
+                  B, hb, w, gy, gx, th, tw, inv_th, inv_tw, y_offset,
                   _FINALIZE[finalize])
     return out
 

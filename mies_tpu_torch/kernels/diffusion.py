@@ -65,10 +65,27 @@ def srad_cuda(
     _build.check_tensor(batch, "srad: batch")
     if batch.device.type == "cpu":
         return R.srad(batch, niter, dt, q0, rho, eps)
-    consts = (float(np.float32(q0)), float(np.float32(rho)),
-              float(np.float32(eps)), float(np.float32(dt / 4.0)))
+    consts = _srad_consts(dt, q0, rho, eps)
     return _steps(batch, niter, "srad", "mies_srad",
                   lambda t: (t, *consts))
+
+
+def _srad_consts(dt, q0, rho, eps) -> tuple[float, ...]:
+    return (float(np.float32(q0)), float(np.float32(rho)),
+            float(np.float32(eps)), float(np.float32(dt / 4.0)))
+
+
+def srad_step(batch: torch.Tensor, t: int, dt: float = 0.15, q0: float = 1.0,
+              rho: float = 0.2, eps: float = 1e-6) -> torch.Tensor:
+    """Iteration ``t`` of SRAD alone: one K10 launch for a CUDA tensor,
+    ``ops.restoration.srad_iteration`` for a CPU tensor (the row-sharded
+    chain refreshes its halo between iterations)."""
+    R.check_srad_args(1, dt, q0, rho)
+    _build.check_tensor(batch, "srad: batch")
+    if batch.device.type == "cpu":
+        return R.srad_iteration(batch, t, dt, q0, rho, eps)
+    consts = _srad_consts(dt, q0, rho, eps)
+    return _steps(batch, 1, "srad", "mies_srad", lambda _: (int(t), *consts))
 
 
 # the pipeline's batched ops: the wrappers already dispatch by device

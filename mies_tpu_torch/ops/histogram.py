@@ -175,17 +175,21 @@ def _bilinear_lut_apply(
     luts: torch.Tensor,
     grid: tuple[int, int],
     tile_shape: tuple[int, int] | None = None,
+    y_offset: int = 0,
 ) -> torch.Tensor:
     """Bilinearly interpolate per pixel between the 4 neighbouring tile LUTs.
 
     u8:   [..., H, W] integer levels (the padded image, or any top-left
-          crop of it when ``tile_shape`` gives the padded tile size).
-    luts: [..., gy, gx, 256] float32.
+          crop of it when ``tile_shape`` gives the padded tile size, or a
+          row band of it when ``y_offset`` gives the band's global first
+          row — the plain version of K5).
+    luts: [..., gy, gx, 256] float32, always the FULL tile grid.
     Returns float32 [..., H, W] of interpolated LUT values (un-rounded).
 
     OpenCV weights: ``txf = x * (1/tw) - 0.5`` with the f32 reciprocal;
     ``tx1 = max(floor(txf), 0)``; ``tx2 = min(floor(txf) + 1, gx - 1)``
-    (the UNCLIPPED floor); ``xa = txf - floor(txf)``; x then y lerp.
+    (the UNCLIPPED floor); ``xa = txf - floor(txf)``; x then y lerp. A
+    band's rows enter as the f32 global row ``y + y_offset``.
     """
     gy, gx = grid
     *lead, h, w = u8.shape
@@ -193,7 +197,8 @@ def _bilinear_lut_apply(
     dev = u8.device
     inv_th = float(np.float32(1.0) / np.float32(th))
     inv_tw = float(np.float32(1.0) / np.float32(tw))
-    yf = torch.arange(h, dtype=torch.float32, device=dev) * inv_th - 0.5
+    yg = torch.arange(h, dtype=torch.float32, device=dev) + float(y_offset)
+    yf = yg * inv_th - 0.5
     xf = torch.arange(w, dtype=torch.float32, device=dev) * inv_tw - 0.5
     ty1f = torch.floor(yf)
     tx1f = torch.floor(xf)

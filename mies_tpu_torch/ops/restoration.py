@@ -330,10 +330,15 @@ def srad(
     niter = int(niter)
     check_srad_args(niter, dt, q0, rho)
     x, lead = _as_slices(img)
-    dt4 = float(np.float32(dt / 4.0))
-    eps32 = float(np.float32(eps))
-    q0_32 = float(np.float32(q0))
     for t in range(niter):
-        q0t = q0_32 * torch.exp(x.new_full((), srad_q0t_arg(rho, t)))
-        x = _srad_step(x, dt4, q0t * q0t, eps32)
+        x = srad_iteration(x, t, dt, q0, rho, eps)
     return x.reshape(*lead, *x.shape[-2:])
+
+
+def srad_iteration(x: torch.Tensor, t: int, dt: float, q0: float,
+                   rho: float, eps: float) -> torch.Tensor:
+    """Iteration ``t`` of srad on [N, H, W] (the plain version of one K10
+    launch; the row-sharded chain runs each on a halo-extended band)."""
+    q0t = float(np.float32(q0)) * torch.exp(x.new_full((), srad_q0t_arg(rho, t)))
+    return _srad_step(x, float(np.float32(dt / 4.0)), q0t * q0t,
+                      float(np.float32(eps)))

@@ -13,6 +13,8 @@ Batched chains on the card:
   flagship: ingest (uint8 / uint16 -> float [0, 1])
     -> clahe opencv (K1, LUT build, K2) -> bilateral_blur (K3)
     -> unsharp_mask + uint8 quantize as one kernel (K4, the tail peephole);
+    under MIES_TPU_FUSE_TAIL=1 (off by default, as in the reference) the
+    bilateral -> unsharp -> uint8 tail runs as one kernel instead (K13);
   configs/xray_adapthist_skimage.yaml: ingest
     -> clahe skimage (K1 bins, K6a, K6) -> unsharp + quantize (K4);
   configs/ct_lowdose_nlm.yaml: int16 HU -> window_hu (plain torch)
@@ -38,6 +40,7 @@ Volume chains (``compile_volume_pipeline``, [Z, H, W] -> [Z, H, W]):
 from __future__ import annotations
 
 import functools
+import os
 from typing import Callable
 
 import numpy as np
@@ -49,6 +52,10 @@ from mies_tpu_torch.kernels.clahe3d import clahe3d_volume
 from mies_tpu_torch.kernels.diffusion import (
     anisotropic_diffusion_batched,
     srad_batched,
+)
+from mies_tpu_torch.kernels.fused import (
+    bilateral_unsharp_cuda,
+    bilateral_unsharp_supported,
 )
 from mies_tpu_torch.kernels.nlmeans import nl_means_batched
 from mies_tpu_torch.kernels.tv import denoise_tv_batched
@@ -127,6 +134,38 @@ def _reject_volume_only(cfg: PipelineConfig) -> None:
 def _bind_batched_stage(s) -> Callable:
     fn = _BATCHED_OPS.get(s.op, OP_REGISTRY[s.op])
     return functools.partial(fn, **s.kwargs())
+
+
+def _try_fuse_tail(cfg: PipelineConfig, quantize: bool, dev: torch.device):
+    """Peephole: a trailing [bilateral_blur -> unsharp_mask('nearest',
+    clip=True)] runs as ONE kernel (K13) with the uint8 quantize folded in,
+    bit-equal to K3 -> K4. Only under MIES_TPU_FUSE_TAIL=1 (the reference's
+    switch, off by default: measured net negative on v5e) and on the card;
+    a tail past K13's limits stays unfused. Decided from the config when
+    the chain is built. Returns (prefix_stages, fused_fn | None)."""
+    if os.environ.get("MIES_TPU_FUSE_TAIL") != "1":
+        return cfg.stages, None
+    if dev.type != "cuda" or len(cfg.stages) < 2:
+        return cfg.stages, None
+    a, b = cfg.stages[-2], cfg.stages[-1]
+    if a.op != "bilateral_blur" or b.op != "unsharp_mask":
+        return cfg.stages, None
+    ak, bk = a.kwargs(), b.kwargs()
+    if bk.get("mode", "nearest") != "nearest" or not bk.get("clip", True):
+        return cfg.stages, None
+    k = int(ak.get("kernel_size", 5))
+    mode = ak.get("mode", "reflect")
+    radius = float(bk.get("radius", 1.0))
+    if not bilateral_unsharp_supported(k, radius, mode):
+        return cfg.stages, None
+    fused = functools.partial(
+        bilateral_unsharp_cuda, kernel_size=k,
+        sigma_color=float(ak.get("sigma_color", 0.1)),
+        sigma_space=float(ak.get("sigma_space", 1.5)), bilateral_mode=mode,
+        radius=radius, amount=float(bk.get("amount", 1.0)),
+        quantize=quantize,
+    )
+    return cfg.stages[:-2], fused
 
 
 def _try_fuse_unsharp_quant(cfg: PipelineConfig, quantize: bool):
@@ -219,16 +258,18 @@ def build_batched_chain(
 
     When ``quantize`` is not None the chain also owns the final uint8
     conversion (quantize=True), which lets the unsharp tail fuse with it.
-    The peepholes run in the reference's order: the quantize tail (K4)
-    first, then the adjacent pairs (K7).
+    The peepholes run in the reference's order: the opt-in bilateral ->
+    unsharp tail (K13) first, then the quantize tail (K4), then the
+    adjacent pairs (K7).
     """
     _check_ported(cfg)
     _reject_volume_only(cfg)
     dev = resolve_device(device)
-    stages, fused_tail = (
-        _try_fuse_unsharp_quant(cfg, bool(quantize)) if quantize is not None
-        else (cfg.stages, None)
-    )
+    stages, fused_tail = cfg.stages, None
+    if quantize is not None:
+        stages, fused_tail = _try_fuse_tail(cfg, bool(quantize), dev)
+        if fused_tail is None:
+            stages, fused_tail = _try_fuse_unsharp_quant(cfg, bool(quantize))
     bound = _bind_stages(stages)
 
     def chain(batch: torch.Tensor) -> torch.Tensor:

@@ -181,7 +181,9 @@ def _on(device, shape, seed: int) -> torch.Tensor:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,grid", [((3, 128, 128), (2, 2)),
-                                        ((2, 251, 333), (8, 8))])
+                                        ((2, 251, 333), (8, 8)),
+                                        # tiles of 502 x 400: strips of rows
+                                        ((1, 1003, 1200), (2, 3))])
 def test_k1_k2_on_card_equal_plain(cuda_device, shape, grid):
     x = _on(cuda_device, shape, 1)
     _build.reset_launches()
@@ -216,6 +218,7 @@ def test_k4_on_card_equals_plain(cuda_device, quantize):
 @pytest.mark.parametrize("origin,grid,tile,nbins", [
     ((32, 32), (4, 5), (64, 64), 256),
     ((15, 20), (8, 8), (31, 41), 253),
+    ((3, 5), (2, 2), (140, 190), 256),  # regions counted in strips of rows
 ])
 def test_k1_bins_on_card_equals_plain(cuda_device, origin, grid, tile, nbins):
     rng = np.random.default_rng(4)
