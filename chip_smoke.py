@@ -58,6 +58,7 @@ without a CUDA device the script exits 1 before printing any result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -74,6 +75,26 @@ import torch.distributed as dist
 BATCH, SIZE, GRID = 32, 512, (8, 8)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+# cv2.createCLAHE(2.0, (8, 8)).apply(cv2_noise(shape)) at shapes with one
+# ragged axis (cv2 pads both axes then): the first 16 hex digits of the
+# sha256 of its uint8 output. The card's machine has no cv2;
+# tests/test_torch_clahe_cv2.py recomputes these with cv2.
+CV2_CLAHE_SHA256 = {
+    (67, 128): "21acfac166e70c47", (128, 93): "2ea01f89b3174d25",
+    (64, 93): "976b637ac80fbe8d", (65, 64): "e177f052c11a3aa7",
+    (121, 200): "e02b6647ceed358d", (512, 500): "ae00097415f613b4",
+}
+
+
+def cv2_noise(shape) -> np.ndarray:
+    """uint8 noise from numpy seed 0, the input of CV2_CLAHE_SHA256."""
+    return (np.random.default_rng(0).random(shape) * 256).astype(np.uint8)
+
+
+def levels_sha256(levels: np.ndarray) -> str:
+    """First 16 hex digits of the sha256 of uint8 levels."""
+    return hashlib.sha256(np.ascontiguousarray(levels, np.uint8).tobytes()
+                          ).hexdigest()[:16]
 
 
 def _require(ok: bool, what: str) -> None:
@@ -441,6 +462,37 @@ def main() -> int:
            22 * int(tk_iters.sum().item()) * SIZE * SIZE, plain_iters=3)
     print(f"K12 per-slice stop iterations: kernel {tk_iters.tolist()} | "
           f"plain {tp_iters.tolist()}")
+    # the chunk boundaries, KT.STEPS steps a launch, on 6 CT and 2 X-ray
+    # slices: at 61 steps (one step past a whole chunk) with eps 2e-4 and
+    # 1.5e-4 the slices stop at the first (17), a middle (19, 38, 46) and
+    # the last step (44) of a chunk of 4 (the plain version on the CPU); at
+    # 37 steps the CT slices never stop, at 9 no slice does. Stop iterations
+    # equal, out within 2e-6, 3 ceil(max_num_iter / STEPS) launches.
+    tb = torch.cat([nk[::6][:6], x[:2]]).contiguous()
+    where = dict.fromkeys(range(KT.STEPS), 0)
+    never = 0
+    for eps, steps in ((2e-4, 61), (1.5e-4, 61), (2e-4, 37), (2e-4, 9)):
+        case = f"K12 eps {eps} at {steps} steps"
+        want, want_iters = R.tv_chambolle(tb, tvp[0], eps, steps)
+        _build.reset_launches()
+        got, got_iters = KT.denoise_tv_cuda(tb, tvp[0], eps, steps,
+                                            return_iters=True)
+        _require(_build.LAUNCHES["tv"] == KT.launches_per_call(steps),
+                 f"{case}: {_build.LAUNCHES['tv']} launches")
+        _require(torch.equal(got_iters, want_iters),
+                 f"{case}: stop iterations {got_iters.tolist()} != plain "
+                 f"{want_iters.tolist()}")
+        within(got, want, 2e-6, case)
+        for n in want_iters.tolist():
+            if n < steps:
+                where[(n - 1) % KT.STEPS] += 1
+            else:
+                never += 1
+    _require(min(where.values()) > 0 and never > 0,
+             f"K12 chunk positions not all met: {where}, {never} never stop")
+    print(f"K12 chunk boundaries: {list(tb.shape)}, equal stop iterations "
+          f"and 3 ceil(steps / {KT.STEPS}) launches at 61, 37 and 9 steps; "
+          f"stops by step of the chunk {where}, {never} slices never stop")
 
     sk10 = KD.srad_cuda(usf, *srp)
     err, equal["K10"] = within(sk10, R.srad(usf, *srp), 1e-6, "K10")
@@ -634,6 +686,25 @@ def main() -> int:
     _require(torch.equal(KC.clahe_cuda(r, 0.01, GRID, "fraction"),
                          H.clahe(r, 0.01, GRID, "fraction")),
              "K1+K2 clip01 (fraction) on 251x333 differ from the plain CLAHE")
+    # one ragged axis: cv2 pads both axes (a full tile on the even one);
+    # K1 -> LUT build -> K2 against cv2's output hashes, and the fraction
+    # convention (the JAX package's pad rule) against its plain version
+    for shape, digest in CV2_CLAHE_SHA256.items():
+        u = (torch.from_numpy(cv2_noise(shape).astype(np.float32)).to(dev)
+             / torch.tensor(255.0, device=dev))  # a true division
+        got = KC.clahe_cuda(u[None].contiguous(), 2.0, GRID)
+        lv = torch.clamp(torch.round(got[0] * 255.0), 0, 255).to(torch.uint8)
+        _require(levels_sha256(lv.cpu().numpy()) == digest,
+                 f"K1+K2 on {shape} differ from cv2.createCLAHE "
+                 f"({int((got != H.clahe(u[None], 2.0, GRID)).sum())} pixels "
+                 f"off the plain CLAHE)")
+        _require(torch.equal(KC.clahe_cuda(u[None].contiguous(), 0.01, GRID,
+                                           "fraction"),
+                             H.clahe(u[None], 0.01, GRID, "fraction")),
+                 f"K1+K2 fraction on {shape} differ from the plain CLAHE")
+    print(f"K1+K2 opencv equal to cv2.createCLAHE(2.0, (8, 8)) at "
+          f"{sorted(CV2_CLAHE_SHA256)} (one ragged axis); fraction equal to "
+          f"plain")
     rks = H.skimage_kernel_size(r.shape[-2:], GRID)
     (rp0, _, rq0, _), rreg = H.skimage_geometry(r.shape[-2:], rks)
     rb = H._skimage_binned(r, rks, nbins)
@@ -674,6 +745,15 @@ def main() -> int:
     rn = KN.nl_means_cuda(r2, *nlm)
     rag["K11"] = within(rn, R.denoise_nl_means(r2, *nlm), 1e-6,
                         "K11 on 251x333")[0]
+    # even s = 4 (runs as 5), d = 0 (no pair: out = u) and s = 9 (the box
+    # loops at a runtime s), on the ragged slices; bit-equal flags printed
+    k11_eq = {}
+    for kw in ((4, 6, 0.06, 0.04), (5, 0, 0.06, 0.04), (9, 3, 0.08, 0.02)):
+        e_, k11_eq[f"s{kw[0]} d{kw[1]}"] = within(
+            KN.nl_means_cuda(r2, *kw), R.denoise_nl_means(r2, *kw), 1e-6,
+            f"K11 s={kw[0]} d={kw[1]} on 251x333")
+        rag[f"K11 s{kw[0]} d{kw[1]}"] = e_
+    print(f"K11 on 251x333 bit-equal to plain: {k11_eq}")
     rt, rt_iters = KT.denoise_tv_cuda(rn, *tvp, return_iters=True)
     rp, rp_iters = R.tv_chambolle(rn, *tvp)
     rag["K12"] = within(rt, rp, 2e-6, "K12 on 251x333")[0]
@@ -801,12 +881,14 @@ def main() -> int:
                     "convention": "kornia"}), tail], name="kornia")
     drive(ko_cfg, "kornia (plain torch CLAHE)", both[:1], ("unsharp_quant",))
 
-    # the restoration chains: NL-means one launch, TV and the diffusions
-    # one launch per iteration, CLAHE K1 and K2 once
+    # the restoration chains: NL-means one launch, TV three per chunk of
+    # KT.STEPS iterations, the diffusions one per iteration, CLAHE K1 and
+    # K2 once
     clahe_k = {"tile_hists": 1, "clahe_apply_lut": 1}
     ct_cfg = load_config(repo / "configs" / "ct_lowdose_nlm.yaml")
     ct_fn, ct_launches = drive(ct_cfg, "ct_lowdose_nlm yaml", (("int16", ct),),
-                               {"nl_means": 1, "tv": tvp[2], **clahe_k})
+                               {"nl_means": 1,
+                                "tv": KT.launches_per_call(tvp[2]), **clahe_k})
     out = ct_fn(ct)
     cpu = compile_pipeline(ct_cfg, batched=True, device="cpu")(ct[:2].cpu())
     n, total = close(out[:2].cpu(), cpu, "CT card vs CPU reference")

@@ -60,9 +60,14 @@ __device__ __forceinline__ int level_of(float v) {
 }
 
 // Source index of a position in OpenCV's bottom/right BORDER_REFLECT_101
-// pad (the wrapper guarantees the pad is shorter than the image).
+// pad, at any number of bounces (cv2's rule pads a full tile on an axis
+// that divides evenly, which can be longer than a small image); periodic
+// with period 2n - 2, as borderInterpolate and numpy 'reflect'.
 __device__ __forceinline__ int reflect101(int i, int n) {
-  return i < n ? i : 2 * n - 2 - i;
+  if (i < n) return i;
+  if (n == 1) return 0;
+  const int m = i % (2 * n - 2);
+  return m < n ? m : 2 * n - 2 - m;
 }
 
 // A block's share of a tile's counts: stored when it counted the whole

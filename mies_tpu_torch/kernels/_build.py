@@ -53,7 +53,8 @@ _SIGNATURES = {
     "mies_bilateral": (_P, _P, _I, _I, _I, _I, _P, _F, _I, _P),
     "mies_unsharp": (_P, _P, _I, _I, _I, _P, _I, _F, _I, _P),
     "mies_nl_means": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
-    "mies_tv_step": (*(_P,) * 9, _I, _I, _I, _F, _F, _F, _F, _P),
+    "mies_tv_chunk": (*(_P,) * 7, _I, _I, _I, _I, _I, _F, _I, _P),
+    "mies_tv_energy": (*(_P,) * 6, _I, _I, _I, _I, _F, _F, _F, _P),
     "mies_perona_malik": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
     "mies_srad": (_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "mies_clahe3d_apply": (_P, _P, _P, *(_I,) * 6, _F, _F, _F, _I, _P),

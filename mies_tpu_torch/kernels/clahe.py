@@ -17,7 +17,9 @@
 Each kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain version (``*_plain``, from ``ops.histogram``) only for a CPU tensor.
 Any image shape runs: a ragged image's OpenCV bottom/right reflect-101 pad
-is resolved inside K1, and K2 and K6 write only the unpadded pixels.
+(cv2's rule for opencv: both axes gain ``g - n % g`` when either is ragged;
+the JAX package's ``(g - n % g) % g`` for fraction) is resolved inside K1,
+and K2 and K6 write only the unpadded pixels.
 """
 
 from __future__ import annotations
@@ -33,18 +35,16 @@ MAX_BINS = 1024  # K6a runs one thread per bin, and a block has at most 1024
 _FINALIZE = {"u8norm": 0, "clip01": 1}
 
 
-def _tile_shape(shape, grid_size) -> tuple[int, int]:
-    """(th, tw) of the image padded up to a multiple of the grid; the pad
-    is one reflect-101 bounce, so it must be shorter than the image."""
-    h, w = shape
+def _tile_shape(shape, grid_size, convention: str) -> tuple[int, int]:
+    """(th, tw) of the image padded up to a multiple of the grid by the
+    convention's rule (``ops.histogram.grid_pads``). The pad is resolved
+    by index in K1 at any length, as cv2 does (more than one reflect-101
+    bounce on an image shorter than its pad)."""
     gy, gx = grid_size
     if gy < 1 or gx < 1:
         raise ValueError(f"grid_size must be >= 1, got {grid_size}")
-    ph, pw = (gy - h % gy) % gy, (gx - w % gx) % gx
-    if ph > h - 1 or pw > w - 1:
-        raise ValueError(
-            f"image {h}x{w} is too small for a {gy}x{gx} CLAHE grid"
-        )
+    h, w = shape
+    ph, pw = H.grid_pads((h, w), (gy, gx), convention)
     return (h + ph) // gy, (w + pw) // gx
 
 
@@ -64,25 +64,28 @@ def _same_device(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
 # --- K1: tile histograms ----------------------------------------------------
 
 
-def tile_hists_plain(x: torch.Tensor, grid_size) -> torch.Tensor:
+def tile_hists_plain(x: torch.Tensor, grid_size,
+                     convention: str = "opencv") -> torch.Tensor:
     """Plain version of K1: [B, H, W] f32 -> [B, gy, gx, 256] int32."""
     gy, gx = grid_size
-    u8, _, _ = H._pad_reflect101(H._levels(x), (gy, gx))
+    u8, _, _ = H._pad_reflect101(H._levels(x), (gy, gx), convention)
     counts = H._tile_histograms(u8, (gy, gx))
     return counts.reshape(x.shape[0], gy, gx, NBINS).to(torch.int32)
 
 
-def tile_hists(x: torch.Tensor, grid_size) -> torch.Tensor:
+def tile_hists(x: torch.Tensor, grid_size,
+               convention: str = "opencv") -> torch.Tensor:
     """K1: per-tile 256-bin counts of the uint8 levels of x.
 
     x: [B, H, W] float32 in [0, 1], contiguous. Returns [B, gy, gx, 256]
-    int32 exact counts over the reflect-101-padded tiles."""
+    int32 exact counts over the tiles of x padded (reflect-101) by the
+    ``convention``'s rule (opencv or fraction)."""
     _build.check_tensor(x, "tile_hists: x")
     gy, gx = grid_size
     B, h, w = x.shape
-    th, tw = _tile_shape((h, w), (gy, gx))
+    th, tw = _tile_shape((h, w), (gy, gx), convention)
     if x.device.type == "cpu":
-        return tile_hists_plain(x, (gy, gx))
+        return tile_hists_plain(x, (gy, gx), convention)
     out = torch.empty((B, gy, gx, NBINS), dtype=torch.int32, device=x.device)
     _build.launch("tile_hists", "mies_tile_hists", x.device,
                   x.data_ptr(), out.data_ptr(), B, h, w, gy, gx, th, tw)
@@ -129,17 +132,21 @@ def tile_hists_bins(bins: torch.Tensor, origin, grid_size, tile,
 
 
 def clahe_apply_lut_plain(x: torch.Tensor, luts: torch.Tensor, grid_size,
-                          finalize: str = "u8norm") -> torch.Tensor:
+                          finalize: str = "u8norm",
+                          convention: str = "opencv") -> torch.Tensor:
     """Plain version of K2: bilinear LUT blend + the epilogue."""
     return clahe_apply_lut_band_plain(
-        x, luts, grid_size, _tile_shape(x.shape[-2:], grid_size), 0, finalize)
+        x, luts, grid_size, _tile_shape(x.shape[-2:], grid_size, convention),
+        0, finalize)
 
 
 def clahe_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid_size,
-                    finalize: str = "u8norm") -> torch.Tensor:
+                    finalize: str = "u8norm",
+                    convention: str = "opencv") -> torch.Tensor:
     """K2: OpenCV bilinear LUT interpolation at each pixel's uint8 level,
     finalized as clip(rint(v), 0, 255) / 255 ("u8norm", integer LUTs) or
-    clip(v, 0, 1) ("clip01", the fraction convention's LUTs).
+    clip(v, 0, 1) ("clip01", the fraction convention's LUTs), with the
+    tiles of ``convention``'s pad rule (as K1's).
 
     x: [B, H, W] float32 in [0, 1]; luts: [B, gy, gx, 256] float32, both
     contiguous. Returns [B, H, W] float32."""
@@ -154,9 +161,9 @@ def clahe_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid_size,
         raise ValueError(f"luts: expected {(B, gy, gx, NBINS)}, got "
                          f"{tuple(luts.shape)}")
     _same_device(luts, x, "luts")
-    th, tw = _tile_shape((h, w), (gy, gx))
+    th, tw = _tile_shape((h, w), (gy, gx), convention)
     if x.device.type == "cpu":
-        return clahe_apply_lut_plain(x, luts, (gy, gx), finalize)
+        return clahe_apply_lut_plain(x, luts, (gy, gx), finalize, convention)
     out = torch.empty_like(x)
     inv_th = float(np.float32(1.0) / np.float32(th))
     inv_tw = float(np.float32(1.0) / np.float32(tw))
@@ -311,8 +318,9 @@ def clahe_cuda(
         raise ValueError(f"clahe_cuda runs 'opencv' and 'fraction', not "
                          f"{convention!r}")
     gy, gx = grid_size
-    th, tw = _tile_shape(x.shape[-2:], (gy, gx))
-    hists = tile_hists(x, (gy, gx)).reshape(x.shape[0], gy * gx, NBINS)
+    th, tw = _tile_shape(x.shape[-2:], (gy, gx), convention)
+    hists = tile_hists(x, (gy, gx), convention).reshape(
+        x.shape[0], gy * gx, NBINS)
     if convention == "opencv":
         luts = H._luts_opencv(hists.to(torch.float32), clip_limit, th * tw)
         finalize = "u8norm"
@@ -320,7 +328,7 @@ def clahe_cuda(
         luts = H._luts_fraction(hists.to(torch.float32), clip_limit, th * tw)
         finalize = "clip01"
     return clahe_apply_lut(x, luts.reshape(x.shape[0], gy, gx, NBINS),
-                           (gy, gx), finalize)
+                           (gy, gx), finalize, convention)
 
 
 def clahe_skimage_cuda(

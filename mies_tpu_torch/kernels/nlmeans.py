@@ -1,11 +1,13 @@
 """Non-local means on the card: K11 (``csrc/nlmeans.cu``).
 
 ``nl_means_cuda`` launches the kernel once per call for a CUDA tensor (the
-whole half shift table in one launch) and runs the plain
+whole half shift table in one launch; per pair, one box field in shared
+memory that both ends of the pair read) and runs the plain
 ``ops.restoration.denoise_nl_means`` for a CPU tensor. Any image shape
 runs whose numpy-'reflect' extension fits (s // 2 + d < every dim, the
 op's own error); the kernel's one real limit is shared memory for the
-tile's halo, and a call past it raises with the reason.
+tile's halo and the pair's fields, and a call past it raises with the
+reason.
 """
 
 from __future__ import annotations
@@ -15,24 +17,30 @@ import torch
 from mies_tpu_torch.kernels import _build
 from mies_tpu_torch.ops import restoration as R
 
-TILE = (8, 32)  # the kernel's output tile, rows x columns
+TILE = (32, 32)  # the kernel's output tile, rows x columns (csrc/nlmeans.cu)
 MAX_SHARED_BYTES = 232448  # dynamic shared memory one Hopper block may use
 
 
 def shared_bytes(s: int, d: int) -> int:
-    """Shared memory of one block: its tile and the halo s // 2 + d."""
+    """Shared memory of one block (csrc/nlmeans.cu nlm_smem_floats): the
+    tile with its halo s // 2 + d and 8 rows of padding, and at their
+    largest (|t| = d) a pair's column sums, 8 rows more, and weights, 8
+    columns more, at odd pitches."""
+    th, tw = TILE
     r = s // 2 + d
-    return (TILE[0] + 2 * r) * (TILE[1] + 2 * r) * 4
+    return 4 * ((th + 2 * r + 8) * (tw + 2 * r)
+                + (th + d + 8) * ((tw + d + s - 1) | 1)
+                + (th + d) * ((tw + d + 8) | 1))
 
 
 def check_shared(s: int, d: int) -> None:
-    """Raise if the kernel's block cannot hold its tile and halo."""
+    """Raise if the kernel's block cannot hold its tile, halo and fields."""
     need = shared_bytes(s, d)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
-            f"NL-means s={s}, d={d}: the halo s//2 + d = {s // 2 + d} needs "
-            f"{need} bytes of shared memory per block, more than the "
-            f"{MAX_SHARED_BYTES} a block may use"
+            f"NL-means s={s}, d={d}: the halo s//2 + d = {s // 2 + d} and "
+            f"a pair's fields need {need} bytes of shared memory per "
+            f"block, more than the {MAX_SHARED_BYTES} a block may use"
         )
 
 

@@ -81,16 +81,30 @@ def _pad_reflect(img: torch.Tensor, rows: tuple[int, int],
     return img
 
 
+def grid_pads(shape: tuple[int, int], grid: tuple[int, int],
+              convention: str) -> tuple[int, int]:
+    """Bottom and right pad lengths that make H, W multiples of the grid.
+
+    opencv: ``cv2.createCLAHE``'s rule (``CLAHE_Impl::apply``): when either
+    axis is ragged, BOTH are padded by ``g - n % g``, so an axis that
+    divides evenly gains a full tile. fraction (no outside ground truth,
+    so the JAX package's rule): each axis by ``(g - n % g) % g``."""
+    (h, w), (gy, gx) = shape, grid
+    if convention == "opencv":
+        if h % gy == 0 and w % gx == 0:
+            return 0, 0
+        return gy - h % gy, gx - w % gx
+    return (gy - h % gy) % gy, (gx - w % gx) % gx
+
+
 def _pad_reflect101(
-    img: torch.Tensor, grid: tuple[int, int]
+    img: torch.Tensor, grid: tuple[int, int], convention: str
 ) -> tuple[torch.Tensor, int, int]:
-    """Pad H, W up to multiples of the tile grid with BORDER_REFLECT_101
-    on the bottom/right only, as OpenCV's ``copyMakeBorder`` does (numpy
-    mode 'reflect')."""
-    h, w = img.shape[-2:]
-    gy, gx = grid
-    ph = (gy - h % gy) % gy
-    pw = (gx - w % gx) % gx
+    """Pad H, W up to multiples of the tile grid by ``grid_pads``' rule
+    with BORDER_REFLECT_101 on the bottom/right only, as OpenCV's
+    ``copyMakeBorder`` does (numpy mode 'reflect', any number of bounces,
+    as OpenCV's ``borderInterpolate``)."""
+    ph, pw = grid_pads(img.shape[-2:], grid, convention)
     return _pad_reflect(img, (0, ph), (0, pw)), ph, pw
 
 
@@ -228,7 +242,8 @@ def _clahe_tiled(img: torch.Tensor, clip_limit: float,
     """The opencv and fraction conventions (OpenCV tiling and blend)."""
     gy, gx = grid
     h0, w0 = img.shape[-2:]
-    u8, _, _ = _pad_reflect101(_levels(img.to(torch.float32)), (gy, gx))
+    u8, _, _ = _pad_reflect101(_levels(img.to(torch.float32)), (gy, gx),
+                               convention)
     h, w = u8.shape[-2:]
     th, tw = h // gy, w // gx
     hists = _tile_histograms(u8, (gy, gx))

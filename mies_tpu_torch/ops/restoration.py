@@ -147,6 +147,25 @@ def tv_constants(shape: tuple[int, int], weight: float, eps: float):
             float(np.float32(float(shape[0] * shape[1]))))
 
 
+def tv_step(x: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor,
+            tau_w: float):
+    """One unmasked Chambolle step on [N, H, W] (the reference's loop body):
+    the divergence d of the dual field (0 before the first row and column),
+    the candidate out = x + d, its forward gradient g (0 at the last row and
+    column), |g| and the new dual field. Returns (out, d * d, |g|, p1, p2):
+    the step's energy is sum(d * d) + weight sum(|g|), over the slice."""
+    d = -(p1 + p2)
+    d = d + F.pad(p1[:, :-1, :], (0, 0, 1, 0))
+    d = d + F.pad(p2[:, :, :-1], (1, 0))
+    cand = x + d
+    g1 = F.pad(cand[:, 1:, :] - cand[:, :-1, :], (0, 0, 0, 1))
+    g2 = F.pad(cand[:, :, 1:] - cand[:, :, :-1], (0, 1))
+    norm = torch.sqrt(g1 * g1 + g2 * g2)
+    factor = 1.0 + tau_w * norm
+    return (cand, d * d, norm, (p1 - 0.25 * g1) / factor,
+            (p2 - 0.25 * g2) / factor)
+
+
 def tv_chambolle(
     img: torch.Tensor, weight: float, eps: float, max_num_iter: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -174,18 +193,9 @@ def tv_chambolle(
     e_init = x.new_zeros(n)
     stop = torch.zeros(n, dtype=torch.bool, device=x.device)
     for _ in range(int(max_num_iter)):
-        d = -(p1 + p2)
-        d = d + F.pad(p1[:, :-1, :], (0, 0, 1, 0))
-        d = d + F.pad(p2[:, :, :-1], (1, 0))
-        cand = x + d
-        e = (d * d).double().sum((1, 2)).float()
-        g1 = F.pad(cand[:, 1:, :] - cand[:, :-1, :], (0, 0, 0, 1))
-        g2 = F.pad(cand[:, :, 1:] - cand[:, :, :-1], (0, 1))
-        norm = torch.sqrt(g1 * g1 + g2 * g2)
+        cand, dd, norm, np1, np2 = tv_step(x, p1, p2, tau_w)
+        e = dd.double().sum((1, 2)).float()
         e = (e + w32 * norm.double().sum((1, 2)).float()) / size_t
-        factor = 1.0 + tau_w * norm
-        np1 = (p1 - 0.25 * g1) / factor
-        np2 = (p2 - 0.25 * g2) / factor
         e_init_n = torch.where(it == 0, e, e_init)
         stop_n = (it > 0) & (torch.abs(e_prev - e) < eps32 * e_init_n)
         active = ~stop

@@ -53,7 +53,8 @@ def test_k1_plain_equals_pallas_hist_rows(rng):
     x = rng.random((2, 128, 128)).astype(np.float32)
     ref = np.asarray(tile_hists_rows_pallas(
         jnp.asarray(x), 2, 2, interpret=True, quantize_input=True))
-    u8, _, _ = TH._pad_reflect101(TH._levels(torch.from_numpy(x)), (2, 2))
+    u8, _, _ = TH._pad_reflect101(TH._levels(torch.from_numpy(x)), (2, 2),
+                                  "opencv")
     counts = TH._tile_histograms(u8, (2, 2)).reshape(2, 2, 2, 256)
     np.testing.assert_array_equal(counts.numpy(), ref)
     np.testing.assert_array_equal(
@@ -149,7 +150,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         KC.clahe_apply_lut(x, torch.zeros(1, 4, 4, 255), (4, 4))
     with pytest.raises(ValueError):
-        KC.tile_hists(torch.zeros(1, 3, 3), (8, 8))  # pad longer than image
+        KC.tile_hists(torch.zeros(1, 3, 3), (0, 8))  # no tile grid
+    # a pad longer than the image is taken, as cv2 takes it
+    # (tests/test_torch_clahe_cv2.py)
+    assert KC.tile_hists(torch.zeros(1, 3, 3), (8, 8)).sum() == 8 * 8 * 1
     assert KU.unsharp_quant_supported(1.5)
     assert not KU.unsharp_quant_supported(5.0)
 
@@ -304,8 +308,12 @@ def test_k10_on_card_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 128, 128), (1, 251, 333)])
-@pytest.mark.parametrize("s,d,h,sigma", [(5, 6, 0.06, 0.04), (4, 3, 0.1, 0.0)])
+@pytest.mark.parametrize("shape", [(2, 128, 128), (1, 251, 333),
+                                   # H and W not multiples of the tile
+                                   (2, 33, 65), (1, 47, 100)])
+@pytest.mark.parametrize("s,d,h,sigma", [(5, 6, 0.06, 0.04), (4, 3, 0.1, 0.0),
+                                         (3, 0, 0.1, 0.0),  # no pair
+                                         (9, 2, 0.08, 0.02)])  # runtime s
 def test_k11_on_card_matches_plain(cuda_device, shape, s, d, h, sigma):
     x = _on(cuda_device, shape, 10)
     _build.reset_launches()
@@ -316,17 +324,57 @@ def test_k11_on_card_matches_plain(cuda_device, shape, s, d, h, sigma):
     assert (got - want).abs().max().item() <= 1e-6
 
 
+def _tv_batch(device, shape, seed):
+    """A smooth ramp slice (stops early) among noise slices (late)."""
+    x = _on(device, shape, seed)
+    x[0] = torch.linspace(0, 1, shape[2], device=device) + 0.02 * x[0]
+    return x
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 128, 128), (2, 251, 333)])
 @pytest.mark.parametrize("weight,max_iter", [(0.1, 60), (0.2, 200)])
 def test_k12_on_card_matches_plain(cuda_device, shape, weight, max_iter):
-    x = _on(cuda_device, shape, 11)
-    x[0] = torch.linspace(0, 1, shape[2], device=cuda_device) + 0.02 * x[0]
+    x = _tv_batch(cuda_device, shape, 11)
     _build.reset_launches()
     got, iters = KT.denoise_tv_cuda(x, weight, 2e-4, max_iter,
                                     return_iters=True)
-    assert _build.LAUNCHES["tv"] == max_iter
+    assert _build.LAUNCHES["tv"] == KT.launches_per_call(max_iter)
     want, want_iters = TR.tv_chambolle(x, weight, 2e-4, max_iter)
     torch.cuda.synchronize()
     assert torch.equal(iters, want_iters), (iters, want_iters)
     assert (got - want).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps,max_iter,positions", [
+    (3e-4, 61, {3, 0, 1}), (2e-4, 61, {2, 0, 1}), (2e-4, 37, set()),
+    (2e-4, 9, set())])
+def test_k12_chunk_boundaries_on_card(cuda_device, eps, max_iter, positions):
+    """Chunks of KT.STEPS = 4 steps: at 61 steps the slices stop at 32, 37
+    and 38 (eps 3e-4) and at 39, 45, 46 and 47 (2e-4; the plain version on
+    the CPU), so at the last, the first and a middle step of a chunk; at 37
+    and 9 steps none stops; none of 61, 37 and 9 is a multiple of 4. Stop
+    iterations equal, out within 2e-6, 3 launches a chunk."""
+    assert KT.STEPS == 4  # the cases' stop positions are those of K = 4
+    x = _tv_batch(cuda_device, (4, 96, 80), 12)
+    want, want_iters = TR.tv_chambolle(x, 0.2, eps, max_iter)
+    _build.reset_launches()
+    got, iters = KT.denoise_tv_cuda(x, 0.2, eps, max_iter, return_iters=True)
+    assert _build.LAUNCHES["tv"] == 3 * -(-max_iter // 4)
+    torch.cuda.synchronize()
+    assert torch.equal(iters, want_iters), (iters, want_iters)
+    assert (got - want).abs().max().item() <= 2e-6
+    assert {(n - 1) % 4 for n in want_iters.tolist()
+            if n < max_iter} == positions, want_iters
+
+
+@pytest.mark.cuda
+def test_k12_refuses_a_halo_it_does_not_load(cuda_device, monkeypatch):
+    """kernels/tv.py HALO (pinned on the CPU by test_tv_chunk_halo_covers_
+    its_steps) is passed to the launch; csrc/tv.cu refuses any other than
+    the halo it loads."""
+    x = _tv_batch(cuda_device, (1, 96, 80), 12)
+    monkeypatch.setattr(KT, "HALO", KT.HALO + 1)
+    with pytest.raises(RuntimeError, match="did not launch"):
+        KT.denoise_tv_cuda(x, 0.2, 2e-4, 9)

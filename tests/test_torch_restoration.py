@@ -122,12 +122,17 @@ def test_half_shift_table_equals_jax():
 
 
 def test_nl_means_shared_memory_guard():
-    """The kernel stages its tile and an s//2 + d halo in shared memory:
-    the one real limit, raised with its reason (no plain fallback)."""
-    assert KN.shared_bytes(5, 6) == (8 + 16) * (32 + 16) * 4
-    KN.check_shared(7, 100)  # the largest halos still fit
+    """The kernel stages its tile and an s//2 + d halo in shared memory,
+    and a pair's column sums and weights over the tile grown by d and
+    s - 1: the one real limit, raised with its reason (no plain
+    fallback)."""
+    # 32 x 32 tile, s 5, d 6: 48 x 48 staged and 8 rows of padding, column
+    # sums 46 x 43 and weights 38 x 47 (odd pitches, 8 rows / columns more
+    # for the register windows)
+    assert KN.shared_bytes(5, 6) == 4 * (56 * 48 + 46 * 43 + 38 * 47)
+    KN.check_shared(7, 70)  # the largest halos still fit
     with pytest.raises(ValueError, match="shared memory"):
-        KN.check_shared(7, 110)
+        KN.check_shared(7, 75)
 
 
 # --- TV-Chambolle (K12's plain version) --------------------------------------
@@ -159,6 +164,48 @@ def test_tv_each_slice_stops_on_its_own(rng):
         assert torch.equal(alone[0], out[i])
     ref = np.asarray(JT.denoise_tv_batched(jnp.asarray(x), 0.2, 2e-4, 200))
     np.testing.assert_allclose(out.numpy(), ref, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("where", ["top-left", "inside", "bottom-right"])
+def test_tv_chunk_halo_covers_its_steps(where):
+    """K12 runs kernels/tv.py STEPS steps on a tile and a halo of HALO
+    pixels: those steps on the window (image edges where it meets them,
+    window edges wrong elsewhere) equal, on the tile, the same steps on the
+    whole slice: the last out, each step's d^2 and |g| (the energy sums)
+    and the new dual field. A halo one pixel narrower does not. The launch
+    passes HALO, and csrc/tv.cu refuses any other than the one it loads
+    (test_k12_refuses_a_halo_it_does_not_load, on the card)."""
+    rng = np.random.default_rng(5)
+    x = _t(rng.random((1, 40, 52)).astype(np.float32))
+    tau_w = TR.tv_constants((40, 52), 0.1, 2e-4)[2]
+    p1 = p2 = torch.zeros_like(x)
+    for _ in range(3):  # a dual field that is not zero
+        p1, p2 = TR.tv_step(x, p1, p2, tau_w)[3:]
+    th, tw = 10, 12
+    y0, x0 = {"top-left": (0, 0), "inside": (15, 20),
+              "bottom-right": (40 - th, 52 - tw)}[where]
+
+    def run(a1, a2, img):
+        seen = []
+        for _ in range(KT.STEPS):
+            cand, dd, norm, a1, a2 = TR.tv_step(img, a1, a2, tau_w)
+            seen += [dd, norm]
+        return [*seen, cand, a1, a2]
+
+    whole = [f[:, y0:y0 + th, x0:x0 + tw] for f in run(p1, p2, x)]
+
+    def on_window(halo):
+        wy, wx = max(y0 - halo, 0), max(x0 - halo, 0)
+        rows = slice(wy, min(y0 + th + halo, 40))
+        cols = slice(wx, min(x0 + tw + halo, 52))
+        got = run(p1[:, rows, cols], p2[:, rows, cols], x[:, rows, cols])
+        return [f[:, y0 - wy:y0 - wy + th, x0 - wx:x0 - wx + tw] for f in got]
+
+    assert KT.HALO == KT.STEPS
+    assert all(torch.equal(a, b) for a, b in zip(on_window(KT.HALO), whole))
+    if where == "inside":
+        assert not all(torch.equal(a, b)
+                       for a, b in zip(on_window(KT.HALO - 1), whole))
 
 
 # --- Perona-Malik and SRAD (K9 and K10's plain versions) ---------------------
