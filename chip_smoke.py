@@ -496,6 +496,7 @@ def main() -> int:
 
     sk10 = KD.srad_cuda(usf, *srp)
     err, equal["K10"] = within(sk10, R.srad(usf, *srp), 1e-6, "K10")
+    _require(equal["K10"], f"K10 differs from R.srad by up to {err}")
     # 42 per pixel and iteration: 4 differences, one conduction (29),
     # the divergence (7) and the update (2)
     record("K10", err, lambda: KD.srad_cuda(usf, *srp),
@@ -882,8 +883,8 @@ def main() -> int:
     drive(ko_cfg, "kornia (plain torch CLAHE)", both[:1], ("unsharp_quant",))
 
     # the restoration chains: NL-means one launch, TV three per chunk of
-    # KT.STEPS iterations, the diffusions one per iteration, CLAHE K1 and
-    # K2 once
+    # KT.STEPS iterations, SRAD one per chunk of KD.STEPS, Perona-Malik one
+    # per iteration, CLAHE K1 and K2 once
     clahe_k = {"tile_hists": 1, "clahe_apply_lut": 1}
     ct_cfg = load_config(repo / "configs" / "ct_lowdose_nlm.yaml")
     ct_fn, ct_launches = drive(ct_cfg, "ct_lowdose_nlm yaml", (("int16", ct),),
@@ -898,7 +899,8 @@ def main() -> int:
           f"single == batched row")
     us_cfg = load_config(repo / "configs" / "ultrasound_despeckle.yaml")
     _, us_launches = drive(us_cfg, "ultrasound_despeckle yaml",
-                           (("uint8", us),), {"srad": srp[0], **clahe_k})
+                           (("uint8", us),),
+                           {"srad": KD.launches_per_call(srp[0]), **clahe_k})
     # BASELINE w10 (int16 in), w9 and w8 (float32 in), as
     # benchmarks/workloads.py defines them
     w10_cfg = PipelineConfig.make(
@@ -911,7 +913,7 @@ def main() -> int:
          ("clahe", {"clip_limit": 2.0, "grid_size": GRID,
                     "convention": "opencv"})], name="w9")
     drive(w9_cfg, "w9 srad+clahe", (("float32", usf),),
-          {"srad": srp[0], **clahe_k})
+          {"srad": KD.launches_per_call(srp[0]), **clahe_k})
     w8_cfg = PipelineConfig.make(
         [("anisotropic_diffusion", {"niter": pmp[0], "kappa": pmp[1],
                                     "gamma": pmp[2]}),
@@ -1144,6 +1146,15 @@ def main() -> int:
           f"{fused_prof['busy_share']:.1%}) | top ms: "
           + "; ".join(f"{n[:48]} {v:.4f}" for n, v in
                       list(fused_prof["by_kernel"].items())[:4]) + f" | {card}")
+
+    # K10 and K7, and the chains they lie on
+    busy = {label: prof["busy_share"] for label, prof in profiles}
+    print(f"K10 {rec['K10']['ms']:.4f} ms ({us_launches['srad']} launches "
+          f"per ultrasound call), K7 {rec['K7']['ms']:.4f} ms | ultrasound "
+          f"{tus['slices_per_sec']:.1f} slices/s (busy "
+          f"{busy['ultrasound_despeckle yaml']:.1%}), w9 "
+          f"{tw9['slices_per_sec']:.1f} (busy {busy['w9']:.1%}), w3 "
+          f"{tw3['slices_per_sec']:.1f} (busy {busy['w3']:.1%}) | {card}")
 
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (

@@ -11,132 +11,329 @@
 // The border is the hard part: scipy pads PER PASS, so padding x once and
 // convolving twice is wrong at the edges. Exactly:
 //   * G1's pads are edge pads of x (the vertical pass commutes with column
-//     replication), so x is staged by clamped index;
+//     replication): x is read at clamped rows and columns;
 //   * G2's row pad replicates U's edge rows: U is computed only at image
-//     positions, and the staged U rows and columns are U at the CLAMPED
-//     coordinate, which G1 reads from x at clamp(clamped row -/+ r1);
-//   * G2's column pad replicates the edge columns of V, the result of G2's
-//     row pass: V is staged over clamped columns too.
-// Design: one block per 32 x 32 output tile; the taps, x with an r1 + r2
-// halo, the G1 row pass, U over an r2 halo and V sit in dynamic shared
-// memory (r1 = r2 = 6: 30 KB). Bound: 4 B read + 4 B written per pixel;
-// about 110 f32 operations per pixel, plus the halo's recomputation.
+//     rows, and an edge row is pushed into G2's window once for itself and
+//     once for each padded row it stands for;
+//   * G1's column pad replicates the edge columns of its row pass, and G2's
+//     those of V, the result of G2's row pass: both rows are staged over
+//     clamped columns, and a U column past the image's edge is U at the
+//     edge column (its first tap read from where the edge column's is).
+// So every tap reads unguarded: no clamp, division or modulo in a tap loop.
+//
+// Design: a block owns a strip of kStripW output columns and walks down
+// kStripRows output rows of one slice, one thread per column of the strip
+// and its halo of r1 + r2 on each side. Per row of U, a thread pushes the
+// next x row of its column into a window of 2 r1 + 1 values and sums G1's
+// vertical pass from it; the block stages that row (and x's) in shared
+// memory; a thread then sums G1's horizontal pass at its U column, blends,
+// pushes U into a window of 2 r2 + 1 values of its column, sums G2's
+// vertical pass from it, stages V, and sums G2's horizontal pass at its
+// output column. The halo is recomputed only across the strip's sides and
+// at the ends of its run of rows: per output pixel, 1.41 / 1.30 / 1.09 / 1
+// of the four passes' taps at r1 = r2 = 6 (1.20 of 52 taps in all, against
+// 1.67 for 32 x 32 tiles). For the shipped radii r1 = r2 = 6 (kStaticR, a
+// template instance) the windows and taps sit in registers, and between
+// the run's first and last rows a step takes two U rows: two independent
+// sums per pass, and half the barriers and window shifts per row. Every
+// other pair runs the same body at runtime radii, one U row a step, with its
+// windows in shared-memory rings and its taps in shared memory.
+//
+// Bound: 4 B read + 4 B written per pixel; about 105 f32 operations per
+// pixel, which the _rn arithmetic issues unfused. Each pass is one chain of
+// dependent sums (ascending tap order), so the second row of a step is the
+// only instruction-level parallelism it has: on an H100 it ran faster than
+// one row a step. Strips of 256 columns or 128 rows ran within 2% of
+// 128 x 64, which keeps 128 blocks for a single 1024^2 slice (PERF.md).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kThreads = 256;
-constexpr int kMaxR = 64;  // widest radius of each Gaussian the taps hold
-constexpr int kSmemMax = 232448;  // a block's shared memory on sm_90
+// the radii whose windows and taps sit in registers: radius and sigma 1.5
+// at truncate 4 (w3); kernels/unsharp_gauss.py UG_STATIC_R
+constexpr int kStaticR = 6;
+constexpr int kStripW = 128;        // output columns of a strip at kStaticR
+constexpr int kStripRows = 64;      // output rows a block walks
+constexpr int kStripWRuntime = 32;  // the runtime radii's strip
+constexpr int kMaxR = 64;           // widest radius of each Gaussian
+constexpr int kSmemMax = 232448;    // a block's shared memory on sm_90
 
 struct Taps {
   float k1[2 * kMaxR + 1];
   float k2[2 * kMaxR + 1];
 };
 
+__host__ __device__ constexpr int round32(int n) { return (n + 31) / 32 * 32; }
+
 __device__ __forceinline__ int clampi(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-__global__ void __launch_bounds__(kThreads)
-unsharp_gauss_kernel(const float* __restrict__ x, float* __restrict__ out,
-                     int H, int W, int r1, int r2, Taps taps, float amount) {
-  extern __shared__ float smem[];
-  const int R = r1 + r2;
-  const int XW = kTile + 2 * R;   // staged x: XW x XW, clamped
-  const int UW = kTile + 2 * r2;  // staged U: UW x UW
+// A column's window of the values pushed, oldest first, and sums of N taps
+// over it. Registers when N is known at compile time (N > 0): the last
+// N + 1 values, so that two consecutive windows of N are at hand (OFF 0:
+// the one before the last push, 1: the last). Else a ring of the last n
+// values in shared memory, `stride` floats apart (head: the oldest), where
+// OFF is 1.
+template <int N>
+struct Window {
+  float v[N + 1] = {};  // no undefined value for the shifts to carry
+  __device__ __forceinline__ void push(float x) {
+#pragma unroll
+    for (int t = 0; t < N; ++t) v[t] = v[t + 1];
+    v[N] = x;
+  }
+  template <int OFF>
+  __device__ __forceinline__ float centre() const { return v[OFF + N / 2]; }
+  // sum_t k[t] v[OFF + t] in ascending t, each product and sum rounded
+  template <int OFF>
+  __device__ __forceinline__ float dot(const float* k) const {
+    float acc = __fmul_rn(k[0], v[OFF]);
+#pragma unroll
+    for (int t = 1; t < N; ++t) {
+      acc = __fadd_rn(acc, __fmul_rn(k[t], v[OFF + t]));
+    }
+    return acc;
+  }
+};
+
+template <>
+struct Window<0> {
+  float* ring;
+  int n, stride, head;
+  __device__ __forceinline__ void push(float x) {
+    ring[head * stride] = x;
+    head = head + 1 == n ? 0 : head + 1;
+  }
+  template <int OFF>
+  __device__ __forceinline__ float centre() const {
+    const int s = head + n / 2;
+    return ring[(s < n ? s : s - n) * stride];
+  }
+  template <int OFF>
+  __device__ __forceinline__ float dot(const float* k) const {
+    float acc = __fmul_rn(k[0], ring[head * stride]);
+    int t = 1;
+    for (int s = head + 1; s < n; ++s, ++t) {
+      acc = __fadd_rn(acc, __fmul_rn(k[t], ring[s * stride]));
+    }
+    for (int s = 0; s < head; ++s, ++t) {
+      acc = __fadd_rn(acc, __fmul_rn(k[t], ring[s * stride]));
+    }
+    return acc;
+  }
+};
+
+// sum_t k[t] row[t] over n taps (N > 0: n = N at compile time)
+template <int N>
+__device__ __forceinline__ float row_dot(const float* k, const float* row,
+                                         int n) {
+  float acc = __fmul_rn(k[0], row[0]);
+  if constexpr (N > 0) {
+#pragma unroll
+    for (int t = 1; t < N; ++t) acc = __fadd_rn(acc, __fmul_rn(k[t], row[t]));
+  } else {
+    for (int t = 1; t < n; ++t) acc = __fadd_rn(acc, __fmul_rn(k[t], row[t]));
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float unsharp(float xc, float g, float amount) {
+  const float s = __fadd_rn(xc, __fmul_rn(amount, __fsub_rn(xc, g)));
+  return fminf(fmaxf(s, 0.0f), 1.0f);
+}
+
+// Block (strip x, run of rows y, slice b). R1, R2 >= 0: the radii at
+// compile time (the strip kStripW wide, taps in registers, two U rows per
+// step between the run's first and last); R1 = R2 = -1: the radii r1, r2 at
+// runtime (a strip kStripWRuntime wide, taps and windows in shared memory,
+// one U row per step).
+template <int R1, int R2>
+__global__ void __launch_bounds__(
+    R1 >= 0 ? round32(kStripW + 2 * (R1 + R2))
+            : round32(kStripWRuntime + 4 * kMaxR))
+ug_strip(const float* __restrict__ x, float* __restrict__ out, int H, int W,
+         int rr1, int rr2, const __grid_constant__ Taps taps,
+         float amount) {
+  constexpr bool kStatic = R1 >= 0;
+  constexpr int N1 = kStatic ? 2 * R1 + 1 : 0, N2 = kStatic ? 2 * R2 + 1 : 0;
+  const int r1 = kStatic ? R1 : rr1, r2 = kStatic ? R2 : rr2;
   const int n1 = 2 * r1 + 1, n2 = 2 * r2 + 1;
-  float* k1 = smem;               // the taps, indexed per tap from here
-  float* k2 = k1 + n1;
-  float* xs = k2 + n2;            // [XW][XW]; reused for V [kTile][UW]
-  float* y1 = xs + XW * XW;       // G1 row pass: [UW][XW]
-  float* us = y1 + UW * XW;       // [UW][UW]
-  const int b = blockIdx.z, y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
-  const int ybase = y0 - R, xbase = x0 - R;
-  const int tid = threadIdx.x;
+  const int sw = kStatic ? kStripW : kStripWRuntime;
+  const int ng = sw + 2 * (r1 + r2);  // G1's vertical pass: strip + halo
+  const int nu = sw + 2 * r2;         // U and V columns
+  // staged rows: G1's vertical pass and x at two U rows, by the step's
+  // parity ([2][2][ng] each), and V at two output rows ([2][nu])
+  extern __shared__ float sm[];
+  float* g1rows = sm;
+  float* xrows = g1rows + 4 * ng;
+  float* vrows = xrows + 4 * ng;
+  // the taps: registers at compile-time radii, shared memory at runtime
+  float k1r[kStatic ? N1 : 1], k2r[kStatic ? N2 : 1];
+  const float* k1 = k1r;
+  const float* k2 = k2r;
+  const int j = threadIdx.x;
+  Window<N1> xw;
+  Window<N2> uw;
+  if constexpr (kStatic) {
+#pragma unroll
+    for (int t = 0; t < N1; ++t) k1r[t] = taps.k1[t];
+#pragma unroll
+    for (int t = 0; t < N2; ++t) k2r[t] = taps.k2[t];
+  } else {
+    float* k1s = vrows + 2 * nu;
+    float* k2s = k1s + n1;
+    for (int t = j; t < n1; t += blockDim.x) k1s[t] = taps.k1[t];
+    for (int t = j; t < n2; t += blockDim.x) k2s[t] = taps.k2[t];
+    k1 = k1s;
+    k2 = k2s;
+    xw = {k2s + n2 + j, n1, ng, 0};            // [n1][ng]
+    uw = {k2s + n2 + n1 * ng + j, n2, nu, 0};  // [n2][nu]
+    __syncthreads();
+  }
+
+  const int b = blockIdx.z, x0 = blockIdx.x * sw;
+  const int ys = blockIdx.y * kStripRows, ye = min(ys + kStripRows, H);
   const float* img = x + static_cast<size_t>(b) * H * W;
-
-  if (tid < n1) k1[tid] = taps.k1[tid];
-  if (tid < n2) k2[tid] = taps.k2[tid];
-
-  for (int p = tid; p < XW * XW; p += kThreads) {
-    const int i = p / XW, j = p % XW;
-    xs[p] = img[static_cast<size_t>(clampi(ybase + i, H)) * W +
-                clampi(xbase + j, W)];
-  }
-  __syncthreads();
-
-  // G1, vertical: at U's rows (clamped) over every staged column
-  for (int p = tid; p < UW * XW; p += kThreads) {
-    const int i = p / XW, j = p % XW;
-    const int gy = clampi(y0 - r2 + i, H);
-    float acc = __fmul_rn(k1[0], xs[(clampi(gy - r1, H) - ybase) * XW + j]);
-    for (int t = 1; t < n1; ++t) {
-      acc = __fadd_rn(acc, __fmul_rn(k1[t],
-                                     xs[(clampi(gy - r1 + t, H) - ybase) * XW + j]));
-    }
-    y1[p] = acc;
-  }
-  __syncthreads();
-
-  // G1, horizontal, and the unsharp blend at U's (clamped) positions
-  for (int p = tid; p < UW * UW; p += kThreads) {
-    const int i = p / UW, j = p % UW;
-    const int gy = clampi(y0 - r2 + i, H), gx = clampi(x0 - r2 + j, W);
-    const float* row = y1 + i * XW;
-    float g = __fmul_rn(k1[0], row[clampi(gx - r1, W) - xbase]);
-    for (int t = 1; t < n1; ++t) {
-      g = __fadd_rn(g, __fmul_rn(k1[t], row[clampi(gx - r1 + t, W) - xbase]));
-    }
-    const float xc = xs[(gy - ybase) * XW + gx - xbase];
-    const float u = __fadd_rn(xc, __fmul_rn(amount, __fsub_rn(xc, g)));
-    us[p] = fminf(fmaxf(u, 0.0f), 1.0f);
-  }
-  __syncthreads();
-
-  // G2, vertical: V over the tile's rows and U's (clamped) columns
-  float* vs = xs;
-  for (int p = tid; p < kTile * UW; p += kThreads) {
-    const int i = p / UW, j = p % UW;
-    const float* col = us + i * UW + j;
-    float acc = __fmul_rn(k2[0], col[0]);
-    for (int t = 1; t < n2; ++t) {
-      acc = __fadd_rn(acc, __fmul_rn(k2[t], col[t * UW]));
-    }
-    vs[p] = acc;
-  }
-  __syncthreads();
-
-  // G2, horizontal, over V's replicated edge columns
   float* dst = out + static_cast<size_t>(b) * H * W;
-  for (int p = tid; p < kTile * kTile; p += kThreads) {
-    const int i = p / kTile, j = p % kTile;
-    if (y0 + i >= H || x0 + j >= W) continue;
-    const float* row = vs + i * UW + j;
-    float acc = __fmul_rn(k2[0], row[0]);
-    for (int t = 1; t < n2; ++t) {
-      acc = __fadd_rn(acc, __fmul_rn(k2[t], row[t]));
+  // this thread's x column (clamped); its U column's first G1 tap in the
+  // staged rows (the U column clamped: past the edge it is the edge's U);
+  // whether it has a G1, a U and an output column
+  const bool g1_on = j < ng, u_on = j < nu, o_on = j < sw && x0 + j < W;
+  const int gx = clampi(x0 - r1 - r2 + j, W);
+  const int ub = clampi(x0 - r2 + j, W) - (x0 - r1 - r2) - r1;
+  auto x_at = [&](int row) {
+    return img[static_cast<size_t>(clampi(row, H)) * W + gx];
+  };
+
+  // U rows us .. ue - 1 feed G2's windows of the block's output rows; the
+  // ones in the image, ua .. uz - 1, are computed, the others replicate the
+  // edge rows
+  const int us = ys - r2, ue = ye + r2;
+  const int ua = max(us, 0), uz = min(ue, H);
+  if (g1_on) {
+    for (int t = 0; t < n1 - 1; ++t) xw.push(x_at(ua - r1 + t));
+  }
+  // the next two x rows to push, loaded a step ahead
+  float xn0 = g1_on ? x_at(ua + r1) : 0.0f;
+  float xn1 = g1_on ? x_at(ua + r1 + 1) : 0.0f;
+  int pushed = 0, parity = 0;
+  int u = ua;
+  while (u < uz) {
+    float* g1 = g1rows + parity * 2 * ng;
+    float* xr = xrows + parity * 2 * ng;
+    parity ^= 1;
+    if (kStatic && u > ua && u + 1 < uz - 1) {
+      // U rows u and u + 1, one output row each once G2's window is full
+      if (g1_on) {
+        xw.push(xn0);
+        xw.push(xn1);
+        xn0 = x_at(u + 2 + r1);
+        xn1 = x_at(u + 3 + r1);
+        g1[j] = xw.template dot<0>(k1);
+        g1[ng + j] = xw.template dot<1>(k1);
+        xr[j] = xw.template centre<0>();
+        xr[ng + j] = xw.template centre<1>();
+      }
+      __syncthreads();
+      if (u_on) {
+        const float u0 = unsharp(xr[ub + r1], row_dot<N1>(k1, g1 + ub, n1),
+                                 amount);
+        const float u1 = unsharp(xr[ng + ub + r1],
+                                 row_dot<N1>(k1, g1 + ng + ub, n1), amount);
+        uw.push(u0);
+        uw.push(u1);
+      }
+      pushed += 2;
+      const bool first = pushed - 1 >= n2, second = pushed >= n2;
+      if (second) {
+        if (u_on) {
+          if (first) vrows[j] = uw.template dot<0>(k2);
+          vrows[nu + j] = uw.template dot<1>(k2);
+        }
+        __syncthreads();
+        if (o_on) {
+          const int o = us + pushed - 1 - r2;
+          if (first) {
+            dst[static_cast<size_t>(o - 1) * W + x0 + j] =
+                row_dot<N2>(k2, vrows + j, n2);
+          }
+          dst[static_cast<size_t>(o) * W + x0 + j] =
+              row_dot<N2>(k2, vrows + nu + j, n2);
+        }
+      }
+      u += 2;
+      continue;
     }
-    dst[static_cast<size_t>(y0 + i) * W + x0 + j] = acc;
+    // U row u alone
+    if (g1_on) {
+      xw.push(xn0);
+      xn0 = xn1;
+      xn1 = x_at(u + 2 + r1);
+      g1[j] = xw.template dot<1>(k1);
+      xr[j] = xw.template centre<1>();
+    }
+    __syncthreads();
+    const float uv =
+        u_on ? unsharp(xr[ub + r1], row_dot<N1>(k1, g1 + ub, n1), amount)
+             : 0.0f;
+    // U row u, and before the first / after the last image row the rows
+    // that replicate it
+    const int reps =
+        1 + (u == ua ? ua - us : 0) + (u == uz - 1 ? ue - uz : 0);
+    for (int k = 0; k < reps; ++k) {
+      if (k > 0) __syncthreads();  // vrows: the last output row's readers
+      if (u_on) uw.push(uv);
+      if (++pushed >= n2) {
+        if (u_on) vrows[j] = uw.template dot<1>(k2);
+        __syncthreads();
+        if (o_on) {
+          const int o = us + pushed - 1 - r2;
+          dst[static_cast<size_t>(o) * W + x0 + j] =
+              row_dot<N2>(k2, vrows + j, n2);
+        }
+      }
+    }
+    ++u;
   }
 }
 
-// Shared memory bytes a block needs for Gaussians of radii r1 and r2
-// (kernels/unsharp_gauss.py:unsharp_gauss_smem repeats the formula).
-int smem_bytes(int r1, int r2) {
-  const int XW = kTile + 2 * (r1 + r2), UW = kTile + 2 * r2;
-  const int taps = 2 * (r1 + r2) + 2;
-  return static_cast<int>(sizeof(float)) *
-         (taps + XW * XW + UW * XW + UW * UW);
+// Shared memory bytes a block needs (kernels/unsharp_gauss.py
+// unsharp_gauss_smem repeats the formula).
+int smem_bytes(int r1, int r2, bool runtime) {
+  const int sw = runtime ? kStripWRuntime : kStripW;
+  const int ng = sw + 2 * (r1 + r2), nu = sw + 2 * r2;
+  int floats = 8 * ng + 2 * nu;
+  if (runtime) {
+    const int n1 = 2 * r1 + 1, n2 = 2 * r2 + 1;
+    floats += n1 + n2 + n1 * ng + n2 * nu;
+  }
+  return static_cast<int>(sizeof(float)) * floats;
+}
+
+template <int R1, int R2>
+int launch(const float* x, float* out, int B, int H, int W, int r1, int r2,
+           const Taps& t, float amount, cudaStream_t stream) {
+  const bool runtime = R1 < 0;
+  const int sw = runtime ? kStripWRuntime : kStripW;
+  const int smem = smem_bytes(r1, r2, runtime);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ug_strip<R1, R2>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((W + sw - 1) / sw, (H + kStripRows - 1) / kStripRows, B);
+  ug_strip<R1, R2><<<grid, round32(sw + 2 * (r1 + r2)), smem, stream>>>(
+      x, out, H, W, r1, r2, t, amount);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x, out: [B, H, W] f32. k1, k2: host pointers to the 2 r1 + 1 and 2 r2 + 1
-// Gaussian taps (r1, r2 <= 64, and the staged tiles within a block's
-// shared memory).
+// Gaussian taps (r1, r2 <= 64, and a block's shared memory within sm_90's).
 extern "C" int mies_unsharp_gauss(const float* x, float* out, int B, int H,
                                   int W, const float* k1, int n1,
                                   const float* k2, int n2, float amount,
@@ -146,19 +343,12 @@ extern "C" int mies_unsharp_gauss(const float* x, float* out, int B, int H,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int r1 = n1 / 2, r2 = n2 / 2;
-  const int smem = smem_bytes(r1, r2);
-  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        unsharp_gauss_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   Taps t{};
   for (int i = 0; i < n1; ++i) t.k1[i] = k1[i];
   for (int i = 0; i < n2; ++i) t.k2[i] = k2[i];
-  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
-  unsharp_gauss_kernel<<<grid, kThreads, smem, stream>>>(x, out, H, W, r1, r2,
-                                                          t, amount);
-  return static_cast<int>(cudaGetLastError());
+  if (r1 == kStaticR && r2 == kStaticR) {
+    return launch<kStaticR, kStaticR>(x, out, B, H, W, r1, r2, t, amount,
+                                      stream);
+  }
+  return launch<-1, -1>(x, out, B, H, W, r1, r2, t, amount, stream);
 }

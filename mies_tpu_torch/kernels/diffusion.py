@@ -1,11 +1,13 @@
 """Perona-Malik diffusion and SRAD on the card: K9 and K10
 (``csrc/diffusion.cu``).
 
-Each wrapper runs ``niter`` launches for a CUDA tensor, one per iteration,
-ping-ponging two buffers (the input is never written), and the plain
-``ops.restoration`` op for a CPU tensor. Any image shape runs: the borders
-are resolved by index in the kernels. The argument errors are the
-reference's.
+For a CUDA tensor ``anisotropic_diffusion_cuda`` runs ``niter`` K9
+launches, one per iteration, and ``srad_cuda`` runs ``niter`` SRAD steps in
+``launches_per_call(niter)`` K10 launches of at most ``STEPS`` steps each
+(the last one shorter), both ping-ponging two buffers (the input is never
+written); for a CPU tensor each runs the plain ``ops.restoration`` op. Any
+image shape runs: the borders are resolved by index in the kernels. The
+argument errors are the reference's.
 """
 
 from __future__ import annotations
@@ -16,20 +18,21 @@ import torch
 from mies_tpu_torch.kernels import _build
 from mies_tpu_torch.ops import restoration as R
 
+# SRAD steps per K10 launch, csrc/diffusion.cu kSrSteps: 2 ran faster than
+# 4 and 8 on an H100 (PERF.md; chip_smoke.py times them)
+STEPS = 2
+# the halo a K10 block loads around its 64 x 64 tile, above / left and below
+# / right: a step reads one pixel up and left and two down and right (the
+# conduction at the south and east neighbours reads their own), so STEPS
+# steps reach STEPS and 2 STEPS pixels (tests/test_torch_restoration.py pins
+# it). The launch passes it and csrc/diffusion.cu refuses any other than the
+# halo it loads.
+HALO = (STEPS, 2 * STEPS)
 
-def _steps(batch: torch.Tensor, niter: int, name: str, entry: str,
-           args_of) -> torch.Tensor:
-    """``niter`` launches of ``entry``(src, dst, B, H, W, *args_of(t)),
-    src -> dst, alternating two buffers."""
-    B, h, w = batch.shape
-    bufs = (torch.empty_like(batch), torch.empty_like(batch))
-    src = batch
-    for t in range(niter):
-        dst = bufs[t % 2]
-        _build.launch(name, entry, batch.device, src.data_ptr(),
-                      dst.data_ptr(), B, h, w, *args_of(t))
-        src = dst
-    return src
+
+def launches_per_call(niter: int) -> int:
+    """K10 launches of one ``srad_cuda`` call on the card."""
+    return -(-int(niter) // STEPS)
 
 
 def anisotropic_diffusion_cuda(
@@ -46,8 +49,15 @@ def anisotropic_diffusion_cuda(
     if batch.device.type == "cpu":
         return R.anisotropic_diffusion(batch, niter, kappa, gamma, option)
     inv_k2, g32 = R.pm_constants(kappa, gamma)
-    return _steps(batch, niter, "perona_malik", "mies_perona_malik",
-                  lambda t: (inv_k2, g32, option))
+    B, h, w = batch.shape
+    bufs = (torch.empty_like(batch), torch.empty_like(batch))
+    src = batch
+    for t in range(niter):  # src -> dst, alternating two buffers
+        _build.launch("perona_malik", "mies_perona_malik", batch.device,
+                      src.data_ptr(), bufs[t % 2].data_ptr(), B, h, w, inv_k2,
+                      g32, option)
+        src = bufs[t % 2]
+    return src
 
 
 def srad_cuda(
@@ -65,9 +75,7 @@ def srad_cuda(
     _build.check_tensor(batch, "srad: batch")
     if batch.device.type == "cpu":
         return R.srad(batch, niter, dt, q0, rho, eps)
-    consts = _srad_consts(dt, q0, rho, eps)
-    return _steps(batch, niter, "srad", "mies_srad",
-                  lambda t: (t, *consts))
+    return _srad_chunks(batch, 0, niter, _srad_consts(dt, q0, rho, eps))
 
 
 def _srad_consts(dt, q0, rho, eps) -> tuple[float, ...]:
@@ -75,17 +83,33 @@ def _srad_consts(dt, q0, rho, eps) -> tuple[float, ...]:
             float(np.float32(eps)), float(np.float32(dt / 4.0)))
 
 
+def _srad_chunks(batch: torch.Tensor, t0: int, niter: int,
+                 consts: tuple[float, ...]) -> torch.Tensor:
+    """Steps t0 .. t0 + niter - 1 in K10 launches of at most STEPS steps,
+    src -> dst, alternating two buffers."""
+    B, h, w = batch.shape
+    bufs = (torch.empty_like(batch),
+            torch.empty_like(batch) if niter > STEPS else None)
+    src = batch
+    for c, k in enumerate(range(0, niter, STEPS)):
+        dst = bufs[c % 2]
+        _build.launch("srad", "mies_srad", batch.device, src.data_ptr(),
+                      dst.data_ptr(), B, h, w, t0 + k, min(STEPS, niter - k),
+                      *HALO, *consts)
+        src = dst
+    return src
+
+
 def srad_step(batch: torch.Tensor, t: int, dt: float = 0.15, q0: float = 1.0,
               rho: float = 0.2, eps: float = 1e-6) -> torch.Tensor:
-    """Iteration ``t`` of SRAD alone: one K10 launch for a CUDA tensor,
-    ``ops.restoration.srad_iteration`` for a CPU tensor (the row-sharded
-    chain refreshes its halo between iterations)."""
+    """Iteration ``t`` of SRAD alone: one K10 launch of one step for a CUDA
+    tensor, ``ops.restoration.srad_iteration`` for a CPU tensor (the
+    row-sharded chain refreshes its halo between iterations)."""
     R.check_srad_args(1, dt, q0, rho)
     _build.check_tensor(batch, "srad: batch")
     if batch.device.type == "cpu":
         return R.srad_iteration(batch, t, dt, q0, rho, eps)
-    consts = _srad_consts(dt, q0, rho, eps)
-    return _steps(batch, 1, "srad", "mies_srad", lambda _: (int(t), *consts))
+    return _srad_chunks(batch, int(t), 1, _srad_consts(dt, q0, rho, eps))
 
 
 # the pipeline's batched ops: the wrappers already dispatch by device

@@ -23,11 +23,24 @@ from mies_tpu_torch.kernels import _build
 from mies_tpu_torch.ops import filters as F
 
 MAX_RADIUS = 16  # the kernel's shared-memory halo (csrc/unsharp.cu kMaxR)
-# K7 (csrc/unsharp_gauss.cu): the widest radius its taps hold, its output
-# tile, and the shared memory a block may use on sm_90
+# K7 (csrc/unsharp_gauss.cu): the widest radius its taps hold, the radius
+# pair whose windows and taps sit in registers (kStaticR: r1 = r2 = 6), the
+# strips a block walks down (kStripW output columns at that pair,
+# kStripWRuntime at runtime radii), and the shared memory a block may use on
+# sm_90
 UG_MAX_RADIUS = 64
-UG_TILE = 32
+UG_STATIC_R = 6
+UG_STRIP_W = 128
+UG_STRIP_W_RUNTIME = 32
 UG_SMEM_MAX = 232448
+# The widest r1 that K7 takes beside each r2 (index r2; none beyond r2 53):
+# the radius pairs whose 32 x 32 output tiles, staged in shared memory with
+# x's halo of r1 + r2 and U's of r2, fit a block's. The strip kernel needs
+# less for every one of them (tests/test_torch_unsharp_gauss.py); the limit
+# is kept so that no radius pair it took then loses the kernel.
+UG_MAX_R1 = (64,) * 19 + (63, 62, 60, 58, 57, 55, 53, 51, 49, 48, 46, 44, 42,
+                          40, 39, 37, 35, 33, 31, 29, 28, 26, 24, 22, 20, 18,
+                          16, 14, 12, 10, 8, 6, 5, 3, 1)
 
 
 def _tap_radius(radius: float, truncate: float) -> int:
@@ -88,23 +101,32 @@ def unsharp_quant_cuda(
 
 
 def unsharp_gauss_smem(r1: int, r2: int) -> int:
-    """Shared memory bytes of a K7 block: the taps, x with an r1 + r2
-    halo, the G1 row pass and U over an r2 halo (csrc/unsharp_gauss.cu
-    smem_bytes)."""
-    xw, uw = UG_TILE + 2 * (r1 + r2), UG_TILE + 2 * r2
-    return 4 * (2 * (r1 + r2) + 2 + xw * xw + uw * xw + uw * uw)
+    """Shared memory bytes of a K7 block (csrc/unsharp_gauss.cu
+    smem_bytes): G1's vertical pass and x at two rows over the strip and its
+    halo of r1 + r2, double-buffered, and V at two rows over a halo of r2;
+    away from UG_STATIC_R also the taps and the two windows' rings."""
+    runtime = not r1 == r2 == UG_STATIC_R
+    sw = UG_STRIP_W_RUNTIME if runtime else UG_STRIP_W
+    ng, nu = sw + 2 * (r1 + r2), sw + 2 * r2
+    floats = 8 * ng + 2 * nu
+    if runtime:
+        n1, n2 = 2 * r1 + 1, 2 * r2 + 1
+        floats += n1 + n2 + n1 * ng + n2 * nu
+    return 4 * floats
+
+
+def _accepted(r1: int, r2: int) -> bool:
+    """Whether K7 takes the radius pair (r1, r2): UG_MAX_R1."""
+    return 0 <= r2 < len(UG_MAX_R1) and 0 <= r1 <= UG_MAX_R1[r2]
 
 
 def unsharp_gauss_supported(radius: float, sigma: float,
                             truncate: float = 4.0) -> bool:
-    """Whether K7 holds these two Gaussians: each radius within its taps
-    and the staged tiles within a block's shared memory (decided from the
-    config)."""
+    """Whether K7 takes these two Gaussians (decided from the config)."""
     if radius <= 0 or sigma <= 0:
         return False
-    r1, r2 = _tap_radius(radius, truncate), _tap_radius(sigma, truncate)
-    return (max(r1, r2) <= UG_MAX_RADIUS
-            and unsharp_gauss_smem(r1, r2) <= UG_SMEM_MAX)
+    return _accepted(_tap_radius(radius, truncate),
+                     _tap_radius(sigma, truncate))
 
 
 def unsharp_gauss_plain(

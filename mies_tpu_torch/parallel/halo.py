@@ -200,7 +200,8 @@ def _srad_band(p: dict, group) -> Callable:
     R.check_srad_args(niter, *args[:3])
 
     def run(x):
-        # a 2-row halo refreshed every iteration: one K10 launch at t each
+        # a 2-row halo refreshed every iteration: one K10 launch of the one
+        # step t each (the whole-slice chain runs STEPS steps a launch)
         for t in range(niter):
             ext = halo_extend_rows(x.to(torch.float32), 2, group, "edge")
             x = KD.srad_step(ext, t, *args)[..., 2:-2, :]

@@ -18,10 +18,11 @@ Batched chains on the card:
   configs/xray_adapthist_skimage.yaml: ingest
     -> clahe skimage (K1 bins, K6a, K6) -> unsharp + quantize (K4);
   configs/ct_lowdose_nlm.yaml: int16 HU -> window_hu (plain torch)
-    -> denoise_nl_means (K11, one launch) -> denoise_tv (K12, one launch
-    per iteration) -> clahe opencv (K1, K2) -> uint8;
-  configs/ultrasound_despeckle.yaml: srad (K10, one launch per iteration)
-    -> lee_filter (plain torch) -> clahe opencv (K1, K2) -> uint8;
+    -> denoise_nl_means (K11, one launch) -> denoise_tv (K12, three
+    launches per chunk of 4 iterations) -> clahe opencv (K1, K2) -> uint8;
+  configs/ultrasound_despeckle.yaml: srad (K10, ceil(niter / 2) launches
+    of at most 2 iterations) -> lee_filter (plain torch) -> clahe opencv
+    (K1, K2) -> uint8;
   anisotropic_diffusion (K9, one launch per iteration) -> musica (plain
     torch), as BASELINE w8;
   BASELINE w3: unsharp_mask -> gaussian_blur as one kernel (K7, the

@@ -277,9 +277,10 @@ def test_k2_clip01_on_card_equals_plain(cuda_device, shape):
     assert torch.equal(got, TH.clahe(x, 0.01, (8, 8), "fraction"))
 
 
-# K9-K12 run one launch per iteration (K11: one per call); measured
-# bit-equal to their plain versions, held here to the reference's own
-# contracts (1e-6, TV 2e-6) with TV's per-slice stop iterations equal.
+# K9 runs one launch per iteration, K10 one per STEPS iterations, K11 one
+# per call, K12 three per chunk of its STEPS; measured bit-equal to their
+# plain versions, held here to the reference's own contracts (1e-6, TV
+# 2e-6) with TV's per-slice stop iterations equal, and K10 bit-equal.
 
 
 @pytest.mark.cuda
@@ -301,10 +302,50 @@ def test_k10_on_card_matches_plain(cuda_device, shape):
     x = _on(cuda_device, shape, 9) * 0.9 + 0.05
     _build.reset_launches()
     got = KD.srad_cuda(x, 15, 0.15)
-    assert _build.LAUNCHES["srad"] == 15
+    assert _build.LAUNCHES["srad"] == KD.launches_per_call(15)
     want = TR.srad(x, 15, 0.15)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 1), (2, 1, 9), (2, 9, 1), (2, 3, 3),
+                                   (2, 7, 5), (2, 65, 64), (1, 251, 333),
+                                   (32, 512, 512)])
+@pytest.mark.parametrize("niter", [1, 3, 4, 5, 15])
+def test_k10_on_card_bit_equal(cuda_device, shape, niter):
+    """K10's chunks of STEPS steps on 64 x 64 tiles: bit-equal to the plain
+    SRAD at images smaller than a tile or its halo, at tile edges, and at a
+    step count that is not a multiple of STEPS; ceil(niter / STEPS)
+    launches."""
+    x = _on(cuda_device, shape, 9) * 0.9 + 0.05
+    _build.reset_launches()
+    got = KD.srad_cuda(x, niter, 0.15)
+    assert _build.LAUNCHES["srad"] == KD.launches_per_call(niter)
+    assert torch.equal(got, TR.srad(x, niter, 0.15))
+
+
+@pytest.mark.cuda
+def test_k10_step_on_card_equals_srad_iteration(cuda_device):
+    """srad_step (the band chain's) is one launch of the one step t."""
+    x = _on(cuda_device, (2, 70, 130), 11) * 0.9 + 0.05
+    _build.reset_launches()
+    got = KD.srad_step(x, 7, 0.2, 0.8, 0.1, 1e-5)
+    assert _build.LAUNCHES["srad"] == 1
+    assert torch.equal(got, TR.srad_iteration(x, 7, 0.2, 0.8, 0.1, 1e-5))
+
+
+@pytest.mark.cuda
+def test_k10_refuses_a_halo_it_does_not_load(cuda_device, monkeypatch):
+    """kernels/diffusion.py HALO (pinned on the CPU by
+    test_srad_chunk_halo_covers_its_steps) is passed to the launch;
+    csrc/diffusion.cu refuses any other than the halo it loads."""
+    x = _on(cuda_device, (1, 80, 96), 12)
+    lo, hi = KD.HALO
+    for halo in ((lo, hi - 1), (lo + 1, hi)):
+        monkeypatch.setattr(KD, "HALO", halo)
+        with pytest.raises(RuntimeError, match="did not launch"):
+            KD.srad_cuda(x, 5)
 
 
 @pytest.mark.cuda

@@ -231,6 +231,50 @@ def test_srad_matches_jax(rng, kw):
     np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("where", ["top-left", "inside", "bottom-right"])
+def test_srad_chunk_halo_covers_its_steps(where):
+    """K10 runs kernels/diffusion.py STEPS steps on a tile and its halo of
+    HALO = (above / left, below / right) pixels: those steps, from a t0 >
+    0, on the window (replicated edges and the virtual ring where it meets
+    the image's edge, wrong values elsewhere) equal, on the tile, the same
+    steps on the whole slice. A halo one pixel narrower on either side does
+    not, in float32 and in float64 (float64 keeps the far reach visible at
+    more steps: after 4, a pixel 8 rows below moves the tile by about 1e-16
+    of its value, which float32 rounds away). The launch passes HALO, and
+    csrc/diffusion.cu refuses any other than the one it loads
+    (test_k10_refuses_a_halo_it_does_not_load, on the card)."""
+    x = _t(_speckle(np.random.default_rng(6), (1, 40, 52)))
+    th, tw, t0 = 10, 12, 5
+    y0, x0 = {"top-left": (0, 0), "inside": (15, 20),
+              "bottom-right": (40 - th, 52 - tw)}[where]
+
+    def run(img):
+        for t in range(t0, t0 + KD.STEPS):
+            img = TR.srad_iteration(img, t, 0.15, 1.0, 0.2, 1e-6)
+        return img
+
+    def on_window(img, lo, hi):
+        wy, wx = max(y0 - lo, 0), max(x0 - lo, 0)
+        got = run(img[:, wy:min(y0 + th + hi, 40), wx:min(x0 + tw + hi, 52)])
+        return got[:, y0 - wy:y0 - wy + th, x0 - wx:x0 - wx + tw]
+
+    lo, hi = KD.HALO
+    assert (lo, hi) == (KD.STEPS, 2 * KD.STEPS)
+    for img in (x, x.double()):
+        whole = run(img)[:, y0:y0 + th, x0:x0 + tw]
+        assert torch.equal(on_window(img, lo, hi), whole)
+        if where == "inside":
+            assert not torch.equal(on_window(img, lo, hi - 1), whole)
+            assert not torch.equal(on_window(img, lo - 1, hi), whole)
+
+
+@pytest.mark.parametrize("niter,launches", [(1, 1), (4, 2), (5, 3), (15, 8)])
+def test_srad_launches_per_call(niter, launches):
+    """ceil(niter / STEPS) K10 launches (at the shipped 2 steps each)."""
+    assert KD.STEPS == 2
+    assert KD.launches_per_call(niter) == launches
+
+
 # --- box blur, Lee ------------------------------------------------------------
 
 

@@ -93,6 +93,47 @@ def test_k7_limits_are_shared_memory_and_taps():
         KU.unsharp_gauss_cuda(torch.zeros(1, 64, 64, dtype=torch.float64))
 
 
+def test_k7_strip_fits_every_pair_it_takes():
+    """The strip kernel's shared memory holds every radius pair K7 takes,
+    and the set it takes is the first design's: 2,415 pairs of radii up to
+    64, (35, 35) but not (36, 36), r2 up to 53 beside r1 = 0."""
+    taken = [(a, b) for a in range(65) for b in range(65) if KU._accepted(a, b)]
+    assert len(taken) == 2415
+    assert (35, 35) in taken and (36, 36) not in taken
+    assert (0, 53) in taken and (0, 54) not in taken and (64, 0) in taken
+    assert max(KU.unsharp_gauss_smem(a, b) for a, b in taken) <= KU.UG_SMEM_MAX
+
+
+@pytest.mark.parametrize("where", ["top-left", "inside", "bottom-right"])
+@pytest.mark.parametrize("radius,sigma", [(2.0, 4.0), (3.0, 1.0)])
+def test_k7_halo_is_r1_plus_r2(where, radius, sigma):
+    """unsharp -> Gaussian reads r1 + r2 pixels around an output: the pair
+    on the window of a tile with a halo of r1 + r2 (image edges where the
+    window meets them) equals, on the tile, the pair on the whole slice;
+    with r1 + r2 - 1 it does not. Truncate 1.5 (radii 3 and 6, 5 and 2)
+    keeps the outermost taps heavy enough for float32 to show them."""
+    x = torch.from_numpy(np.random.default_rng(7).random((1, 40, 52))
+                         .astype(np.float32))
+    trunc = 1.5
+    halo = KU._tap_radius(radius, trunc) + KU._tap_radius(sigma, trunc)
+    th, tw = 10, 12
+    y0, x0 = {"top-left": (0, 0), "inside": (15, 20),
+              "bottom-right": (40 - th, 52 - tw)}[where]
+    whole = KU.unsharp_gauss_plain(x, radius, 1.7, sigma, trunc)[
+        :, y0:y0 + th, x0:x0 + tw]
+
+    def on_window(h):
+        wy, wx = max(y0 - h, 0), max(x0 - h, 0)
+        win = x[:, wy:min(y0 + th + h, 40), wx:min(x0 + tw + h, 52)]
+        got = KU.unsharp_gauss_plain(win.contiguous(), radius, 1.7, sigma,
+                                     trunc)
+        return got[:, y0 - wy:y0 - wy + th, x0 - wx:x0 - wx + tw]
+
+    assert torch.equal(on_window(halo), whole)
+    if where == "inside":
+        assert not torch.equal(on_window(halo - 1), whole)
+
+
 # --- rows 21-22: K3 / K4 against the TPU's pre-padded kernels ---------------
 
 
@@ -217,6 +258,31 @@ def test_k7_on_card_equals_plain(cuda_device, shape, radius, sigma):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["unsharp_gauss"] == 1
     assert torch.equal(got, KU.unsharp_gauss_plain(x, radius, 1.0, sigma))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 1), (2, 5, 7), (2, 31, 33),
+                                   (1, 33, 1025), (2, 251, 333),
+                                   (8, 1024, 1024)])
+@pytest.mark.parametrize("radius,sigma", [
+    (1.5, 1.5),    # r1 = r2 = 6: the compile-time radii (w3)
+    (0.5, 3.0),    # r 2 and 12
+    (4.0, 1.0),    # r 16 and 4
+    (15.5, 5.0),   # r 62 and 20: the widest r1 + r2 K7 takes
+])
+@pytest.mark.parametrize("amount", [0.0, 2.5])
+def test_k7_on_card_bit_equal(cuda_device, shape, radius, sigma, amount):
+    """The strip kernel, at compile-time and at runtime radii: bit-equal to
+    the plain pair at images smaller than the Gaussians, one column wide,
+    one strip plus one column and at the w3 shape, one launch."""
+    assert KU.unsharp_gauss_supported(radius, sigma)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.rand(shape, generator=g, device=cuda_device)
+    _build.reset_launches()
+    got = KU.unsharp_gauss_cuda(x, radius, amount, sigma)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["unsharp_gauss"] == 1
+    assert torch.equal(got, KU.unsharp_gauss_plain(x, radius, amount, sigma))
 
 
 @pytest.mark.cuda
