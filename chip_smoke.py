@@ -23,7 +23,10 @@ Phases, one printed line each (or a few):
                operations); then on ragged shapes (251x333 slices, skimage
                regions 31x41: odd region columns, kc % 64 != 0; volumes
                [12, 96, 160] at grid (3, 3, 5) and [20, 251, 333]; K5 on a
-               3-way split at grid (6, 5); K13 in K3's three borders);
+               3-way split at grid (6, 5); K13 in K3's three borders; K3
+               at k 3, 5, 7, 9 in its three borders and K4 at radii 1.0,
+               1.5 and 4.0, both quantize modes, at 1x1, 3x5, 130x77,
+               251x333 and 513x511);
   4. slices  — through load_config / compile_pipeline(batched=True) on
                float32, uint8, uint16 and int16 batches: the flagship chain
                (at 512^2 and 1024^2), configs/xray_adapthist_skimage.yaml,
@@ -50,7 +53,9 @@ Phases, one printed line each (or a few):
                not w10's) against its event-timed time per call: the
                device's busy share; the fused tail's A/B on the flagship
                (MIES_TPU_FUSE_TAIL off, on, on, off by time_pipeline;
-               with it on K1, K2, K13 once each and the same output).
+               with it on K1, K2, K13 once each and the same output); one
+               line of K3's and K4's ms at both shapes beside the device
+               time and busy share of the chains they lie on.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -122,6 +127,14 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / F32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _bilateral_ops(k: int) -> int:
+    """Operations per pixel of a k x k bilateral filter in its symmetric
+    form: one weight per unordered pair (diff, square, scale, exp, times the
+    spatial weight), three per tap (weight times value, two sums) and the
+    final divide: 136 at k 5."""
+    return (k * k - 1) // 2 * 5 + k * k * 3 + 1
 
 
 def _index_add_ms(key: torch.Tensor, nbins_total: int) -> float:
@@ -344,15 +357,14 @@ def main() -> int:
            lambda: KC.clahe_apply_lut_plain(x, fluts, GRID, "clip01"),
            8 * npx + 4 * fluts.numel(), 27 * npx)
 
-    # K3: 8 B per pixel; 8 ops per tap (diff, square, scale, exp, weight,
-    # two accumulations) over 5x5 taps
+    # K3: 8 B per pixel; _bilateral_ops(5) per pixel
     bk = KB.bilateral_cuda(ck, 5, 0.1, 1.5, "reflect")
     bp = F.bilateral_blur(ck, 5, 0.1, 1.5, "reflect")
     err = (bk - bp).abs().max().item()
     _require(err <= 2e-6, f"K3 max abs error {err} > 2e-6")
     record("K3", err, lambda: KB.bilateral_cuda(ck, 5, 0.1, 1.5, "reflect"),
            lambda: F.bilateral_blur(ck, 5, 0.1, 1.5, "reflect"),
-           8 * npx, (8 * 25 + 1) * npx)
+           8 * npx, _bilateral_ops(5) * npx)
 
     # K4: 4 B in + 1 B out per pixel; two 13-tap passes (mul + add per
     # tap), the unsharp blend and the quantize
@@ -576,7 +588,7 @@ def main() -> int:
     _require(err <= 2e-6, f"K3 at 1024^2: max abs error {err} > 2e-6")
     record("K3r", err, lambda: KB.bilateral_cuda(cm, 5, 0.1, 1.5, "reflect"),
            lambda: F.bilateral_blur(cm, 5, 0.1, 1.5, "reflect"), 8 * npm,
-           (8 * 25 + 1) * npm, at=at_m)
+           _bilateral_ops(5) * npm, at=at_m)
     ukm, upm = KU.unsharp_quant_cuda(bkm, 1.5, 1.0), KU.unsharp_quant_plain(bkm, 1.5, 1.0)
     err = (ukm.int() - upm.int()).abs().max().item()
     _require(torch.equal(ukm, upm), f"K4 at 1024^2 differs by up to {err} levels")
@@ -664,10 +676,10 @@ def main() -> int:
                         f"[{BATCH},{SIZE},{SIZE}]")
     k13m_err = check_k13(cm, ukm, KU.unsharp_quant_cuda(bkm, 1.5, 1.0, quantize=False),
                          at_m)
-    # 4 B in + 1 B out per pixel; K3's 201 and K4's 60 operations per pixel
+    # 4 B in + 1 B out per pixel; K3's 136 and K4's 60 operations per pixel
     record("K13", k13_err["u8"], lambda: KF.bilateral_unsharp_cuda(ck, *kp),
            lambda: KF.bilateral_unsharp_plain(ck, *kp), 5 * npx,
-           (8 * 25 + 1 + 4 * 13 + 8) * npx)
+           (_bilateral_ops(5) + 4 * 13 + 8) * npx)
     print(f"K13: == K3 -> K4 at [{BATCH},{SIZE},{SIZE}] and {at_m}, both quantize "
           f"modes; max abs vs the plain tail {k13_err} / {k13m_err}")
 
@@ -724,16 +736,25 @@ def main() -> int:
     _require(torch.equal(KC.clahe_skimage_cuda(r, rks, 0.01),
                          H.clahe(r, 0.01, GRID, "skimage")),
              "skimage path on 251x333 differs from the plain CLAHE")
+    # K3 (strips of 128 columns walking 32 rows, pair weights in rings of
+    # r + 1 rows) at every k and border, and K4 at its register radii (1.5,
+    # 1.0) and a shared-memory one (4.0: r 16), below, across and beyond one
+    # strip and run
     worst = 0.0
-    for mode in ("reflect", "mirror", "nearest"):
-        for k in (3, 5, 9):
-            e = (KB.bilateral_cuda(r, k, 0.1, 1.5, mode)
-                 - F.bilateral_blur(r, k, 0.1, 1.5, mode)).abs().max().item()
-            _require(e <= 2e-6, f"K3 {mode} k={k} on 251x333: {e} > 2e-6")
-            worst = max(worst, e)
-    _require(torch.equal(KU.unsharp_quant_cuda(r, 1.5, 1.0),
-                         KU.unsharp_quant_plain(r, 1.5, 1.0)),
-             "K4 on 251x333 differs from the plain version")
+    for h_, w_ in ((1, 1), (3, 5), (130, 77), (251, 333), (513, 511)):
+        t = xm[:2, :h_, :w_].contiguous()
+        for mode in ("reflect", "mirror", "nearest"):
+            for k in (3, 5, 7, 9):
+                e = (KB.bilateral_cuda(t, k, 0.1, 1.5, mode)
+                     - F.bilateral_blur(t, k, 0.1, 1.5, mode)).abs().max().item()
+                _require(e <= 2e-6, f"K3 {mode} k={k} on {h_}x{w_}: {e} > 2e-6")
+                worst = max(worst, e)
+        for radius in (1.0, 1.5, 4.0):
+            for q in (True, False):
+                _require(torch.equal(KU.unsharp_quant_cuda(t, radius, 1.0, quantize=q),
+                                     KU.unsharp_quant_plain(t, radius, 1.0, quantize=q)),
+                         f"K4 radius {radius} (quantize={q}) on {h_}x{w_} differs "
+                         f"from the plain version")
     for mode in ("reflect", "mirror", "nearest"):
         for q in (True, False):
             _require(torch.equal(
@@ -788,8 +809,10 @@ def main() -> int:
           f"(regions {rks3}); K7 equal on 251x333")
     print(f"ragged 251x333: K1+K2 equal (opencv, fraction/clip01), skimage "
           f"regions {rks[0]}x{rks[1]} x {rreg[0]}x{rreg[1]}: K1 bins, K6a, "
-          f"K6 and the path equal, K3 max abs {worst} (3 modes x k 3/5/9), "
-          f"K4 equal, K13 == K3 -> K4 (3 modes); max abs {rag}, K12 stop "
+          f"K6 and the path equal, K3 max abs {worst} (3 modes x k 3/5/7/9 "
+          f"at 1x1, 3x5, 130x77, 251x333, 513x511), K4 equal (radii 1.0, "
+          f"1.5, 4.0, both quantize modes, the same shapes), K13 == K3 -> "
+          f"K4 (3 modes); max abs {rag}, K12 stop "
           f"iterations {rt_iters.tolist()}"
           f" (plain {rp_iters.tolist()})")
 
@@ -1048,6 +1071,17 @@ def main() -> int:
                   f"{n} {v:.4f}" for n, v in list(prof["by_op"].items())[:6])
               + f" | {card}")
 
+    # the least time of K1-K4's work on the 4096^2 slice, beside the times
+    # the profile above gives them (K1 and K2 as at 512^2: float levels in,
+    # 8x8 tiles; K3 k 5, K4 r 6)
+    n4, lut4 = BS * BS, GRID[0] * GRID[1] * 256
+    print("bounds [1, 4096, 4096]: " + "; ".join(
+        f"{k} {ms:.4f} ms ({by})" for k, (ms, by) in (
+            ("K1", _bound(4 * n4 + 4 * lut4, 5 * n4)),
+            ("K2", _bound(8 * n4 + 4 * lut4, 29 * n4)),
+            ("K3", _bound(8 * n4, _bilateral_ops(5) * n4)),
+            ("K4", _bound(5 * n4, (4 * 13 + 8) * n4)))) + f" | {card}")
+
     # -- 5. timing ----------------------------------------------------------
     tp = time_pipeline(flagship_config(), (SIZE, SIZE), BATCH, device=dev)
     tsk = time_pipeline(sk_cfg, (SIZE, SIZE), BATCH, device=dev)
@@ -1155,6 +1189,19 @@ def main() -> int:
           f"{busy['ultrasound_despeckle yaml']:.1%}), w9 "
           f"{tw9['slices_per_sec']:.1f} (busy {busy['w9']:.1%}), w3 "
           f"{tw3['slices_per_sec']:.1f} (busy {busy['w3']:.1%}) | {card}")
+
+    # K3 and K4, and the chains they lie on
+    dev_ms = {label: prof["device_ms_per_call"] for label, prof in profiles}
+    print(f"K3 {rec['K3']['ms']:.4f} ms [{BATCH},{SIZE},{SIZE}], "
+          f"{rec['K3r']['ms']:.4f} ms {at_m} | K4 {rec['K4']['ms']:.4f} ms, "
+          f"{rec['K4r']['ms']:.4f} ms | device ms (busy): flagship "
+          f"{dev_ms['flagship']:.4f} ({busy['flagship']:.1%}), flagship 1024^2 "
+          f"{dev_ms['flagship 1024^2']:.4f} ({busy['flagship 1024^2']:.1%}), "
+          f"skimage {dev_ms['skimage yaml']:.4f} ({busy['skimage yaml']:.1%}), "
+          f"mammogram {dev_ms['mammogram_sharpen yaml']:.4f} "
+          f"({busy['mammogram_sharpen yaml']:.1%}), sharded 4096^2 "
+          f"{shard_prof['device_ms_per_call']:.4f} "
+          f"({shard_prof['busy_share']:.1%}) | {card}")
 
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (

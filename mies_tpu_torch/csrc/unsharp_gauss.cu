@@ -37,7 +37,9 @@
 // the run's first and last rows a step takes two U rows: two independent
 // sums per pass, and half the barriers and window shifts per row. Every
 // other pair runs the same body at runtime radii, one U row a step, with its
-// windows in shared-memory rings and its taps in shared memory.
+// windows in shared-memory rings and its taps in shared memory. The
+// windows, the x column's walk and the row sums are csrc/strip.cuh's, which
+// K4 (csrc/unsharp.cu) runs as this kernel's first half.
 //
 // Bound: 4 B read + 4 B written per pixel; about 105 f32 operations per
 // pixel, which the _rn arithmetic issues unfused. Each pass is one chain of
@@ -48,7 +50,17 @@
 
 #include <cuda_runtime.h>
 
+#include "strip.cuh"
+
 namespace {
+
+using strip::Column;
+using strip::Window;
+using strip::clampi;
+using strip::kSmemMax;
+using strip::round32;
+using strip::row_dot;
+using strip::unsharp;
 
 // the radii whose windows and taps sit in registers: radius and sigma 1.5
 // at truncate 4 (w3); kernels/unsharp_gauss.py UG_STATIC_R
@@ -57,92 +69,11 @@ constexpr int kStripW = 128;        // output columns of a strip at kStaticR
 constexpr int kStripRows = 64;      // output rows a block walks
 constexpr int kStripWRuntime = 32;  // the runtime radii's strip
 constexpr int kMaxR = 64;           // widest radius of each Gaussian
-constexpr int kSmemMax = 232448;    // a block's shared memory on sm_90
 
 struct Taps {
   float k1[2 * kMaxR + 1];
   float k2[2 * kMaxR + 1];
 };
-
-__host__ __device__ constexpr int round32(int n) { return (n + 31) / 32 * 32; }
-
-__device__ __forceinline__ int clampi(int i, int n) {
-  return min(max(i, 0), n - 1);
-}
-
-// A column's window of the values pushed, oldest first, and sums of N taps
-// over it. Registers when N is known at compile time (N > 0): the last
-// N + 1 values, so that two consecutive windows of N are at hand (OFF 0:
-// the one before the last push, 1: the last). Else a ring of the last n
-// values in shared memory, `stride` floats apart (head: the oldest), where
-// OFF is 1.
-template <int N>
-struct Window {
-  float v[N + 1] = {};  // no undefined value for the shifts to carry
-  __device__ __forceinline__ void push(float x) {
-#pragma unroll
-    for (int t = 0; t < N; ++t) v[t] = v[t + 1];
-    v[N] = x;
-  }
-  template <int OFF>
-  __device__ __forceinline__ float centre() const { return v[OFF + N / 2]; }
-  // sum_t k[t] v[OFF + t] in ascending t, each product and sum rounded
-  template <int OFF>
-  __device__ __forceinline__ float dot(const float* k) const {
-    float acc = __fmul_rn(k[0], v[OFF]);
-#pragma unroll
-    for (int t = 1; t < N; ++t) {
-      acc = __fadd_rn(acc, __fmul_rn(k[t], v[OFF + t]));
-    }
-    return acc;
-  }
-};
-
-template <>
-struct Window<0> {
-  float* ring;
-  int n, stride, head;
-  __device__ __forceinline__ void push(float x) {
-    ring[head * stride] = x;
-    head = head + 1 == n ? 0 : head + 1;
-  }
-  template <int OFF>
-  __device__ __forceinline__ float centre() const {
-    const int s = head + n / 2;
-    return ring[(s < n ? s : s - n) * stride];
-  }
-  template <int OFF>
-  __device__ __forceinline__ float dot(const float* k) const {
-    float acc = __fmul_rn(k[0], ring[head * stride]);
-    int t = 1;
-    for (int s = head + 1; s < n; ++s, ++t) {
-      acc = __fadd_rn(acc, __fmul_rn(k[t], ring[s * stride]));
-    }
-    for (int s = 0; s < head; ++s, ++t) {
-      acc = __fadd_rn(acc, __fmul_rn(k[t], ring[s * stride]));
-    }
-    return acc;
-  }
-};
-
-// sum_t k[t] row[t] over n taps (N > 0: n = N at compile time)
-template <int N>
-__device__ __forceinline__ float row_dot(const float* k, const float* row,
-                                         int n) {
-  float acc = __fmul_rn(k[0], row[0]);
-  if constexpr (N > 0) {
-#pragma unroll
-    for (int t = 1; t < N; ++t) acc = __fadd_rn(acc, __fmul_rn(k[t], row[t]));
-  } else {
-    for (int t = 1; t < n; ++t) acc = __fadd_rn(acc, __fmul_rn(k[t], row[t]));
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float unsharp(float xc, float g, float amount) {
-  const float s = __fadd_rn(xc, __fmul_rn(amount, __fsub_rn(xc, g)));
-  return fminf(fmaxf(s, 0.0f), 1.0f);
-}
 
 // Block (strip x, run of rows y, slice b). R1, R2 >= 0: the radii at
 // compile time (the strip kStripW wide, taps in registers, two U rows per
@@ -174,7 +105,10 @@ ug_strip(const float* __restrict__ x, float* __restrict__ out, int H, int W,
   const float* k1 = k1r;
   const float* k2 = k2r;
   const int j = threadIdx.x;
-  Window<N1> xw;
+  const int b = blockIdx.z, x0 = blockIdx.x * sw;
+  // this thread's x column (clamped), pushed into G1's vertical window
+  Column<N1> xc{{}, x + static_cast<size_t>(b) * H * W, H, W,
+                clampi(x0 - r1 - r2 + j, W)};
   Window<N2> uw;
   if constexpr (kStatic) {
 #pragma unroll
@@ -188,36 +122,25 @@ ug_strip(const float* __restrict__ x, float* __restrict__ out, int H, int W,
     for (int t = j; t < n2; t += blockDim.x) k2s[t] = taps.k2[t];
     k1 = k1s;
     k2 = k2s;
-    xw = {k2s + n2 + j, n1, ng, 0};            // [n1][ng]
+    xc.w = {k2s + n2 + j, n1, ng, 0};          // [n1][ng]
     uw = {k2s + n2 + n1 * ng + j, n2, nu, 0};  // [n2][nu]
     __syncthreads();
   }
 
-  const int b = blockIdx.z, x0 = blockIdx.x * sw;
   const int ys = blockIdx.y * kStripRows, ye = min(ys + kStripRows, H);
-  const float* img = x + static_cast<size_t>(b) * H * W;
   float* dst = out + static_cast<size_t>(b) * H * W;
-  // this thread's x column (clamped); its U column's first G1 tap in the
-  // staged rows (the U column clamped: past the edge it is the edge's U);
-  // whether it has a G1, a U and an output column
+  // this thread's U column's first G1 tap in the staged rows (the U column
+  // clamped: past the edge it is the edge's U); whether it has a G1, a U
+  // and an output column
   const bool g1_on = j < ng, u_on = j < nu, o_on = j < sw && x0 + j < W;
-  const int gx = clampi(x0 - r1 - r2 + j, W);
   const int ub = clampi(x0 - r2 + j, W) - (x0 - r1 - r2) - r1;
-  auto x_at = [&](int row) {
-    return img[static_cast<size_t>(clampi(row, H)) * W + gx];
-  };
 
   // U rows us .. ue - 1 feed G2's windows of the block's output rows; the
   // ones in the image, ua .. uz - 1, are computed, the others replicate the
   // edge rows
   const int us = ys - r2, ue = ye + r2;
   const int ua = max(us, 0), uz = min(ue, H);
-  if (g1_on) {
-    for (int t = 0; t < n1 - 1; ++t) xw.push(x_at(ua - r1 + t));
-  }
-  // the next two x rows to push, loaded a step ahead
-  float xn0 = g1_on ? x_at(ua + r1) : 0.0f;
-  float xn1 = g1_on ? x_at(ua + r1 + 1) : 0.0f;
+  if (g1_on) xc.start(ua, r1);
   int pushed = 0, parity = 0;
   int u = ua;
   while (u < uz) {
@@ -227,14 +150,11 @@ ug_strip(const float* __restrict__ x, float* __restrict__ out, int H, int W,
     if (kStatic && u > ua && u + 1 < uz - 1) {
       // U rows u and u + 1, one output row each once G2's window is full
       if (g1_on) {
-        xw.push(xn0);
-        xw.push(xn1);
-        xn0 = x_at(u + 2 + r1);
-        xn1 = x_at(u + 3 + r1);
-        g1[j] = xw.template dot<0>(k1);
-        g1[ng + j] = xw.template dot<1>(k1);
-        xr[j] = xw.template centre<0>();
-        xr[ng + j] = xw.template centre<1>();
+        xc.push2(u, r1);
+        g1[j] = xc.w.template dot<0>(k1);
+        g1[ng + j] = xc.w.template dot<1>(k1);
+        xr[j] = xc.w.template centre<0>();
+        xr[ng + j] = xc.w.template centre<1>();
       }
       __syncthreads();
       if (u_on) {
@@ -268,11 +188,9 @@ ug_strip(const float* __restrict__ x, float* __restrict__ out, int H, int W,
     }
     // U row u alone
     if (g1_on) {
-      xw.push(xn0);
-      xn0 = xn1;
-      xn1 = x_at(u + 2 + r1);
-      g1[j] = xw.template dot<1>(k1);
-      xr[j] = xw.template centre<1>();
+      xc.push1(u, r1);
+      g1[j] = xc.w.template dot<1>(k1);
+      xr[j] = xc.w.template centre<1>();
     }
     __syncthreads();
     const float uv =

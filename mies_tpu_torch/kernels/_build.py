@@ -1,10 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each ``mies_tpu_torch/csrc/*.cu`` compiles to an object with its own
-``nvcc``, all started together, and one more ``nvcc`` links them into
+Each ``mies_tpu_torch/csrc/*.cu`` (with the ``csrc/*.cuh`` headers it
+includes) compiles to an object with its own ``nvcc``, all started
+together, and one more ``nvcc`` links them into
 ``mies_tpu_torch/_build/libmies_kernels.so`` (a plain C interface, no
 PyTorch headers, so the build takes seconds), at first use, and again
-whenever the sources' hash changes. The library is loaded with ``ctypes``.
+whenever the hash of the sources and headers changes. The library is
+loaded with ``ctypes``.
 
 No ``--use_fast_math``: it would turn the explicit ``_rn`` arithmetic of
 the kernels into approximations (breaking their bit-exactness) and
@@ -102,8 +104,9 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
+    """The flags', sources' and headers' hash: a header edit rebuilds too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

@@ -1,8 +1,9 @@
 """Bilateral filter on the card: K3 (``csrc/bilateral.cu``).
 
 ``bilateral_cuda`` launches the kernel for a CUDA tensor and runs the
-plain ``ops.filters.bilateral_blur`` for a CPU tensor. The kernel scans
-the window row-major like the plain version but multiplies by the f32
+plain ``ops.filters.bilateral_blur`` for a CPU tensor. The kernel computes
+each unordered pair's weight once (the weight is symmetric) and sums every
+pixel's window row-major like the plain version, but multiplies by the f32
 1/(2 sigma_color^2) as the TPU kernel did, so the two agree within f32
 ULPs (atol 2e-6, the reference's own kernel contract), not bit for bit.
 """

@@ -6,7 +6,10 @@ trailing ``unsharp_mask(mode='nearest', clip=True)`` and the uint8
 quantize as this one kernel: no blurred intermediate and no separate
 quantize pass in device memory, and the output is stored as uint8.
 Bit-exact against the plain unsharp + quantize (same ascending-tap order,
-no FMA contraction; 'nearest' borders as clamped load indices).
+no FMA contraction; 'nearest' borders as clamped load indices). It is K7's
+first half: column strips walking down rows (``csrc/strip.cuh``), its window
+and taps in registers at radii 1.5 and 1.0 (r 6 and 4), in shared memory at
+every other radius.
 
 K7: the pairwise peephole (``compiler._try_fuse_unsharp_gauss``) runs an
 ``unsharp_mask('nearest', clip=True)`` followed by a ``gaussian_blur

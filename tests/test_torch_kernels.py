@@ -103,6 +103,58 @@ def test_k4_plain_matches_pallas_unsharp_quant(rng, quantize):
         np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
 
 
+# one [1, 64, 64] image: bilateral_tpu takes heights that are multiples of
+# 32, unsharp_quant_tpu of 64
+@pytest.mark.parametrize("mode", ["mirror", "nearest"])
+@pytest.mark.parametrize("k", [3, 7, 9])
+def test_k3_plain_matches_pallas_bilateral_at_every_size(k, mode):
+    import jax.numpy as jnp
+    from mies_tpu.kernels.bilateral import bilateral_tpu
+
+    x = np.random.default_rng(21).random((1, 64, 64)).astype(np.float32)
+    ref = np.asarray(bilateral_tpu(jnp.asarray(x), k, 0.1, 1.5, mode,
+                                   interpret=True))
+    out = KB.bilateral_cuda(torch.from_numpy(x), k, 0.1, 1.5, mode)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("radius", [1.0, 4.0])  # r 4 and r 16
+def test_k4_plain_matches_pallas_unsharp_quant_radii(radius):
+    import jax.numpy as jnp
+    from mies_tpu.kernels.unsharp_gauss import unsharp_quant_tpu
+
+    x = np.random.default_rng(22).random((1, 64, 64)).astype(np.float32)
+    ref = np.asarray(unsharp_quant_tpu(jnp.asarray(x), radius, 1.0,
+                                       interpret=True))
+    out = KU.unsharp_quant_cuda(torch.from_numpy(x), radius, 1.0).numpy()
+    assert out.dtype == np.uint8
+    _levels_close(out, ref)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (65, 129)])
+def test_k3_k4_plain_match_jax_on_tiny_and_ragged_shapes(shape):
+    """Shapes the Pallas wrappers refuse, against the JAX package's XLA
+    functions: the bilateral in each border within 2e-6, the unsharp tail
+    (with the compiler's quantize) within the uint8 rule."""
+    import jax
+    import jax.numpy as jnp
+    from mies_tpu.ops import filters as JF
+    from mies_tpu.pipeline.compiler import _quantize_u8
+
+    x = np.random.default_rng(23).random(shape).astype(np.float32)
+    t = torch.from_numpy(x[None])
+    bilateral = jax.jit(JF.bilateral_blur, static_argnums=(1, 2, 3, 4))
+    for k, mode in ((3, "mirror"), (5, "reflect"), (9, "nearest")):
+        ref = np.asarray(bilateral(jnp.asarray(x), k, 0.1, 1.5, mode))
+        np.testing.assert_allclose(
+            KB.bilateral_cuda(t, k, 0.1, 1.5, mode)[0].numpy(), ref,
+            atol=2e-6, rtol=0)
+    for radius in (1.0, 1.5, 4.0):
+        ref = np.asarray(_quantize_u8(JF.unsharp_mask(jnp.asarray(x), radius,
+                                                      1.0)))
+        _levels_close(KU.unsharp_quant_cuda(t, radius, 1.0)[0].numpy(), ref)
+
+
 # --- the wrappers on CPU tensors -------------------------------------------
 
 
@@ -175,6 +227,21 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert _build.LAUNCHES["tile_hists"] == 0
 
 
+def test_build_digest_covers_the_headers(monkeypatch, tmp_path):
+    """A csrc/*.cuh edit changes the digest, so the library is rebuilt."""
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._digest()
+    assert _build._digest() == before
+    (tmp_path / "b.cuh").write_text("// two\n")
+    after = _build._digest()
+    assert after != before
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n// a\n')
+    assert _build._digest() != after
+    assert _build._sources() == [tmp_path / "a.cu"]  # headers build no object
+
+
 # --- the CUDA kernels against their plain versions (card only) -------------
 
 
@@ -198,23 +265,60 @@ def test_k1_k2_on_card_equal_plain(cuda_device, shape, grid):
     assert torch.equal(got, TH.clahe(x, 2.0, grid))
 
 
+# K3 walks strips of 128 columns down runs of 32 rows with pair weights in
+# rings of r + 1 rows: shapes below, across and beyond one strip and run
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 1), (2, 2, 3), (2, 5, 130),
+                                   (2, 77, 130), (1, 513, 511)])
 @pytest.mark.parametrize("mode", ["reflect", "mirror", "nearest"])
-@pytest.mark.parametrize("k", [3, 5, 9])
-def test_k3_on_card_matches_plain(cuda_device, mode, k):
-    x = _on(cuda_device, (2, 77, 130), 2)
+@pytest.mark.parametrize("k", [3, 5, 7, 9])
+def test_k3_on_card_matches_plain(cuda_device, mode, k, shape):
+    x = _on(cuda_device, shape, 2)
+    _build.reset_launches()
     got = KB.bilateral_cuda(x, k, 0.1, 1.5, mode)
+    assert _build.LAUNCHES["bilateral"] == 1
     want = TF.bilateral_blur(x, k, 0.1, 1.5, mode)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 2e-6
 
 
 @pytest.mark.cuda
+def test_k3_on_card_repeats_its_bits(cuda_device):
+    """Each pair weight is written once and read by its two pixels in a
+    fixed order (no atomics): two calls give the same bits."""
+    x = _on(cuda_device, (3, 300, 260), 13)
+    first = KB.bilateral_cuda(x, 5, 0.1, 1.5)
+    assert torch.equal(KB.bilateral_cuda(x, 5, 0.1, 1.5), first)
+
+
+@pytest.mark.cuda
+def test_k3_refuses_asymmetric_spatial_weights(cuda_device):
+    """The pair weights assume spatial[c + i] == spatial[c - i]; the C entry
+    point refuses other weights rather than give another filter."""
+    x = _on(cuda_device, (1, 40, 40), 14)
+    out = torch.empty_like(x)
+    spatial = TF.spatial_weights(5, 1.5)
+    spatial[3] *= 2.0
+    with pytest.raises(RuntimeError, match="did not launch"):
+        _build.launch("bilateral", "mies_bilateral", x.device, x.data_ptr(),
+                      out.data_ptr(), 1, 40, 40, 5, spatial.ctypes.data, 50.0,
+                      0)
+
+
+# K4: registers at r 6 (radius 1.5) and r 4 (1.0), shared-memory rings at
+# r 2 (0.5) and r 16 (4.0)
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 1), (2, 3, 5), (2, 64, 1),
+                                   (2, 65, 129), (2, 77, 130),
+                                   (1, 1024, 1024)])
+@pytest.mark.parametrize("radius", [0.5, 1.0, 1.5, 4.0])
 @pytest.mark.parametrize("quantize", [True, False])
-def test_k4_on_card_equals_plain(cuda_device, quantize):
-    x = _on(cuda_device, (2, 77, 130), 3)
-    got = KU.unsharp_quant_cuda(x, 1.5, 1.0, quantize=quantize)
-    assert torch.equal(got, KU.unsharp_quant_plain(x, 1.5, 1.0,
+def test_k4_on_card_equals_plain(cuda_device, quantize, radius, shape):
+    x = _on(cuda_device, shape, 3)
+    _build.reset_launches()
+    got = KU.unsharp_quant_cuda(x, radius, 1.0, quantize=quantize)
+    assert _build.LAUNCHES["unsharp_quant"] == 1
+    assert torch.equal(got, KU.unsharp_quant_plain(x, radius, 1.0,
                                                    quantize=quantize))
 
 
