@@ -8,19 +8,24 @@ Phases, one printed line each (or a few):
   2. build   — compile the CUDA kernels (csrc/*.cu) with nvcc;
   3. kernels — each kernel against its plain PyTorch version on the card
                at the main paths' shapes ([32, 512, 512]: the flagship's
-               8x8 tiles, the skimage config's 8x8 regions of 64x64; the
+               8x8 tiles (K1 to the OpenCV LUTs, K1's float counts, K2
+               in both epilogues), the skimage config's 8x8 regions of
+               64x64; the
                restoration kernels K9-K12 on the inputs their chains give
                them, at the shipped parameters; the 3-D CLAHE kernels K8
                (both epilogues) and K8s on a [32, 512, 512] volume at grid
-               (4, 8, 8); K7, K3 and K4 at [8, 1024, 1024]; K5 at every
-               band of a 4-way row split of a 4096^2 slice, both
-               epilogues, the stitched bands against K2; K13 against K3 ->
+               (4, 8, 8); K7, K3 and K4 at [8, 1024, 1024]; at a 4096^2
+               slice K1 to the LUTs (twice: repeated calls give equal
+               LUTs), K1 float and bins, K2 in both epilogues and K5 at
+               every band of a 4-way row split, the stitched bands against
+               K2; K13 against K3 ->
                K4 and its plain version at [32, 512, 512] and
                [8, 1024, 1024]), with the
                kernel's, the plain version's and (where one PyTorch call
                computes the same function) the library call's time (CUDA
-               events) and the bound (least time for the bytes and the
-               operations); then on ragged shapes (251x333 slices, skimage
+               events), the bound (least time for the bytes and the
+               operations), and for K1, K2 and K5 also the profiler's
+               device time; then on ragged shapes (251x333 slices, skimage
                regions 31x41: odd region columns, kc % 64 != 0; volumes
                [12, 96, 160] at grid (3, 3, 5) and [20, 251, 333]; K5 on a
                3-way split at grid (6, 5); K13 in K3's three borders; K3
@@ -38,24 +43,27 @@ Phases, one printed line each (or a few):
                fraction and skimage at [32, 512, 512]. Each kernel of the
                path launched exactly as often per call as the design says
                and no other, output against the same chain in plain PyTorch
-               on the card (and the CPU), single-slice == batched row; a
+               on the card (and the CPU), single-slice == batched row, the
+               flagship's uint8 output hash; a
                fraction and a kornia config once each; the row-sharded
                flagship (mies_tpu_torch.parallel) on an NCCL process group
                of one rank: spatial_shard_apply at [4096, 4096] and
                batch_spatial_shard_apply at [8, 4096, 4096], each equal to
-               compile_pipeline, K1, K5, K3, K4 once per call, timed and
+               compile_pipeline, K1 to the LUTs, K5, K3, K4 once per
+               call, timed and
                (the 4096^2 slice) profiled beside compile_pipeline;
   5. timing  — slices/s at batch 32 of 512^2 for every 2-D chain of phase 4
                but fraction and kornia, at batch 8 of 1024^2 for w3, the
                mammogram config and the flagship, z-slices/s for w6 and
                the CT volume config, flagship batch-1 latency p50/p95, and
-               each timed chain's device time by kernel (torch.profiler;
-               not w10's) against its event-timed time per call: the
-               device's busy share; the fused tail's A/B on the flagship
-               (MIES_TPU_FUSE_TAIL off, on, on, off by time_pipeline;
-               with it on K1, K2, K13 once each and the same output); one
-               line of K3's and K4's ms at both shapes beside the device
-               time and busy share of the chains they lie on.
+               each timed chain's device time by kernel and its device
+               launches per call (torch.profiler; not w10's) against its
+               event-timed time per call: the device's busy share; the
+               fused tail's A/B on the flagship (MIES_TPU_FUSE_TAIL off,
+               on, on, off by time_pipeline; with it on K1 to the LUTs,
+               K2, K13 once each and the same output); one line each of
+               K3's and K4's, and of K1's, K2's and K5's, ms beside the
+               device time and busy share of the chains they lie on.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -312,15 +320,23 @@ def main() -> int:
     x = torch.from_numpy(_xray_batch(BATCH, SIZE, SIZE, seed=0)).to(dev)
     npx = x.numel()
     th, tw = SIZE // GRID[0], SIZE // GRID[1]
-    rec, rec_at = {}, {}
+    rec, rec_at, rec_dev = {}, {}, {}
+
+    def device_ms(fn) -> float:
+        """Device ms per call of fn() by torch.profiler over 20 calls: the
+        kernels' own time, without the host time between back-to-back
+        launches that CUDA events around the calls also hold."""
+        return _profile(lambda _: fn(), None, 20, dev)["device_ms_per_call"]
 
     def record(key, err, kernel, plain, nbytes, ops, library=None,
-               plain_iters=20, at=f"[{BATCH},{SIZE},{SIZE}]"):
+               plain_iters=20, at=f"[{BATCH},{SIZE},{SIZE}]", profiled=False):
         bound_ms, bound_by = _bound(nbytes, ops)
         rec[key] = {"max_abs_err": err, "ms": _ms(kernel),
                     "plain_ms": _ms(plain, plain_iters), "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": library}
         rec_at[key] = at
+        if profiled:
+            rec_dev[key] = device_ms(kernel)
 
     # K1, float mode: 4 B read per pixel; level quantize (4 ops) + one count
     hk, hp = KC.tile_hists(x, GRID), KC.tile_hists_plain(x, GRID)
@@ -333,21 +349,31 @@ def main() -> int:
     record("K1", err, lambda: KC.tile_hists(x, GRID),
            lambda: KC.tile_hists_plain(x, GRID),
            4 * npx + 4 * hk.numel(), 5 * npx,
-           _index_add_ms(key, hk.numel()))
+           _index_add_ms(key, hk.numel()), profiled=True)
+
+    # K1 to the OpenCV LUTs: 4 B read per pixel (+ the LUTs written); the
+    # counting's 5 ops per pixel and about 20 integer ops per bin for the
+    # clip, redistribution, two scans and the rint'ed entry. No one PyTorch
+    # call computes it.
+    luts = KC.tile_luts(x, GRID, 2.0)
+    lp = KC.tile_luts_plain(x, GRID, 2.0)
+    err = (luts - lp).abs().max().item()
+    _require(torch.equal(luts, lp), f"K1 LUTs differ by up to {err}")
+    record("K1L", err, lambda: KC.tile_luts(x, GRID, 2.0),
+           lambda: KC.tile_luts_plain(x, GRID, 2.0),
+           4 * npx + 4 * luts.numel(), 5 * npx + 20 * luts.numel(),
+           profiled=True)
 
     # K2, u8norm: 4 B in + 4 B out per pixel, 29 f32 ops per pixel
-    luts = H._luts_opencv(hk.reshape(BATCH, -1, 256).float(), 2.0, th * tw)
-    luts = luts.reshape(BATCH, *GRID, 256)
     ck, cp = KC.clahe_apply_lut(x, luts, GRID), KC.clahe_apply_lut_plain(x, luts, GRID)
     err = (ck - cp).abs().max().item()
     _require(torch.equal(ck, cp), f"K2 output differs by up to {err}")
     record("K2", err, lambda: KC.clahe_apply_lut(x, luts, GRID),
            lambda: KC.clahe_apply_lut_plain(x, luts, GRID),
-           8 * npx + 4 * luts.numel(), 29 * npx)
+           8 * npx + 4 * luts.numel(), 29 * npx, profiled=True)
 
     # K2, clip01 on the fraction convention's LUTs: 27 ops per pixel
-    fluts = H._luts_fraction(hk.reshape(BATCH, -1, 256).float(), 0.01, th * tw)
-    fluts = fluts.reshape(BATCH, *GRID, 256)
+    fluts = KC.tile_luts(x, GRID, 0.01, "fraction")
     _require(not torch.equal(fluts, torch.round(fluts)), "LUTs not fractional")
     fk = KC.clahe_apply_lut(x, fluts, GRID, "clip01")
     fp = KC.clahe_apply_lut_plain(x, fluts, GRID, "clip01")
@@ -355,7 +381,7 @@ def main() -> int:
     _require(torch.equal(fk, fp), f"K2 clip01 differs by up to {err}")
     record("K2c", err, lambda: KC.clahe_apply_lut(x, fluts, GRID, "clip01"),
            lambda: KC.clahe_apply_lut_plain(x, fluts, GRID, "clip01"),
-           8 * npx + 4 * fluts.numel(), 27 * npx)
+           8 * npx + 4 * fluts.numel(), 27 * npx, profiled=True)
 
     # K3: 8 B per pixel; _bilateral_ops(5) per pixel
     bk = KB.bilateral_cuda(ck, 5, 0.1, 1.5, "reflect")
@@ -399,7 +425,7 @@ def main() -> int:
            lambda: KC.tile_hists_bins(binned, origin, rgrid, ks, nbins),
            lambda: KC.tile_hists_bins_plain(binned, origin, rgrid, ks, nbins),
            4 * win.numel() + 4 * sk.numel(), win.numel(),
-           _index_add_ms(bkey, sk.numel()))
+           _index_add_ms(bkey, sk.numel()), profiled=True)
 
     # K6a: R regions x nbins threads; ops counted from this run's phase-3
     # steps: 16 per bin for phases 1-2, the scale and the floor, 8 per bin
@@ -596,20 +622,46 @@ def main() -> int:
            lambda: KU.unsharp_quant_plain(bkm, 1.5, 1.0), 5 * npm,
            (4 * 13 + 8) * npm, at=at_m)
 
-    # K5 at every band of a 4-way row split of one 4096^2 slice (grid 8x8:
-    # two tile rows of 512 per band) against the LUTs K1 and the LUT build
-    # make over the whole slice, in both epilogues: each band equal to the
-    # plain version, the stitched bands equal to K2 on the whole slice
+    # the 4096^2 slice of the sharded chain (grid 8x8: tiles of 512^2,
+    # counted in strips of 16 rows, 32 blocks a tile): K1 to the LUTs twice
+    # (the last block of a tile to arrive builds its LUT; repeated calls
+    # give equal LUTs), K1 float and bins, K2 in both epilogues, each equal
+    # to its plain version; then K5 at every band of a 4-way row split (two
+    # tile rows of 512 per band) against those LUTs, in both epilogues: each
+    # band equal to the plain version, the stitched bands equal to K2 on
+    # the whole slice
     BS, NBANDS = 4096, 4
     xs = torch.from_numpy(_xray_batch(1, BS, BS, seed=5)).to(dev)
     tile_s, hb_s = (BS // GRID[0], BS // GRID[1]), BS // NBANDS
     hs = KC.tile_hists(xs, GRID)
     _require(torch.equal(hs, KC.tile_hists_plain(xs, GRID)),
              "K1 at 4096^2 (tiles counted in strips of rows) differs from plain")
-    hs = hs.reshape(1, -1, 256).float()
-    luts_s = {
-        "u8norm": H._luts_opencv(hs, 2.0, tile_s[0] * tile_s[1]).reshape(1, *GRID, 256),
-        "clip01": H._luts_fraction(hs, 0.01, tile_s[0] * tile_s[1]).reshape(1, *GRID, 256)}
+    ls_plain = KC.tile_luts_plain(xs, GRID, 2.0)
+    for call in ("first", "second"):
+        _require(torch.equal(KC.tile_luts(xs, GRID, 2.0), ls_plain),
+                 f"K1 to the LUTs at 4096^2 ({call} call) differs from plain")
+    ks_s = H.skimage_kernel_size((BS, BS), GRID)
+    (sr0, _, sc0, _), sreg = H.skimage_geometry((BS, BS), ks_s)
+    sbins = H._skimage_binned(xs, ks_s, nbins)
+    _require(torch.equal(
+        KC.tile_hists_bins(sbins, (sr0, sc0), sreg, ks_s, nbins),
+        KC.tile_hists_bins_plain(sbins, (sr0, sc0), sreg, ks_s, nbins)),
+        "K1 bins at 4096^2 differs from plain")
+    luts_s = {"u8norm": ls_plain,
+              "clip01": KC.tile_luts(xs, GRID, 0.01, "fraction")}
+    for fin, lt in luts_s.items():
+        _require(torch.equal(KC.clahe_apply_lut(xs, lt, GRID, fin),
+                             KC.clahe_apply_lut_plain(xs, lt, GRID, fin)),
+                 f"K2 {fin} at 4096^2 differs from plain")
+    n4 = BS * BS
+    dev4096 = {
+        "K1L": device_ms(lambda: KC.tile_luts(xs, GRID, 2.0)),
+        "K1": device_ms(lambda: KC.tile_hists(xs, GRID)),
+        "K2": device_ms(lambda: KC.clahe_apply_lut(xs, ls_plain, GRID))}
+    print(f"[1, {BS}, {BS}]: K1 to the LUTs (twice), K1 float and bins "
+          f"(regions {ks_s}), K2 u8norm and clip01 equal to their plain "
+          f"versions | profiler ms: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in dev4096.items()) + f" | {card}")
     bands_s = [xs[:, i * hb_s:(i + 1) * hb_s].contiguous() for i in range(NBANDS)]
 
     def band_apply(fn, fin):
@@ -627,16 +679,15 @@ def main() -> int:
     # one call = the 4 bands: 4 B in + 4 B out per pixel, 29 ops per pixel
     record("K5", k5_err, lambda: band_apply(KC.clahe_apply_lut_band, "u8norm"),
            lambda: band_apply(KC.clahe_apply_lut_band_plain, "u8norm"),
-           8 * BS * BS + 4 * luts_s["u8norm"].numel(), 29 * BS * BS,
-           plain_iters=5, at=f"[1,{BS},{BS}] in {NBANDS} bands")
+           8 * n4 + 4 * luts_s["u8norm"].numel(), 29 * n4,
+           plain_iters=5, at=f"[1,{BS},{BS}] in {NBANDS} bands", profiled=True)
     # ragged: a 3-way split of 6 tile rows of 43 at grid (6, 5) (tiles 43 x
     # 67: reciprocals that are not powers of two)
     rgrid, rtile = (6, 5), (43, 67)
     xr = x[:2, :6 * 43, :5 * 67].contiguous()
-    hr = KC.tile_hists(xr, rgrid).reshape(2, -1, 256).float()
-    for fin, build, clip in (("u8norm", H._luts_opencv, 2.0),
-                             ("clip01", H._luts_fraction, 0.01)):
-        lr = build(hr, clip, 43 * 67).reshape(2, *rgrid, 256)
+    for fin, clip, conv in (("u8norm", 2.0, "opencv"),
+                            ("clip01", 0.01, "fraction")):
+        lr = KC.tile_luts(xr, rgrid, clip, conv)
         parts = []
         for i in range(3):
             b = xr[:, i * 86:(i + 1) * 86].contiguous()
@@ -686,8 +737,9 @@ def main() -> int:
     torch.cuda.synchronize()
     for k, r in rec.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        prof = f" (profiler {rec_dev[k]:.4f} ms)" if k in rec_dev else ""
         print(f"{k} {rec_at[k]}: max_abs_err {r['max_abs_err']} | "
-              f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
+              f"kernel {r['ms']:.4f} ms{prof} | plain {r['plain_ms']:.4f} ms | "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | library "
               f"{lib} | {card}")
 
@@ -695,12 +747,12 @@ def main() -> int:
     # skimage regions 31x41 (odd region columns, kc % 64 != 0), K9-K12
     r = x[:1, :251, :333].contiguous()
     _require(torch.equal(KC.clahe_cuda(r, 2.0, GRID), H.clahe(r, 2.0, GRID)),
-             "K1+K2 on 251x333 differ from the plain CLAHE")
+             "K1 (to the LUTs) + K2 on 251x333 differ from the plain CLAHE")
     _require(torch.equal(KC.clahe_cuda(r, 0.01, GRID, "fraction"),
                          H.clahe(r, 0.01, GRID, "fraction")),
              "K1+K2 clip01 (fraction) on 251x333 differ from the plain CLAHE")
     # one ragged axis: cv2 pads both axes (a full tile on the even one);
-    # K1 -> LUT build -> K2 against cv2's output hashes, and the fraction
+    # K1 to the LUTs -> K2 against cv2's output hashes, and the fraction
     # convention (the JAX package's pad rule) against its plain version
     for shape, digest in CV2_CLAHE_SHA256.items():
         u = (torch.from_numpy(cv2_noise(shape).astype(np.float32)).to(dev)
@@ -715,7 +767,7 @@ def main() -> int:
                                            "fraction"),
                              H.clahe(u[None], 0.01, GRID, "fraction")),
                  f"K1+K2 fraction on {shape} differ from the plain CLAHE")
-    print(f"K1+K2 opencv equal to cv2.createCLAHE(2.0, (8, 8)) at "
+    print(f"K1 (to the LUTs) + K2 opencv equal to cv2.createCLAHE(2.0, (8, 8)) at "
           f"{sorted(CV2_CLAHE_SHA256)} (one ragged axis); fraction equal to "
           f"plain")
     rks = H.skimage_kernel_size(r.shape[-2:], GRID)
@@ -858,11 +910,11 @@ def main() -> int:
     both = (("float32", x), ("uint8", x8))
     cfg = flagship_config()
     fn, launches = drive(cfg, "flagship", both,
-                         ("tile_hists", "clahe_apply_lut", "bilateral",
+                         ("tile_luts", "clahe_apply_lut", "bilateral",
                           "unsharp_quant"))
     kw = cfg.stages[0].kwargs()
     _require(torch.equal(KC.clahe_batched(x, **kw), H.clahe(x, **kw)),
-             "CLAHE stage (K1 + K2) differs from the plain CLAHE")
+             "CLAHE stage (K1 to the LUTs + K2) differs from the plain CLAHE")
     out = fn(x)
     cpu = compile_pipeline(cfg, batched=True, device="cpu")(x[:2].cpu())
     n, total = close(out[:2].cpu(), cpu, "flagship card vs CPU reference")
@@ -878,6 +930,10 @@ def main() -> int:
     print(f"flagship checks: CLAHE stage == plain, card vs CPU plain chain "
           f"{n} of {total} pixels differ, float output finite in [0,1], "
           f"single == batched row, latency_config runs")
+    # the uint8 output's hash, to hold two versions of the chain to each
+    # other on the same card
+    print(f"flagship uint8 sha256 [{BATCH},{SIZE},{SIZE}] X-ray seed 0: "
+          f"{levels_sha256(out.cpu().numpy())}")
 
     sk_cfg = load_config(repo / "configs" / "xray_adapthist_skimage.yaml")
     sk_fn, sk_launches = drive(sk_cfg, "skimage yaml", both,
@@ -907,8 +963,8 @@ def main() -> int:
 
     # the restoration chains: NL-means one launch, TV three per chunk of
     # KT.STEPS iterations, SRAD one per chunk of KD.STEPS, Perona-Malik one
-    # per iteration, CLAHE K1 and K2 once
-    clahe_k = {"tile_hists": 1, "clahe_apply_lut": 1}
+    # per iteration, CLAHE K1 (to the LUTs) and K2 once
+    clahe_k = {"tile_luts": 1, "clahe_apply_lut": 1}
     ct_cfg = load_config(repo / "configs" / "ct_lowdose_nlm.yaml")
     ct_fn, ct_launches = drive(ct_cfg, "ct_lowdose_nlm yaml", (("int16", ct),),
                                {"nl_means": 1,
@@ -958,7 +1014,7 @@ def main() -> int:
                            {"unsharp_quant": 1})
     _, fm_launches = drive(flagship_config(), "flagship 1024^2",
                            (("float32", xm),),
-                           ("tile_hists", "clahe_apply_lut", "bilateral",
+                           ("tile_luts", "clahe_apply_lut", "bilateral",
                             "unsharp_quant"))
 
     # the volume chains through compile_volume_pipeline: the stages in plain
@@ -1026,10 +1082,11 @@ def main() -> int:
     # a file:// store in a temporary directory, a 1 x 1 mesh, the 4096^2
     # slice through spatial_shard_apply and a batch of 8 through
     # batch_spatial_shard_apply; each equal to compile_pipeline's uint8
-    # output, its launches counted (K1, K5, K3, K4 once per call) and timed
+    # output, its launches counted (K1 to the LUTs, K5, K3, K4 once per
+    # call) and timed
     xb8 = torch.stack([torch.roll(xs[0], (517 * k, 311 * k), (0, 1))
                        for k in range(8)])
-    shard_want = {"tile_hists": 1, "clahe_apply_lut_band": 1, "bilateral": 1,
+    shard_want = {"tile_luts": 1, "clahe_apply_lut_band": 1, "bilateral": 1,
                   "unsharp_quant": 1}
     sharded = {}
     with tempfile.TemporaryDirectory() as store:
@@ -1064,21 +1121,25 @@ def main() -> int:
                         ("compile_pipeline", plain_prof)):
         print(f"profile {label} [{BS}, {BS}]: device "
               f"{prof['device_ms_per_call']:.4f} ms of {prof['ms_per_call']:.4f} "
-              f"ms/call (busy {prof['busy_share']:.1%}) | top ms: "
+              f"ms/call (busy {prof['busy_share']:.1%}), "
+              f"{prof['device_launches_per_call']:g} device launches per call"
+              f" | top ms: "
               + "; ".join(f"{n[:48]} {v:.4f}" for n, v in
                           list(prof["by_kernel"].items())[:8])
               + " | by host op: " + "; ".join(
                   f"{n} {v:.4f}" for n, v in list(prof["by_op"].items())[:6])
               + f" | {card}")
 
-    # the least time of K1-K4's work on the 4096^2 slice, beside the times
+    # the least time of K1-K5's work on the 4096^2 slice, beside the times
     # the profile above gives them (K1 and K2 as at 512^2: float levels in,
     # 8x8 tiles; K3 k 5, K4 r 6)
-    n4, lut4 = BS * BS, GRID[0] * GRID[1] * 256
+    lut4 = GRID[0] * GRID[1] * 256
     print("bounds [1, 4096, 4096]: " + "; ".join(
         f"{k} {ms:.4f} ms ({by})" for k, (ms, by) in (
+            ("K1 to the LUTs", _bound(4 * n4 + 4 * lut4, 5 * n4 + 20 * lut4)),
             ("K1", _bound(4 * n4 + 4 * lut4, 5 * n4)),
             ("K2", _bound(8 * n4 + 4 * lut4, 29 * n4)),
+            ("K5 (4 bands)", _bound(8 * n4 + 4 * lut4, 29 * n4)),
             ("K3", _bound(8 * n4, _bilateral_ops(5) * n4)),
             ("K4", _bound(5 * n4, (4 * 13 + 8) * n4)))) + f" | {card}")
 
@@ -1145,12 +1206,13 @@ def main() -> int:
               f"{prof['device_ms_per_call']:.4f} ms of "
               f"{prof['ms_per_call']:.4f} ms/call (busy "
               f"{prof['busy_share']:.1%}), {len(prof['by_kernel'])} device "
-              f"ops | top ms: {top} | by host op: {ops} | {card}")
+              f"ops, {prof['device_launches_per_call']:g} device launches "
+              f"per call | top ms: {top} | by host op: {ops} | {card}")
 
     # the fused tail's A/B on the flagship at b32 512^2: MIES_TPU_FUSE_TAIL
     # off, on, on, off in one run, each by time_pipeline; then one call with
-    # it on (K1, K2, K13 once each, equal to the default chain) and its
-    # device profile
+    # it on (K1 to the LUTs, K2, K13 once each, equal to the default chain)
+    # and its device profile
     ab = {"off": [], "on": []}
     for tag in ("off", "on", "on", "off"):
         os.environ.pop("MIES_TPU_FUSE_TAIL", None)
@@ -1167,7 +1229,7 @@ def main() -> int:
         fused_prof = profile_pipeline(cfg, (SIZE, SIZE), BATCH, device=dev, batch=x)
     finally:
         os.environ.pop("MIES_TPU_FUSE_TAIL", None)
-    want_f = {"tile_hists": 1, "clahe_apply_lut": 1, "bilateral_unsharp": 1}
+    want_f = {"tile_luts": 1, "clahe_apply_lut": 1, "bilateral_unsharp": 1}
     _require(fused_launches == {k: want_f.get(k, 0) for k in fused_launches},
              f"fused-tail flagship launches {fused_launches}, want {want_f}")
     _require(torch.equal(fused_out, compile_pipeline(cfg, batched=True)(x)),
@@ -1203,9 +1265,27 @@ def main() -> int:
           f"{shard_prof['device_ms_per_call']:.4f} "
           f"({shard_prof['busy_share']:.1%}) | {card}")
 
+    # K1, K2 and K5, and the chains they lie on
+    print(f"K1 to the LUTs {rec['K1L']['ms']:.4f} ms (profiler "
+          f"{rec_dev['K1L']:.4f}), K1 float {rec['K1']['ms']:.4f} "
+          f"({rec_dev['K1']:.4f}), K1 bins {rec['K1b']['ms']:.4f} "
+          f"({rec_dev['K1b']:.4f}), K2 {rec['K2']['ms']:.4f} "
+          f"({rec_dev['K2']:.4f}), K2 clip01 {rec['K2c']['ms']:.4f} "
+          f"({rec_dev['K2c']:.4f}) [{BATCH},{SIZE},{SIZE}]; K5 4 bands "
+          f"{rec['K5']['ms']:.4f} ({rec_dev['K5']:.4f}) [1,{BS},{BS}] | "
+          f"device ms, launches per call (busy): " + ", ".join(
+              f"{label} {prof['device_ms_per_call']:.4f}, "
+              f"{prof['device_launches_per_call']:g} ({prof['busy_share']:.1%})"
+              for label, prof in [*profiles, ("sharded 4096^2", shard_prof)]
+              if label in ("flagship", "flagship 1024^2", "ct_lowdose_nlm yaml",
+                           "ultrasound_despeckle yaml", "w9", "sharded 4096^2"))
+          + f" | {card}")
+
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (
-        ("tile_hists", "K1", launches, "mies_tpu_torch/csrc/clahe.cu",
+        ("tile_luts", "K1L", launches, "mies_tpu_torch/csrc/clahe.cu",
+         "mies_tpu/kernels/clahe.py:923"),
+        ("tile_hists", "K1", ctv_launches, "mies_tpu_torch/csrc/clahe.cu",
          "mies_tpu/kernels/clahe.py:923"),
         ("tile_hists_bins", "K1b", sk_launches, "mies_tpu_torch/csrc/clahe.cu",
          "mies_tpu/kernels/clahe.py:923"),

@@ -48,6 +48,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mies_tile_hists": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "mies_tile_hists_bins": (_P, _P, *(_I,) * 10, _P),
+    "mies_tile_luts_opencv": (_P, _P, _P, *(_I,) * 8, _F, _P),
     "mies_apply_lut": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     "mies_apply_lut_band": (_P, _P, _P, *(_I,) * 7, _F, _F, _I, _I, _P),
     "mies_skimage_maps": (_P, _P, _I, _I, _I, _F, _P),
@@ -67,8 +68,9 @@ _SIGNATURES = {
 }
 
 # launches per kernel wrapper since the last reset_launches()
-LAUNCHES = {"tile_hists": 0, "tile_hists_bins": 0, "clahe_apply_lut": 0,
-            "clahe_apply_lut_band": 0, "skimage_maps": 0, "skimage_apply": 0,
+LAUNCHES = {"tile_hists": 0, "tile_hists_bins": 0, "tile_luts": 0,
+            "clahe_apply_lut": 0, "clahe_apply_lut_band": 0,
+            "skimage_maps": 0, "skimage_apply": 0,
             "bilateral": 0, "unsharp_quant": 0, "bilateral_unsharp": 0,
             "nl_means": 0, "tv": 0, "srad": 0, "perona_malik": 0,
             "clahe3d_apply": 0, "clahe3d_skimage_apply": 0,

@@ -1,11 +1,13 @@
 """CLAHE on the card: the kernels of ``csrc/clahe.cu`` and
 ``csrc/clahe_skimage.cu`` and the compositions of the four conventions.
 
-* opencv and fraction (``clahe_cuda``): K1 (tile histograms) -> the small
-  LUT build in plain torch on the device, as
-  ``mies_tpu.kernels.clahe.clahe_tpu`` leaves it to XLA -> K2 (LUT apply,
-  epilogue u8norm or clip01). K5 (``clahe_apply_lut_band``) is K2 on one
-  row band of a row-sharded slice (``parallel.clahe_shard``).
+* opencv (``clahe_cuda``): K1 counting the tiles and ending in their
+  OpenCV LUTs (``tile_luts``: the clip, redistribution, cdf and rint that
+  ``mies_tpu.kernels.clahe.clahe_tpu`` leaves to XLA) -> K2 (LUT apply,
+  epilogue u8norm). fraction: K1 (tile histograms) -> the small LUT build
+  in plain torch on the device -> K2 (epilogue clip01). K5
+  (``clahe_apply_lut_band``) is K2 on one row band of a row-sharded slice
+  (``parallel.clahe_shard``).
 * skimage (``clahe_skimage_cuda``, after ``clahe_skimage_tpu``): the 14-bit
   scale-in, pad and binning in plain torch on the device -> K1 in bins
   mode (region histograms over the crop of the padded binned image) ->
@@ -33,6 +35,7 @@ from mies_tpu_torch.ops import histogram as H
 NBINS = H.NBINS
 MAX_BINS = 1024  # K6a runs one thread per bin, and a block has at most 1024
 _FINALIZE = {"u8norm": 0, "clip01": 1}
+EPILOGUE = {"opencv": "u8norm", "fraction": "clip01"}  # K2's, by convention
 
 
 def _tile_shape(shape, grid_size, convention: str) -> tuple[int, int]:
@@ -89,6 +92,63 @@ def tile_hists(x: torch.Tensor, grid_size,
     out = torch.empty((B, gy, gx, NBINS), dtype=torch.int32, device=x.device)
     _build.launch("tile_hists", "mies_tile_hists", x.device,
                   x.data_ptr(), out.data_ptr(), B, h, w, gy, gx, th, tw)
+    return out
+
+
+def tile_luts_plain(x: torch.Tensor, grid_size, clip_limit: float,
+                    convention: str = "opencv") -> torch.Tensor:
+    """Plain version of ``tile_luts``: the convention's LUT build
+    (``ops.histogram._luts_opencv`` or ``_luts_fraction``) of K1's counts."""
+    gy, gx = grid_size
+    th, tw = _tile_shape(x.shape[-2:], (gy, gx), convention)
+    counts = tile_hists_plain(x, (gy, gx), convention).reshape(
+        x.shape[0], gy * gx, NBINS).to(torch.float32)
+    build = H._luts_opencv if convention == "opencv" else H._luts_fraction
+    return build(counts, clip_limit, th * tw).reshape(x.shape[0], gy, gx, NBINS)
+
+
+def tile_luts(x: torch.Tensor, grid_size, clip_limit: float,
+              convention: str = "opencv") -> torch.Tensor:
+    """The tiles' LUTs of the opencv or fraction CLAHE of x, in the layout
+    K2 and K5 read: [B, gy, gx, 256] float32, the tiles of x padded by the
+    ``convention``'s rule.
+
+    opencv: K1 ending in the LUTs, one launch: the per-tile 256-bin counts
+    of x's uint8 levels, then OpenCV's integer clip at max(int(clip_limit *
+    tile_area / 256), 1), the redistribution, the cdf and clip(rint(cdf *
+    f32(255 / tile_area)), 0, 255); exact while a tile has fewer than
+    2**24 pixels (the f32 integers of the reference): on the card larger
+    tiles raise, on the CPU the plain build takes them.
+    fraction: K1's counts (``tile_hists``), then the plain float clip and
+    cdf / tile_area (``ops.histogram._luts_fraction``), whose float sums a
+    kernel would not add in torch's order.
+
+    x: [B, H, W] float32 in [0, 1], contiguous."""
+    if convention not in ("opencv", "fraction"):
+        raise ValueError(f"tile_luts builds opencv or fraction LUTs, not "
+                         f"{convention!r}")
+    _build.check_tensor(x, "tile_luts: x")
+    gy, gx = grid_size
+    B, h, w = x.shape
+    th, tw = _tile_shape((h, w), (gy, gx), convention)
+    if convention == "fraction":
+        counts = tile_hists(x, (gy, gx), convention).reshape(B, gy * gx, NBINS)
+        return H._luts_fraction(counts.to(torch.float32), clip_limit,
+                                th * tw).reshape(B, gy, gx, NBINS)
+    if x.device.type == "cpu":
+        return tile_luts_plain(x, (gy, gx), clip_limit)
+    if th * tw >= 2**24:
+        raise ValueError(f"tile_luts: tiles of {th}x{tw} pixels reach 2**24, "
+                         f"where the kernel's f32 counts stop being exact")
+    out = torch.empty((B, gy, gx, NBINS), dtype=torch.float32, device=x.device)
+    # counts and arrival counters of tiles split over several blocks
+    scratch = torch.empty(B * gy * gx * (NBINS + 1), dtype=torch.int32,
+                          device=x.device)
+    clip = max(int(clip_limit * th * tw / NBINS), 1)
+    lut_scale = float(np.float32(NBINS - 1) / np.float32(th * tw))
+    _build.launch("tile_luts", "mies_tile_luts_opencv", x.device,
+                  x.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, h, w,
+                  gy, gx, th, tw, clip, lut_scale)
     return out
 
 
@@ -311,24 +371,15 @@ def clahe_cuda(
     x: torch.Tensor, clip_limit: float = 2.0, grid_size=(8, 8),
     convention: str = "opencv",
 ) -> torch.Tensor:
-    """opencv- or fraction-convention CLAHE of [B, H, W] float32: K1 -> LUT
-    build in plain torch on x's device -> K2. Same numbers as
+    """opencv- or fraction-convention CLAHE of [B, H, W] float32: the
+    tiles' LUTs (``tile_luts``: opencv K1 to the LUTs, fraction K1 -> the
+    LUT build in plain torch on x's device) -> K2. Same numbers as
     ops.histogram.clahe."""
     if convention not in ("opencv", "fraction"):
         raise ValueError(f"clahe_cuda runs 'opencv' and 'fraction', not "
                          f"{convention!r}")
-    gy, gx = grid_size
-    th, tw = _tile_shape(x.shape[-2:], (gy, gx), convention)
-    hists = tile_hists(x, (gy, gx), convention).reshape(
-        x.shape[0], gy * gx, NBINS)
-    if convention == "opencv":
-        luts = H._luts_opencv(hists.to(torch.float32), clip_limit, th * tw)
-        finalize = "u8norm"
-    else:
-        luts = H._luts_fraction(hists.to(torch.float32), clip_limit, th * tw)
-        finalize = "clip01"
-    return clahe_apply_lut(x, luts.reshape(x.shape[0], gy, gx, NBINS),
-                           (gy, gx), finalize, convention)
+    luts = tile_luts(x, grid_size, clip_limit, convention)
+    return clahe_apply_lut(x, luts, grid_size, EPILOGUE[convention], convention)
 
 
 def clahe_skimage_cuda(
@@ -362,7 +413,8 @@ def clahe_batched(
     kernel_size=None,
 ) -> torch.Tensor:
     """The pipeline's batched CLAHE. For a CUDA tensor: skimage through
-    K1 bins / K6a / K6, opencv and fraction through K1 / K2, kornia in
+    K1 bins / K6a / K6, opencv through K1 to the LUTs / K2, fraction
+    through K1 / plain LUT build / K2, kornia in
     plain torch on the card. For a CPU tensor: ``ops.histogram.clahe``."""
     H.check_convention(convention, nbins)
     grid = tuple(grid_size)

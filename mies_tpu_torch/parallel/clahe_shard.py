@@ -2,8 +2,9 @@
 
 The port of ``mies_tpu.parallel.clahe_shard``. CLAHE depends on whole
 tiles, not on a fixed radius, so it cannot take the halo path; it shards
-on tile boundaries instead: each rank histograms only its own band's tiles
-(K1; tiles never straddle ranks), builds their LUTs, all-gathers the
+on tile boundaries instead: each rank builds the LUTs of only its own
+band's tiles (opencv: K1 to the LUTs; fraction: K1 and the plain LUT
+build; tiles never straddle ranks), all-gathers the
 [gy/n, gx, 256] f32 LUTs of every band (the one collective, independent
 of the image size), and blends its own rows against the full grid at its
 global row offset (K5). The result equals the unsharded ``clahe`` bit for
@@ -20,7 +21,6 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from mies_tpu_torch.kernels import clahe as KC
-from mies_tpu_torch.ops import histogram as H
 from mies_tpu_torch.parallel.mesh import mesh_device
 from mies_tpu_torch.pipeline.compiler import _ingest, _quantize_u8, _to_device
 
@@ -57,7 +57,7 @@ def clahe_band(
     n, idx = dist.get_world_size(group), dist.get_rank(group)
     gy, gx = grid_size
     check_grid_rows(grid_size, n)
-    B, hb, w = band.shape
+    _, hb, w = band.shape
     gy_local = gy // n
     if hb % gy_local or w % gx:
         raise ValueError(
@@ -67,17 +67,13 @@ def clahe_band(
     th, tw = hb // gy_local, w // gx
     band = band.contiguous()
 
-    hists = KC.tile_hists(band, (gy_local, gx)).reshape(B, gy_local * gx, H.NBINS)
-    build = H._luts_opencv if convention == "opencv" else H._luts_fraction
-    luts_local = build(hists.to(torch.float32), clip_limit, th * tw)
-    luts_local = luts_local.reshape(B, gy_local, gx, H.NBINS).contiguous()
+    luts_local = KC.tile_luts(band, (gy_local, gx), clip_limit, convention)
     # the one collective: every band's LUTs, so each rank holds the grid
     parts = [torch.empty_like(luts_local) for _ in range(n)]
     dist.all_gather(parts, luts_local, group=group)
     luts = torch.cat(parts, dim=1)
-    return KC.clahe_apply_lut_band(
-        band, luts, (gy, gx), (th, tw), idx * hb,
-        "u8norm" if convention == "opencv" else "clip01")
+    return KC.clahe_apply_lut_band(band, luts, (gy, gx), (th, tw), idx * hb,
+                                   KC.EPILOGUE[convention])
 
 
 def clahe_spatial_shard(

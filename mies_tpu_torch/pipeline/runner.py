@@ -152,9 +152,10 @@ def time_latency(
 def _profile(fn, x: torch.Tensor, iters: int, dev: torch.device) -> dict:
     """Device time per call of ``fn(x)`` by kernel name (``torch.profiler``
     over ``iters`` calls, kernels, copies and fills alike) and by the host
-    op that launched it, the unprofiled event-timed ms per call over as
-    many calls, and their ratio, the device's busy share (the rest is
-    time the host keeps the card waiting)."""
+    op that launched it, the device operations launched per call, the
+    unprofiled event-timed ms per call over as many calls, and their
+    ratio, the device's busy share (the rest is time the host keeps the
+    card waiting)."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.cuda.device(dev):
@@ -182,9 +183,13 @@ def _profile(fn, x: torch.Tensor, iters: int, dev: torch.device) -> dict:
         and evt.self_device_time_total > 0
     }
     device_ms = sum(by_kernel.values())
+    launches = sum(evt.count for evt in events
+                   if evt.device_type == torch.autograd.DeviceType.CUDA
+                   and evt.self_device_time_total > 0)
     return {
         "ms_per_call": wall,
         "device_ms_per_call": device_ms,
+        "device_launches_per_call": launches / iters,
         "busy_share": device_ms / wall,
         "by_kernel": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])),
         "by_op": dict(sorted(by_op.items(), key=lambda kv: -kv[1])),

@@ -118,13 +118,13 @@ def test_fraction_keeps_the_jax_rule(shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", ONE_RAGGED + TINY)
 def test_k1_k2_on_card_equal_cv2(cuda_device, shape):
-    """K1 -> LUT build -> K2 on the card: one launch each, equal to the
+    """K1 to the LUTs -> K2 on the card: one launch each, equal to the
     plain version, and at the pinned shapes equal to cv2's hash."""
     u8 = np.stack([SMOKE.cv2_noise(shape)] * 2)
     x = _f32(u8).to(cuda_device)
     _build.reset_launches()
     got = KC.clahe_cuda(x, 2.0, (8, 8))
-    assert _build.LAUNCHES["tile_hists"] == 1
+    assert _build.LAUNCHES["tile_luts"] == 1
     assert _build.LAUNCHES["clahe_apply_lut"] == 1
     assert torch.equal(got.cpu(), TH.clahe(x.cpu(), 2.0, (8, 8)))
     if shape in SMOKE.CV2_CLAHE_SHA256:

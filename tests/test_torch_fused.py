@@ -150,8 +150,9 @@ def test_k13_on_card_equals_k3_k4(cuda_device, shape, mode, k, quantize):
 
 @pytest.mark.cuda
 def test_fused_tail_chain_on_card(cuda_device, monkeypatch):
-    """With the switch on, the flagship chain launches K1, K2 and K13 once
-    each and no K3 or K4, and its output equals the default chain's."""
+    """With the switch on, the flagship chain launches K1 (to the LUTs),
+    K2 and K13 once each and no K3 or K4, and its output equals the
+    default chain's."""
     rng = np.random.default_rng(14)
     x = torch.from_numpy(rng.random((4, 256, 256)).astype(np.float32)).to(cuda_device)
     monkeypatch.delenv("MIES_TPU_FUSE_TAIL", raising=False)
@@ -162,6 +163,6 @@ def test_fused_tail_chain_on_card(cuda_device, monkeypatch):
     on = fn(x)
     torch.cuda.synchronize()
     launched = {k: v for k, v in _build.LAUNCHES.items() if v}
-    assert launched == {"tile_hists": 1, "clahe_apply_lut": 1,
+    assert launched == {"tile_luts": 1, "clahe_apply_lut": 1,
                         "bilateral_unsharp": 1}
     assert torch.equal(on, off)

@@ -256,13 +256,95 @@ def _on(device, shape, seed: int) -> torch.Tensor:
                                         # tiles of 502 x 400: strips of rows
                                         ((1, 1003, 1200), (2, 3))])
 def test_k1_k2_on_card_equal_plain(cuda_device, shape, grid):
+    """The opencv CLAHE is K1 to the LUTs -> K2, one launch each; K1's
+    float mode (fraction, clahe3d) counts as its plain version."""
     x = _on(cuda_device, shape, 1)
     _build.reset_launches()
     got = KC.clahe_cuda(x, 2.0, grid)
-    assert _build.LAUNCHES["tile_hists"] == 1
-    assert _build.LAUNCHES["clahe_apply_lut"] == 1
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "tile_luts": 1, "clahe_apply_lut": 1}
     assert torch.equal(KC.tile_hists(x, grid), KC.tile_hists_plain(x, grid))
     assert torch.equal(got, TH.clahe(x, 2.0, grid))
+
+
+def _xray(device, shape, seed: int) -> torch.Tensor:
+    """Smooth glow, a flat background at one level and noise: hot bins."""
+    rng = np.random.default_rng(seed)
+    b, h, w = shape
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    glow = np.exp(-(((y - h / 2) ** 2 + (x - w / 2) ** 2) / (0.2 * h * w)))
+    img = 0.6 * glow + 0.03 * rng.standard_normal(shape)
+    img[:, :, : w // 4] = 0.0  # flat: one level over whole tiles
+    return torch.from_numpy(np.clip(img, 0, 1).astype(np.float32)).to(device)
+
+
+# K1 to the LUTs: one block per tile (512^2), tiles split over blocks with
+# the last arrival building the LUT (1024^2 at 8x8: 2 blocks a tile; 4096^2:
+# 32), ragged tiles (cv2's pad on one ragged axis; 251x333 at (6, 5)), and
+# rows that are not 16-byte aligned
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,grid", [((32, 512, 512), (8, 8)),
+                                        ((2, 1024, 1024), (8, 8)),
+                                        ((1, 4096, 4096), (8, 8)),
+                                        ((2, 67, 128), (8, 8)),
+                                        ((2, 251, 333), (6, 5))])
+@pytest.mark.parametrize("clip", [2.0, 0.01, 40.0])
+def test_tile_luts_on_card_equal_plain(cuda_device, shape, grid, clip):
+    for x in (_on(cuda_device, shape, 2), _xray(cuda_device, shape, 3)):
+        _build.reset_launches()
+        got = KC.tile_luts(x, grid, clip)
+        assert _build.LAUNCHES["tile_luts"] == 1
+        want = KC.tile_luts_plain(x, grid, clip)
+        assert torch.equal(got, want), (got - want).abs().max().item()
+        # a second call (fresh scratch, zeroed when tiles split) gives the
+        # same LUTs
+        assert torch.equal(KC.tile_luts(x, grid, clip), want)
+
+
+@pytest.mark.cuda
+def test_clahe_kernels_on_card_take_unaligned_rows(cuda_device):
+    """A contiguous tensor 4 bytes off a 16-byte boundary: the kernels
+    read it pixel by pixel and still equal their plain versions."""
+    base = _on(cuda_device, (2 * 128 * 128 + 1,), 4)
+    x = base[1:].view(2, 128, 128)
+    assert x.data_ptr() % 16 != 0
+    luts = KC.tile_luts(x, (4, 4), 2.0)
+    assert torch.equal(luts, KC.tile_luts_plain(x, (4, 4), 2.0))
+    assert torch.equal(KC.tile_hists(x, (4, 4)), KC.tile_hists_plain(x, (4, 4)))
+    assert torch.equal(KC.clahe_apply_lut(x, luts, (4, 4)),
+                       KC.clahe_apply_lut_plain(x, luts, (4, 4)))
+
+
+@pytest.mark.cuda
+def test_tile_luts_on_card_refuse_tiles_of_2_24_pixels(cuda_device):
+    """Past 2**24 pixels a tile's f32 counts in the reference stop being
+    exact integers: the kernel's wrapper raises before any launch."""
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="2\\*\\*24"):
+        KC.tile_luts(torch.empty((1, 4096, 4096), device=cuda_device), (1, 1),
+                     2.0)
+    assert _build.LAUNCHES["tile_luts"] == 0
+
+
+# K1 float and bins, and K2 in both epilogues, at the 4096^2 slice of the
+# sharded chain (tiles and cells in strips of rows) and on the X-ray image
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 512, 512), (1, 4096, 4096)])
+def test_k1_k2_on_card_equal_plain_at_main_path_shapes(cuda_device, shape):
+    x = _xray(cuda_device, shape, 5)
+    assert torch.equal(KC.tile_hists(x, (8, 8)), KC.tile_hists_plain(x, (8, 8)))
+    bins = torch.clamp((x * 256).to(torch.int32), 0, 255).contiguous()
+    tile = (shape[1] // 8 - 4, shape[2] // 8 - 4)  # 16-byte rows
+    assert torch.equal(KC.tile_hists_bins(bins, (8, 8), (8, 8), tile, 256),
+                       KC.tile_hists_bins_plain(bins, (8, 8), (8, 8), tile, 256))
+    counts = KC.tile_hists(x, (8, 8)).reshape(shape[0], 64, 256).float()
+    area = shape[1] * shape[2] // 64
+    for fin, luts in (("u8norm", KC.tile_luts(x, (8, 8), 2.0)),
+                      ("clip01", TH._luts_fraction(counts, 0.01, area)
+                       .reshape(shape[0], 8, 8, 256))):
+        got = KC.clahe_apply_lut(x, luts, (8, 8), fin)
+        want = KC.clahe_apply_lut_plain(x, luts, (8, 8), fin)
+        assert torch.equal(got, want), (fin, (got - want).abs().max().item())
 
 
 # K3 walks strips of 128 columns down runs of 32 rows with pair weights in
