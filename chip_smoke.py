@@ -12,9 +12,11 @@ Phases, one printed line each (or a few):
                in both epilogues), the skimage config's 8x8 regions of
                64x64; the
                restoration kernels K9-K12 on the inputs their chains give
-               them, at the shipped parameters; the 3-D CLAHE kernels K8
-               (both epilogues) and K8s on a [32, 512, 512] volume at grid
-               (4, 8, 8); K7, K3 and K4 at [8, 1024, 1024]; at a 4096^2
+               them, at the shipped parameters (K9 also at option 2 and at
+               1 and 7 steps); the 3-D CLAHE kernels K8 (both epilogues)
+               and K8s on a [32, 512, 512] volume at grid (4, 8, 8), K8
+               also on the windowed [256, 512, 512] CT phantom; K7, K3 and
+               K4 at [8, 1024, 1024]; at a 4096^2
                slice K1 to the LUTs (twice: repeated calls give equal
                LUTs), K1 float and bins, K2 in both epilogues and K5 at
                every band of a 4-way row split, the stitched bands against
@@ -541,15 +543,28 @@ def main() -> int:
            lambda: R.srad(usf, *srp), 8 * npx, 42 * srp[0] * npx,
            plain_iters=5)
 
-    pk = KD.anisotropic_diffusion_cuda(x, *pmp)
-    err, equal["K9"] = within(pk, R.anisotropic_diffusion(x, *pmp), 1e-6,
-                              "K9")
-    # 18 per pixel and iteration: two differences, two fluxes (6 each),
-    # the divergence (2) and the update (2)
-    record("K9", err, lambda: KD.anisotropic_diffusion_cuda(x, *pmp),
-           lambda: R.anisotropic_diffusion(x, *pmp), 8 * npx,
-           18 * pmp[0] * npx)
+    # K9 at w8's 6 steps (options 1 and 2), at one step (the band chain's
+    # launch) and at 7 (a last launch shorter than KD.PM_STEPS): each
+    # bit-equal to the plain version. 18 operations per pixel and step:
+    # two differences, two fluxes (6 each), the divergence (2) and the
+    # update (2)
+    for key, kw in (("K9", pmp), ("K9o2", (*pmp[:3], 2)),
+                    ("K9n1", (1, *pmp[1:])), ("K9n7", (7, *pmp[1:]))):
+        pk = KD.anisotropic_diffusion_cuda(x, *kw)
+        err, equal[key] = within(pk, R.anisotropic_diffusion(x, *kw), 1e-6,
+                                 key)
+        _require(equal[key], f"{key} differs from R.anisotropic_diffusion "
+                             f"by up to {err}")
+        record(key, err, lambda kw=kw: KD.anisotropic_diffusion_cuda(x, *kw),
+               lambda kw=kw: R.anisotropic_diffusion(x, *kw), 8 * npx,
+               18 * kw[0] * npx)
     print(f"K9-K12 bit-equal to their plain versions: {equal}")
+    print(f"K9 [{BATCH},{SIZE},{SIZE}] ms per call ({KD.PM_STEPS} steps a "
+          f"launch): w8 niter 6 option 1 {rec['K9']['ms']:.4f} (plain "
+          f"{rec['K9']['plain_ms']:.4f}), option 2 {rec['K9o2']['ms']:.4f}, "
+          f"niter 1 {rec['K9n1']['ms']:.4f}, niter 7 {rec['K9n7']['ms']:.4f}"
+          f"; bound {rec['K9']['bound_ms']:.4f} ({rec['K9']['bound_by']}) | "
+          f"{card}")
 
     # the 3-D CLAHE kernels on the X-ray batch as one [32, 512, 512] volume
     # at the grid (4, 8, 8) of w6 and configs/ct_volume_3d.yaml: K1 over the
@@ -559,19 +574,42 @@ def main() -> int:
     tz3 = BATCH // g3[0]
     h3 = hk.reshape(g3[0], tz3, GRID[0] * GRID[1], 256).sum(1, dtype=torch.int32)
     # per voxel: level (4), three axis fractions (5 each), seven lerps (4
-    # each), the epilogue (u8norm 4, clip01 2)
-    for key, conv, clip, fin, ops in (("K8", "opencv", 2.0, "u8norm", 51),
-                                      ("K8c", "fraction", 0.01, "clip01", 49)):
-        l3 = V.luts_3d(h3.float(), clip, tz3 * th * tw, conv).reshape(*g3, 256)
-        _require(conv == "opencv" or not torch.equal(l3, torch.round(l3)),
-                 "3-D fraction LUTs not fractional")
-        ek = K3D.clahe3d_apply_lut(x, l3, g3, fin)
-        ep = K3D.clahe3d_apply_lut_plain(x, l3, g3, fin)
-        err = (ek - ep).abs().max().item()
-        _require(torch.equal(ek, ep), f"{key} ({fin}) differs by up to {err}")
-        record(key, err, lambda l3=l3, fin=fin: K3D.clahe3d_apply_lut(x, l3, g3, fin),
-               lambda l3=l3, fin=fin: K3D.clahe3d_apply_lut_plain(x, l3, g3, fin),
-               8 * npx + 4 * l3.numel(), ops * npx, plain_iters=5)
+    # each), the epilogue (u8norm 4, clip01 2). At [32, 512, 512] on the
+    # X-ray batch (w6's shape) and at [256, 512, 512] on the windowed CT
+    # phantom of configs/ct_volume_3d.yaml (its K8 input), each with the
+    # LUTs of its own K1 counts
+    ctv = _ct_volume(256, SIZE, SIZE, seed=4, dev=dev)
+    ctvw = I.window_hu(ctv, 40.0, 400.0).contiguous()
+    hct = KC.tile_hists(ctvw, GRID).reshape(g3[0], ctvw.shape[0] // g3[0],
+                                            GRID[0] * GRID[1], 256)
+    hct = hct.sum(1, dtype=torch.int32)
+    for sfx, vol, h, iters in (("", x, h3, 5), ("v", ctvw, hct, 2)):
+        tvox = vol.shape[0] // g3[0] * th * tw
+        nvox = vol.numel()
+        for key, conv, clip, fin, ops in (("K8", "opencv", 2.0, "u8norm", 51),
+                                          ("K8c", "fraction", 0.01, "clip01",
+                                           49)):
+            key += sfx
+            l3 = V.luts_3d(h.float(), clip, tvox, conv).reshape(*g3, 256)
+            _require(conv == "opencv" or not torch.equal(l3, torch.round(l3)),
+                     "3-D fraction LUTs not fractional")
+            ek = K3D.clahe3d_apply_lut(vol, l3, g3, fin)
+            ep = K3D.clahe3d_apply_lut_plain(vol, l3, g3, fin)
+            err = (ek - ep).abs().max().item()
+            _require(torch.equal(ek, ep),
+                     f"{key} ({fin}) differs by up to {err}")
+            record(key, err,
+                   lambda vol=vol, l3=l3, fin=fin: K3D.clahe3d_apply_lut(
+                       vol, l3, g3, fin),
+                   lambda vol=vol, l3=l3, fin=fin:
+                   K3D.clahe3d_apply_lut_plain(vol, l3, g3, fin),
+                   8 * nvox + 4 * l3.numel(), ops * nvox, plain_iters=iters,
+                   at=str(list(vol.shape)).replace(" ", ""))
+    print(f"K8 ms (bound) u8norm / clip01: [{BATCH},{SIZE},{SIZE}] "
+          f"{rec['K8']['ms']:.4f} / {rec['K8c']['ms']:.4f} "
+          f"({rec['K8']['bound_ms']:.4f}), [256,{SIZE},{SIZE}] "
+          f"{rec['K8v']['ms']:.4f} / {rec['K8cv']['ms']:.4f} "
+          f"({rec['K8v']['bound_ms']:.4f}); bit-equal | {card}")
     ks3 = V.skimage3d_kernel_size(x.shape, g3)
     pad3, _, ns3 = V.skimage3d_geometry(x.shape, ks3)
     b3 = V._skimage3d_binned(x, ks3, nbins)
@@ -837,11 +875,14 @@ def main() -> int:
     ru = usf[:2, :251, :333].contiguous()
     rag["K10"] = within(KD.srad_cuda(ru, *srp), R.srad(ru, *srp), 1e-6,
                         "K10 on 251x333")[0]
-    for opt in (1, 2):
-        pm = (*pmp[:3], opt)
-        rag[f"K9 option {opt}"] = within(
-            KD.anisotropic_diffusion_cuda(r, *pm),
-            R.anisotropic_diffusion(r, *pm), 1e-6, "K9 on 251x333")[0]
+    for niter in (pmp[0], 7):
+        for opt in (1, 2):
+            pm = (niter, *pmp[1:3], opt)
+            what = f"K9 niter {niter} option {opt} on 251x333"
+            rag[f"K9 niter {niter} option {opt}"], eq = within(
+                KD.anisotropic_diffusion_cuda(r, *pm),
+                R.anisotropic_diffusion(r, *pm), 1e-6, what)
+            _require(eq, f"{what} differs from the plain version")
     rv = x[:12, :96, :160].contiguous()  # tw = 32, gy = 3
     for conv, clip in (("opencv", 2.0), ("fraction", 0.01)):
         _require(torch.equal(K3D.clahe3d_cuda(rv, clip, (3, 3, 5), conv),
@@ -963,7 +1004,7 @@ def main() -> int:
 
     # the restoration chains: NL-means one launch, TV three per chunk of
     # KT.STEPS iterations, SRAD one per chunk of KD.STEPS, Perona-Malik one
-    # per iteration, CLAHE K1 (to the LUTs) and K2 once
+    # per chunk of KD.PM_STEPS, CLAHE K1 (to the LUTs) and K2 once
     clahe_k = {"tile_luts": 1, "clahe_apply_lut": 1}
     ct_cfg = load_config(repo / "configs" / "ct_lowdose_nlm.yaml")
     ct_fn, ct_launches = drive(ct_cfg, "ct_lowdose_nlm yaml", (("int16", ct),),
@@ -998,7 +1039,7 @@ def main() -> int:
                                     "gamma": pmp[2]}),
          ("musica", {"levels": 5, "p": 0.6, "gain": 1.5})], name="w8")
     _, w8_launches = drive(w8_cfg, "w8 diffusion+musica", (("float32", x),),
-                           {"perona_malik": pmp[0]})
+                           {"perona_malik": KD.pm_launches_per_call(pmp[0])})
 
     # the 1024^2 mammography chains at batch 8: w3 (K7 once, no K4), the
     # uint16 mammogram config (plain Gaussian, then K4) and the flagship
@@ -1052,7 +1093,6 @@ def main() -> int:
         return fn, counts
 
     ctv_cfg = load_config(repo / "configs" / "ct_volume_3d.yaml")
-    ctv = _ct_volume(256, SIZE, SIZE, seed=4, dev=dev)
     ctv_fn, ctv_launches = drive_volume(ctv_cfg, "ct_volume_3d yaml", ctv,
                                         ("tile_hists", "clahe3d_apply"))
     crop = ctv[112:144, 192:320, 192:320].contiguous()
@@ -1318,6 +1358,10 @@ def main() -> int:
          "mies_tpu/kernels/clahe.py:348"),
         ("clahe3d_apply", "K8c", fr3_launches, "mies_tpu_torch/csrc/clahe3d.cu",
          "mies_tpu/kernels/clahe.py:348"),
+        ("clahe3d_apply", "K8v", ctv_launches, "mies_tpu_torch/csrc/clahe3d.cu",
+         "mies_tpu/kernels/clahe.py:348"),
+        ("clahe3d_apply", "K8cv", fr3_launches,
+         "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/kernels/clahe.py:348"),
         ("clahe3d_skimage_apply", "K8s", sk3_launches,
          "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/kernels/clahe.py:1062"),
         ("bilateral", "K3r", fm_launches, "mies_tpu_torch/csrc/bilateral.cu",
@@ -1332,6 +1376,8 @@ def main() -> int:
     names = {"K1b": "tile_hists_bins", "K2c": "clahe_apply_lut[clip01]",
              "K2": "clahe_apply_lut[u8norm]", "K8": "clahe3d_apply[u8norm]",
              "K8c": "clahe3d_apply[clip01]",
+             "K8v": "clahe3d_apply[u8norm,256x512x512]",
+             "K8cv": "clahe3d_apply[clip01,256x512x512]",
              "K3r": "bilateral[8x1024x1024]",
              "K4r": "unsharp_quant[8x1024x1024]"}
     kernels = []

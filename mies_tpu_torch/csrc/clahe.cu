@@ -67,7 +67,7 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
+#include "cells.cuh"
 
 namespace {
 
@@ -76,13 +76,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPixelsPerBlock = 8192;  // a block's share of a tile or cell
 static_assert(kThreads == kBins, "the LUT epilogue runs one thread a bin");
-
-// clip(rint(v * 255), 0, 255): the level quantize of ops.histogram._levels.
-// rintf rounds half to even, like torch.round and jnp.round.
-__device__ __forceinline__ int level_of(float v) {
-  const float q = rintf(__fmul_rn(v, 255.0f));
-  return static_cast<int>(fminf(fmaxf(q, 0.0f), 255.0f));
-}
 
 // Source index of a position in OpenCV's bottom/right BORDER_REFLECT_101
 // pad, at any number of bounces (cv2's rule pads a full tile on an axis
@@ -324,26 +317,7 @@ tile_luts_kernel(const float* __restrict__ x, float* __restrict__ luts,
 }
 
 // --- K2 / K5: the LUT blend on interpolation cells -------------------------
-
-// The blend's cell coordinate of a position: floor(p * (1/t) - 0.5), the
-// f32 formula of the per-pixel weights.
-__device__ __forceinline__ float cell_pos(int p, float inv) {
-  return __fsub_rn(__fmul_rn(static_cast<float>(p), inv), 0.5f);
-}
-__device__ __forceinline__ int cell_of(int p, float inv) {
-  return static_cast<int>(floorf(cell_pos(p, inv)));
-}
-
-// The first position in [lo, hi] whose cell is >= c (cells never decrease
-// along an axis): from the exact-arithmetic estimate, corrected by the f32
-// formula itself.
-__device__ int cell_start(int c, int t, float inv, int lo, int hi) {
-  int p = c * t + (t + 1) / 2;
-  p = min(max(p, lo), hi);
-  while (p > lo && cell_of(p - 1, inv) >= c) --p;
-  while (p < hi && cell_of(p, inv) < c) ++p;
-  return p;
-}
+// (the cells and their edges: cells.cuh, shared with K8)
 
 template <bool kClip01>
 __device__ __forceinline__ float blend(const float4& q, float omx, float xa,
@@ -462,11 +436,6 @@ cudaError_t zero_if_split(int* p, size_t count, int th, int rpb,
                           cudaStream_t stream) {
   if (rpb >= th) return cudaSuccess;
   return cudaMemsetAsync(p, 0, count * sizeof(int), stream);
-}
-
-// Rows of W elements at p start 16-byte aligned: the vector loads' rule.
-int rows_aligned(const void* p, int W) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && (W & 3) == 0;
 }
 
 // K2 / K5's launch: cells of up to th + 1 rows (the f32 weights may move a

@@ -9,12 +9,24 @@
 // - 0.5 with the host's correctly rounded f32 reciprocal, lo = max(floor, 0),
 // hi = min(floor + 1, g - 1), a = f - floor; blend x, then y, then z. Then
 // the u8norm epilogue clip(rint(v), 0, 255) / 255 (opencv, integer LUTs) or
-// clip01 (fraction LUTs), as K2. The TPU selected LUT entries by onehot
-// matmul against a z-lo / z-hi pair of 3x3 LUT stacks; Hopper gathers: one
-// thread per voxel reads its 8 corner entries by index from the LUT array
-// (at most 4 x 8 x 8 x 256 x 4 B = 256 KB, which L2 and the block's L1
-// hold). Bound: 4 B read + 4 B written per voxel; about 50 f32 operations
-// per voxel.
+// clip01 (fraction LUTs, K8c), as K2. The TPU selected LUT entries by onehot
+// matmul against a z-lo / z-hi pair of 3x3 LUT stacks because it has no
+// gather. Here, as K2 does in 2-D (clahe.cu), a block owns (a strip of) one
+// interpolation cell (cz, cy, cx): the region between eight tile centres,
+// whose voxels all blend the same 8 LUTs. It stages just those, as two
+// float4 per level (the z-lo quad and the z-hi quad, 8 KB), so a voxel takes
+// two 16-byte shared loads instead of 8 gathers from the 256 KB LUT array.
+// The cell's slices, rows and columns are found on the device with the
+// blend's own f32 formula (cells.cuh cell_start): the f32 weights can move
+// a cell edge by one, and no rounding edge may send a voxel to a LUT the
+// block did not stage. A cell's (slice, row) pairs are cut into strips of
+// about kPixelsPerBlock voxels, one block each (grid: x cell, column chunk
+// and strip on x; y cell on y; z cell on z). Each thread keeps its column
+// unit (four columns on 16-byte aligned rows: float4 loads and stores,
+// scalar head and tail) while it walks the strip's rows: the x weights are
+// computed once per column, the y weight once per row, the z weight once
+// per slice. u8norm divides by 255 through a table of the correctly
+// rounded quotients. Bound: 4 B read + 4 B written per voxel.
 //
 // K8s (mies_clahe3d_skimage_apply) replaces the skimage mode of
 // mies_tpu/kernels/clahe.py:_blocks8_kernel: skimage's blend of the 8
@@ -31,68 +43,158 @@
 
 #include <cuda_runtime.h>
 
+#include "cells.cuh"
+
 namespace {
 
 constexpr int kBins = 256;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // kernels/clahe3d.py THREADS
+constexpr int kMaxGridYZ = 65535;
 
-__device__ __forceinline__ int level_of(float v) {
-  const float q = rintf(__fmul_rn(v, 255.0f));
-  return static_cast<int>(fminf(fmaxf(q, 0.0f), 255.0f));
+// lo * (1 - a) + hi * a, with 1 - a given
+__device__ __forceinline__ float lerp_rn(float lo, float hi, float a,
+                                         float oma) {
+  return __fadd_rn(__fmul_rn(lo, oma), __fmul_rn(hi, a));
 }
 
-// OpenCV's per-axis weights of index i: lo / hi tile and the fraction.
-struct Axis {
-  int lo, hi;
-  float a;
+// OpenCV's weight of position p along an axis, and its complement
+struct Weight {
+  float a, oma;
 };
 
-__device__ __forceinline__ Axis axis_of(int i, float inv, int g) {
-  const float f = __fsub_rn(__fmul_rn(static_cast<float>(i), inv), 0.5f);
-  const float fl = floorf(f);
-  return {max(static_cast<int>(fl), 0), min(static_cast<int>(fl) + 1, g - 1),
-          __fsub_rn(f, fl)};
+__device__ __forceinline__ Weight weight_of(int p, float inv) {
+  const float f = cell_pos(p, inv);
+  const float a = __fsub_rn(f, floorf(f));
+  return {a, __fsub_rn(1.0f, a)};
 }
 
-__device__ __forceinline__ float lerp_rn(float lo, float hi, float a) {
-  return __fadd_rn(__fmul_rn(lo, __fsub_rn(1.0f, a)), __fmul_rn(hi, a));
+// K8's blend at one voxel: x first (c00, c01, c10, c11), then y, then z,
+// the plain gather form's order; lo / hi are the z-lo and z-hi quads
+// (y-lo x-lo, y-lo x-hi, y-hi x-lo, y-hi x-hi).
+template <bool kClip01>
+__device__ __forceinline__ float blend8(const float4& lo, const float4& hi,
+                                        Weight wx, Weight wy, Weight wz,
+                                        const float* div255) {
+  const float c00 = lerp_rn(lo.x, lo.y, wx.a, wx.oma);
+  const float c01 = lerp_rn(lo.z, lo.w, wx.a, wx.oma);
+  const float c10 = lerp_rn(hi.x, hi.y, wx.a, wx.oma);
+  const float c11 = lerp_rn(hi.z, hi.w, wx.a, wx.oma);
+  const float c0 = lerp_rn(c00, c01, wy.a, wy.oma);
+  const float c1 = lerp_rn(c10, c11, wy.a, wy.oma);
+  const float res = lerp_rn(c0, c1, wz.a, wz.oma);
+  if (kClip01) return fminf(fmaxf(res, 0.0f), 1.0f);
+  return div255[static_cast<int>(fminf(fmaxf(rintf(res), 0.0f), 255.0f))];
 }
 
+// Block (((strip * (gx + 1)) + cx + 1) * col_splits + csub, cy + 1, cz + 1)
+// owns the (slice, row) pairs [strip * rpb, (strip + 1) * rpb) of cell
+// (cz, cy, cx), in slice-major order, and column units [csub * kThreads,
+// ...) of it. A cell spans at most t + 1 positions of an axis (the f32
+// weights may move an edge by one): rpb, strips and col_splits come from
+// kernels/clahe3d.py apply_launch, which sizes them for that.
+template <bool kClip01>
 __global__ void __launch_bounds__(kThreads)
-clahe3d_apply_kernel(const float* __restrict__ x, const float* __restrict__ luts,
-                     float* __restrict__ out, int H, int W, int gz, int gy,
-                     int gx, float inv_tz, float inv_th, float inv_tw,
-                     int clip01) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y, z = blockIdx.z;
-  if (c >= W) return;
-  const size_t at = (static_cast<size_t>(z) * H + y) * W + c;
-  const int v = level_of(x[at]);
-  const Axis az = axis_of(z, inv_tz, gz);
-  const Axis ay = axis_of(y, inv_th, gy);
-  const Axis ax = axis_of(c, inv_tw, gx);
+clahe3d_apply_kernel(const float* __restrict__ x,
+                     const float* __restrict__ luts, float* __restrict__ out,
+                     int Z, int H, int W, int gz, int gy, int gx, int tz,
+                     int th, int tw, float inv_tz, float inv_th, float inv_tw,
+                     int rpb, int col_splits, int vec_ok) {
+  __shared__ float4 quad[2][kBins];
+  __shared__ float div255[kBins];
+  const int csub = blockIdx.x % col_splits;
+  const int rest = blockIdx.x / col_splits;
+  const int cx = rest % (gx + 1) - 1, strip = rest / (gx + 1);
+  const int cy = static_cast<int>(blockIdx.y) - 1;
+  const int cz = static_cast<int>(blockIdx.z) - 1;
 
-  auto lut = [&](int zi, int yi, int xi) {
-    return __ldg(luts + ((static_cast<size_t>(zi) * gy + yi) * gx + xi) * kBins + v);
-  };
-  const float c00 = lerp_rn(lut(az.lo, ay.lo, ax.lo), lut(az.lo, ay.lo, ax.hi), ax.a);
-  const float c01 = lerp_rn(lut(az.lo, ay.hi, ax.lo), lut(az.lo, ay.hi, ax.hi), ax.a);
-  const float c10 = lerp_rn(lut(az.hi, ay.lo, ax.lo), lut(az.hi, ay.lo, ax.hi), ax.a);
-  const float c11 = lerp_rn(lut(az.hi, ay.hi, ax.lo), lut(az.hi, ay.hi, ax.hi), ax.a);
-  const float c0 = lerp_rn(c00, c01, ay.a);
-  const float c1 = lerp_rn(c10, c11, ay.a);
-  const float res = lerp_rn(c0, c1, az.a);
-  out[at] = clip01 ? fminf(fmaxf(res, 0.0f), 1.0f)
-                   : __fdiv_rn(fminf(fmaxf(rintf(res), 0.0f), 255.0f), 255.0f);
+  // this block's slices, rows and columns, by the blend's formula
+  const int z_lo = cell_start(cz, tz, inv_tz, 0, Z);
+  const int z_hi = cell_start(cz + 1, tz, inv_tz, 0, Z);
+  const int y_lo = cell_start(cy, th, inv_th, 0, H);
+  const int y_hi = cell_start(cy + 1, th, inv_th, 0, H);
+  const int x_lo = cell_start(cx, tw, inv_tw, 0, W);
+  const int x_hi = cell_start(cx + 1, tw, inv_tw, 0, W);
+  const int ny = y_hi - y_lo;
+  const int r_lo = strip * rpb;
+  const int r_hi = min(r_lo + rpb, (z_hi - z_lo) * ny);
+  if (r_lo >= r_hi || x_lo >= x_hi) return;
+  // column units: scalar head, float4 body (rows 16-byte aligned), scalar
+  // tail
+  const int a = vec_ok ? min((x_lo + 3) & ~3, x_hi) : x_hi;
+  const int e = vec_ok ? max(x_hi & ~3, a) : x_hi;
+  const int nh = a - x_lo, nb = (e - a) >> 2;
+  const int units = nh + nb + (x_hi - e);
+  const int u_lo = csub * kThreads;
+  if (u_lo >= units) return;
+  const int nu = min(units - u_lo, kThreads);
+
+  // the cell's 8 LUTs: the z-lo and the z-hi quad, one float4 each a level
+  {
+    const int z1 = max(cz, 0), z2 = min(cz + 1, gz - 1);
+    const int y1 = max(cy, 0), y2 = min(cy + 1, gy - 1);
+    const int x1 = max(cx, 0), x2 = min(cx + 1, gx - 1);
+    const int v = threadIdx.x;
+    auto lut = [&](int zi, int yi, int xi) {
+      return luts[((static_cast<size_t>(zi) * gy + yi) * gx + xi) * kBins + v];
+    };
+    quad[0][v] = make_float4(lut(z1, y1, x1), lut(z1, y1, x2),
+                             lut(z1, y2, x1), lut(z1, y2, x2));
+    quad[1][v] = make_float4(lut(z2, y1, x1), lut(z2, y1, x2),
+                             lut(z2, y2, x1), lut(z2, y2, x2));
+    if (!kClip01) div255[v] = __fdiv_rn(static_cast<float>(v), 255.0f);
+  }
+  __syncthreads();
+
+  // this thread's unit and first (slice, row) pair; it keeps the unit
+  // while it walks the pairs
+  const int rows_per_pass = kThreads / nu;
+  const int rrow = threadIdx.x / nu;
+  int r = r_lo + rrow;
+  if (rrow >= rows_per_pass || r >= r_hi) return;
+  const int u = u_lo + threadIdx.x - rrow * nu;
+  const bool vec = u >= nh && u < nh + nb;
+  const int c = u < nh ? x_lo + u : vec ? a + 4 * (u - nh) : e + (u - nh - nb);
+  Weight wx[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wx[k] = weight_of(c + k, inv_tw);
+  int z = z_lo + r / ny, y = y_lo + r % ny;
+  Weight wz = weight_of(z, inv_tz);
+  for (;;) {
+    const Weight wy = weight_of(y, inv_th);
+    const size_t at = (static_cast<size_t>(z) * H + y) * W + c;
+    if (vec) {
+      const float4 p = *reinterpret_cast<const float4*>(x + at);
+      const int l0 = level_of(p.x), l1 = level_of(p.y);
+      const int l2 = level_of(p.z), l3 = level_of(p.w);
+      float4 o;
+      o.x = blend8<kClip01>(quad[0][l0], quad[1][l0], wx[0], wy, wz, div255);
+      o.y = blend8<kClip01>(quad[0][l1], quad[1][l1], wx[1], wy, wz, div255);
+      o.z = blend8<kClip01>(quad[0][l2], quad[1][l2], wx[2], wy, wz, div255);
+      o.w = blend8<kClip01>(quad[0][l3], quad[1][l3], wx[3], wy, wz, div255);
+      *reinterpret_cast<float4*>(out + at) = o;
+    } else {
+      const int l = level_of(x[at]);
+      out[at] = blend8<kClip01>(quad[0][l], quad[1][l], wx[0], wy, wz, div255);
+    }
+    r += rows_per_pass;
+    if (r >= r_hi) break;
+    y += rows_per_pass;
+    if (y >= y_hi) {  // the next slice (or several, for short rows)
+      const int q = (y - y_lo) / ny;
+      z += q;
+      y -= q * ny;
+      wz = weight_of(z, inv_tz);
+    }
+  }
 }
 
 // Block index and skimage weight w = (p % k) / k of padded coordinate p.
-struct Cell {
+struct Region {
   int b;
   float w;
 };
 
-__device__ __forceinline__ Cell cell_of(int p, int k) {
+__device__ __forceinline__ Region region_of(int p, int k) {
   return {p / k, __fdiv_rn(static_cast<float>(p % k), static_cast<float>(k))};
 }
 
@@ -108,7 +210,8 @@ clahe3d_skimage_apply_kernel(const int* __restrict__ bins,
   if (c >= W0) return;
   const int pz = z0 + z, py = y0 + y, px = x0 + c;
   const int v = bins[(static_cast<size_t>(pz) * Hp + py) * Wp + px];
-  const Cell cz = cell_of(pz, kz), cy = cell_of(py, ky), cx = cell_of(px, kx);
+  const Region cz = region_of(pz, kz), cy = region_of(py, ky),
+               cx = region_of(px, kx);
   const float wz[2] = {__fsub_rn(1.0f, cz.w), cz.w};
   const float wy[2] = {__fsub_rn(1.0f, cy.w), cy.w};
   const float wx[2] = {__fsub_rn(1.0f, cx.w), cx.w};
@@ -129,16 +232,33 @@ clahe3d_skimage_apply_kernel(const int* __restrict__ bins,
 }  // namespace
 
 // x, out: [Z, H, W] f32; luts: [gz, gy, gx, 256] f32 (integer-valued for
-// the u8norm epilogue, fractional for clip01). inv_* are the host's
-// correctly rounded f32 reciprocals of the tile extents tz, th, tw.
+// the u8norm epilogue, fractional for clip01). (tz, th, tw) is the tile;
+// inv_* are the host's correctly rounded f32 reciprocals of it. rpb,
+// strips and col_splits: kernels/clahe3d.py apply_launch; vec_ok: x and
+// out rows are 16-byte aligned.
 extern "C" int mies_clahe3d_apply(const float* x, const float* luts,
                                   float* out, int Z, int H, int W, int gz,
-                                  int gy, int gx, float inv_tz, float inv_th,
-                                  float inv_tw, int clip01,
+                                  int gy, int gx, int tz, int th, int tw,
+                                  float inv_tz, float inv_th, float inv_tw,
+                                  int rpb, int strips, int col_splits,
+                                  int vec_ok, int clip01,
                                   cudaStream_t stream) {
-  const dim3 grid((W + kThreads - 1) / kThreads, H, Z);
-  clahe3d_apply_kernel<<<grid, kThreads, 0, stream>>>(
-      x, luts, out, H, W, gz, gy, gx, inv_tz, inv_th, inv_tw, clip01);
+  const long long blocks_x = static_cast<long long>(gx + 1) * col_splits *
+                             strips;
+  if (rpb < 1 || strips < 1 || col_splits < 1 || gy + 1 > kMaxGridYZ ||
+      gz + 1 > kMaxGridYZ || blocks_x > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(blocks_x), gy + 1, gz + 1);
+  if (clip01) {
+    clahe3d_apply_kernel<true><<<grid, kThreads, 0, stream>>>(
+        x, luts, out, Z, H, W, gz, gy, gx, tz, th, tw, inv_tz, inv_th, inv_tw,
+        rpb, col_splits, vec_ok);
+  } else {
+    clahe3d_apply_kernel<false><<<grid, kThreads, 0, stream>>>(
+        x, luts, out, Z, H, W, gz, gy, gx, tz, th, tw, inv_tz, inv_th, inv_tw,
+        rpb, col_splits, vec_ok);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

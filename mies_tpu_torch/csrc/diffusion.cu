@@ -1,15 +1,36 @@
 // K9 (Perona-Malik) and K10 (SRAD): explicit diffusion steps on [B, H, W]
-// float32, ping-ponged between two buffers by the caller.
+// float32, several steps a launch on a tile and its halo, ping-ponged
+// between two buffers by the caller.
 //
 // Replace mies_tpu/kernels/diffusion.py:_pm_kernel and :_srad_kernel,
 // which kept a whole slice in VMEM across every iteration; a 512^2 f32
 // slice (1 MB) does not fit an SM's 228 KB.
 //
-// K9: one step per launch, one thread per output pixel, a 32 x 8 block, the
-// stencil read directly; forward differences, conduction g (option 1:
-// exp(-(d/k)^2), 2: 1/(1 + (d/k)^2)), flux ((gamma * 1) * g) * d,
-// backward-difference divergence, zero flux across the border;
-// out = v + (div0 + div1).
+// K9: up to kPmSteps steps per launch on a tile of (32 - 2 kPmSteps)
+// columns x (kPmRows - 2 kPmSteps) rows. One step: forward differences,
+// conduction g (option 1: exp(-(d/k)^2), 2: 1/(1 + (d/k)^2)), flux
+// ((gamma * 1) * g) * d, backward-difference divergence, zero flux across
+// the image's border; out = v + ((f0 - f0[-W]) + (f1 - f1[-1])). A step
+// reads one pixel each way (f0[i] reads v[i + W], the divergence f0[i - W],
+// which reads v[i - W]), so a launch of kPmSteps steps loads its tile with
+// a halo of kPmSteps on every side: the window, 32 columns x kPmRows rows,
+// moved inside the image where it would cross an edge. The window's edges
+// take the image border's rule (the flux past the last row / column is the
+// flux of a zero difference, before the first it is 0): right where the
+// window meets the image's edge, wrong elsewhere, and the wrong values
+// reach one pixel inward per step, so the tile stays exact. One warp owns
+// a window, held in registers, one column a lane: the vertical neighbours
+// are the lane's own registers, the horizontal ones a shuffle away. No
+// shared memory and no barrier; each position's two fluxes once per step
+// (two expf a pixel and step for option 1, not four). Only the tile is
+// written back. Bound: operations (18 f32 operations per pixel and step,
+// counting the accurate expf as one); the bytes the function needs are the
+// image in and out once. The window costs (32 kPmRows) / ((32 - 2
+// kPmSteps) (kPmRows - 2 kPmSteps)) of the tile's work per step (1.51 at 3
+// steps and 32 rows). At w8's 6 steps, 3 steps a launch and 32 rows ran
+// faster on an H100 than 2 or 6 steps and the other row counts tried, and
+// ahead of a 64 x 64 tile in shared memory walked down its columns
+// (PERF.md).
 //
 // K10: up to kSrSteps steps per launch on a 64 x 64 tile held in shared
 // memory. One step: the instantaneous coefficient of variation of Yu & Acton
@@ -38,9 +59,10 @@
 // Every product, sum and quotient is rounded on its own (_rn intrinsics, no
 // --use_fast_math: expf is the accurate one) in the plain version's order.
 //
-// Bound: operations (K9 about 18 f32 operations per pixel and step, K10 42
-// counting one conduction per pixel); the bytes the function needs are the
-// image in and out once. K10 spends them on the window: ((64 + 3 kSrSteps) /
+// Bound: operations (K9 18 f32 operations per pixel and step counting the
+// accurate expf as one, K10 42 counting one conduction per pixel); the bytes
+// the function needs are the image in and out once. K10 spends them on the
+// window: ((64 + 3 kSrSteps) /
 // 64)^2 of the tile's work per step (1.20 at 2 steps, 1.41 at 4), five IEEE
 // divisions per conduction. 2 steps a launch and 8 runs of rows per column
 // (560 threads, three blocks an SM) ran faster on an H100 than 4 or 8 steps
@@ -50,38 +72,110 @@
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 8;
+// K9's steps per launch (kernels/diffusion.py PM_STEPS, and PM_HALO, which
+// the wrapper passes and the launch checks; tests/test_torch_restoration.py
+// pins it)
+constexpr int kPmSteps = 3;
+constexpr int kPmRows = 32;                       // window rows a lane holds
+constexpr int kPmTileH = kPmRows - 2 * kPmSteps;  // the rows a warp writes
+constexpr int kPmTileW = 32 - 2 * kPmSteps;       // the columns it writes
+constexpr int kPmWarps = 4;                       // warps per block
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kPmSteps >= 1 && kPmTileH >= 1 && kPmTileW >= 1, "K9 window");
 
-__device__ __forceinline__ float pm_flux(float d, float inv_k2, float gamma,
-                                         int option) {
+template <int kOption>
+__device__ __forceinline__ float pm_flux(float d, float inv_k2, float gamma) {
   const float d2 = __fmul_rn(d, d);
-  const float g = option == 1
+  const float g = kOption == 1
       ? expf(__fmul_rn(-d2, inv_k2))
       : __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(d2, inv_k2)));
   return __fmul_rn(__fmul_rn(gamma, g), d);
 }
 
-__global__ void __launch_bounds__(kTileW * kTileH)
-pm_kernel(const float* __restrict__ in, float* __restrict__ out, int H, int W,
-          float inv_k2, float gamma, int option) {
-  const int y = blockIdx.y * kTileH + threadIdx.y;
-  const int x = blockIdx.x * kTileW + threadIdx.x;
-  if (y >= H || x >= W) return;
-  const size_t base = static_cast<size_t>(blockIdx.z) * H * W;
-  const float* v = in + base;
-  const int i = y * W + x;
-  const float c = v[i];
-  const float f0 = pm_flux(y < H - 1 ? __fsub_rn(v[i + W], c) : 0.0f,
-                           inv_k2, gamma, option);
-  const float f0m = y > 0
-      ? pm_flux(__fsub_rn(c, v[i - W]), inv_k2, gamma, option) : 0.0f;
-  const float f1 = pm_flux(x < W - 1 ? __fsub_rn(v[i + 1], c) : 0.0f,
-                           inv_k2, gamma, option);
-  const float f1m = x > 0
-      ? pm_flux(__fsub_rn(c, v[i - 1]), inv_k2, gamma, option) : 0.0f;
-  out[base + i] = __fadd_rn(c, __fadd_rn(__fsub_rn(f0, f0m),
-                                         __fsub_rn(f1, f1m)));
+// `steps` steps of a lane's column of the window, v[i] its row i. The
+// window's top and bottom rows take the image border's rule (f0[-1] = 0,
+// and the flux past the last row is the flux of a zero difference); kShort
+// (an image shorter than the window) puts the last rule at the image's
+// last row, window row `bot`, and the rows below it never reach the image.
+// The rows are unrolled (the window lives in registers), the steps are not
+// (the code stays in the instruction cache).
+template <int kOption, bool kShort>
+__device__ __forceinline__ void pm_steps(float (&v)[kPmRows], int steps,
+                                         int lane, bool col_edge, int bot,
+                                         float zf, float inv_k2,
+                                         float gamma) {
+  for (int s = 0; s < steps; ++s) {
+    float f0p = 0.0f;  // f0 of the row above
+#pragma unroll
+    for (int i = 0; i < kPmRows; ++i) {
+      // the horizontal flux from the right neighbour's column (the last
+      // lane's own: a zero difference), f1[-1] from the left one's
+      const float vr = __shfl_down_sync(kFull, v[i], 1);
+      const float f1 = col_edge
+          ? zf : pm_flux<kOption>(__fsub_rn(vr, v[i]), inv_k2, gamma);
+      const float f1u = __shfl_up_sync(kFull, f1, 1);
+      const float f1m = lane == 0 ? 0.0f : f1u;
+      float f0 = zf;
+      if (i < kPmRows - 1 && (!kShort || i != bot)) {
+        f0 = pm_flux<kOption>(__fsub_rn(v[i + 1], v[i]), inv_k2, gamma);
+      }
+      v[i] = __fadd_rn(v[i], __fadd_rn(__fsub_rn(f0, f0p),
+                                       __fsub_rn(f1, f1m)));
+      f0p = f0;
+    }
+  }
+}
+
+// Warp (blockIdx.x * kPmWarps + warp, blockIdx.y, slice b) of the grid of
+// kPmTileW x kPmTileH tiles: `steps` steps of its tile on a window of 32
+// columns x kPmRows rows in registers, one column a lane.
+template <int kOption, bool kShort>
+__global__ void __launch_bounds__(32 * kPmWarps)
+pm_tile(const float* __restrict__ in, float* __restrict__ out, int H, int W,
+        int steps, float inv_k2, float gamma) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx0 = (blockIdx.x * kPmWarps + warp) * kPmTileW;
+  const int ty0 = blockIdx.y * kPmTileH;
+  if (tx0 >= W) return;  // the whole warp
+  // the window: the tile and kPmSteps on every side, moved inside the
+  // image where it would cross an edge (the edge then is the image's)
+  const int wx0 = max(min(tx0 - kPmSteps, W - 32), 0);
+  const int wy0 = max(min(ty0 - kPmSteps, H - kPmRows), 0);
+  const int c = wx0 + lane;
+  const size_t slice = static_cast<size_t>(blockIdx.z) * H * W;
+  float v[kPmRows];
+#pragma unroll
+  for (int i = 0; i < kPmRows; ++i) {
+    const int r = wy0 + i;
+    v[i] = c < W && (!kShort || r < H)
+        ? in[slice + static_cast<size_t>(r) * W + c] : 0.0f;
+  }
+  const bool col_edge = c == W - 1;
+  const float zf = pm_flux<kOption>(0.0f, inv_k2, gamma);
+  pm_steps<kOption, kShort>(v, steps, lane, col_edge, H - 1 - wy0, zf,
+                            inv_k2, gamma);
+  if (c < tx0 || c >= min(tx0 + kPmTileW, W)) return;
+  const int y_end = min(ty0 + kPmTileH, H);
+#pragma unroll
+  for (int i = 0; i < kPmRows; ++i) {
+    const int r = wy0 + i;
+    if (r >= ty0 && r < y_end) {
+      out[slice + static_cast<size_t>(r) * W + c] = v[i];
+    }
+  }
+}
+
+template <int kOption>
+void launch_pm(dim3 grid, bool short_, const float* in, float* out, int H,
+               int W, int steps, float inv_k2, float gamma,
+               cudaStream_t stream) {
+  if (short_) {
+    pm_tile<kOption, true><<<grid, 32 * kPmWarps, 0, stream>>>(
+        in, out, H, W, steps, inv_k2, gamma);
+  } else {
+    pm_tile<kOption, false><<<grid, 32 * kPmWarps, 0, stream>>>(
+        in, out, H, W, steps, inv_k2, gamma);
+  }
 }
 
 // --- K10 ---------------------------------------------------------------------
@@ -267,22 +361,29 @@ srad_chunk(const float* __restrict__ in, float* __restrict__ out, int H,
   }
 }
 
-dim3 grid_of(int B, int H, int W) {
-  return dim3((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-}
-
 }  // namespace
 
-// One Perona-Malik step: in, out [B, H, W] f32 (distinct buffers);
-// inv_k2 = f32(1 / kappa^2), gamma = f32(gamma), option 1 or 2.
+// Perona-Malik steps 1 .. steps (1 <= steps <= kPmSteps): in, out [B, H, W]
+// f32 (distinct buffers); halo: the wrapper's, which must be the one the
+// kernel loads; inv_k2 = f32(1 / kappa^2), gamma = f32(gamma), option 1 or
+// 2.
 extern "C" int mies_perona_malik(const float* in, float* out, int B, int H,
-                                 int W, float inv_k2, float gamma, int option,
+                                 int W, int steps, int halo, float inv_k2,
+                                 float gamma, int option,
                                  cudaStream_t stream) {
-  if (option != 1 && option != 2) {
+  if ((option != 1 && option != 2) || halo != kPmSteps || steps < 1 ||
+      steps > kPmSteps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  pm_kernel<<<grid_of(B, H, W), dim3(kTileW, kTileH), 0, stream>>>(
-      in, out, H, W, inv_k2, gamma, option);
+  const int strips = (W + kPmTileW - 1) / kPmTileW;
+  const dim3 grid((strips + kPmWarps - 1) / kPmWarps,
+                  (H + kPmTileH - 1) / kPmTileH, B);
+  const bool short_ = H < kPmRows;
+  if (option == 1) {
+    launch_pm<1>(grid, short_, in, out, H, W, steps, inv_k2, gamma, stream);
+  } else {
+    launch_pm<2>(grid, short_, in, out, H, W, steps, inv_k2, gamma, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,9 +58,10 @@ _SIGNATURES = {
     "mies_nl_means": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     "mies_tv_chunk": (*(_P,) * 7, _I, _I, _I, _I, _I, _F, _I, _P),
     "mies_tv_energy": (*(_P,) * 6, _I, _I, _I, _I, _F, _F, _F, _P),
-    "mies_perona_malik": (_P, _P, _I, _I, _I, _F, _F, _I, _P),
+    "mies_perona_malik": (_P, _P, *(_I,) * 5, _F, _F, _I, _P),
     "mies_srad": (_P, _P, *(_I,) * 7, _F, _F, _F, _F, _P),
-    "mies_clahe3d_apply": (_P, _P, _P, *(_I,) * 6, _F, _F, _F, _I, _P),
+    "mies_clahe3d_apply": (_P, _P, _P, *(_I,) * 9, _F, _F, _F, *(_I,) * 5,
+                           _P),
     "mies_clahe3d_skimage_apply": (_P, _P, _P, *(_I,) * 14, _P),
     "mies_unsharp_gauss": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _F, _P),
     "mies_bilateral_unsharp": (_P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _I, _F,

@@ -28,7 +28,12 @@ from mies_tpu_torch.ops import histogram as H
 from mies_tpu_torch.ops import volume3d as V
 
 NBINS = H.NBINS
-MAX_GRID_DIM = 65535  # the kernels put H (or H0) and Z (Z0) on grid y and z
+MAX_GRID_DIM = 65535  # K8s puts H0 and Z0 on grid y and z; K8 its cells
+MAX_GRID_X = 2**31 - 1
+THREADS = 256  # csrc/clahe3d.cu kThreads
+# about a K8 block's share of a cell: 16,384 ran faster than 8,192 and
+# 32,768 at [256, 512, 512] on an H100 (PERF.md)
+PIXELS_PER_BLOCK = 16384
 
 
 def _check_launch_dims(z: int, h: int, what: str) -> None:
@@ -38,6 +43,27 @@ def _check_launch_dims(z: int, h: int, what: str) -> None:
 
 
 # --- K8: trilinear LUT apply ------------------------------------------------
+
+
+def apply_launch(shape, grid, aligned: bool) -> tuple[int, int, int]:
+    """K8's blocks: (rows per block, strips per cell, column chunks per
+    cell). A block owns up to ``rpb`` of its cell's (slice, row) pairs and
+    up to THREADS of its column units (four columns each on 16-byte aligned
+    rows, else one). A cell spans at most t + 1 positions of an axis (the
+    f32 weights may move an edge by one), so ``strips`` covers (tz + 1)
+    (th + 1) pairs and the chunks (tw + 1) columns; the kernel finds each
+    cell's own edges by the blend's formula and leaves the rest of its
+    blocks idle. The grid is ((gx + 1) col_splits strips, gy + 1, gz + 1)."""
+    (gz, gy, gx), (tz, th, tw) = grid, V.tile_shape_3d(shape, grid)
+    rpb = max(1, PIXELS_PER_BLOCK // (tw + 1))
+    strips = -(-((tz + 1) * (th + 1)) // rpb)
+    max_units = (tw + 1) // 4 + 8 if aligned else tw + 1
+    col_splits = -(-max_units // THREADS)
+    if (gx + 1) * col_splits * strips > MAX_GRID_X or max(gy, gz) + 1 > \
+            MAX_GRID_DIM or (tz + 1) * (th + 1) > MAX_GRID_X:
+        raise ValueError(f"clahe3d_apply_lut: volume {tuple(shape)} at grid "
+                         f"{tuple(grid)} exceeds the kernel's launch grid")
+    return rpb, strips, col_splits
 
 
 def clahe3d_apply_lut_plain(x: torch.Tensor, luts: torch.Tensor, grid,
@@ -68,13 +94,14 @@ def clahe3d_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid,
     KC._same_device(luts, x, "luts")
     if x.device.type == "cpu":
         return clahe3d_apply_lut_plain(x, luts, grid, finalize)
-    z, h, w = x.shape
-    _check_launch_dims(z, h, "clahe3d_apply_lut")
     out = torch.empty_like(x)
+    aligned = (x.data_ptr() | out.data_ptr()) % 16 == 0 and x.shape[2] % 4 == 0
+    launch = apply_launch(x.shape, grid, aligned)
     inv = [float(np.float32(1.0) / np.float32(t)) for t in (tz, th, tw)]
     _build.launch("clahe3d_apply", "mies_clahe3d_apply", x.device,
-                  x.data_ptr(), luts.data_ptr(), out.data_ptr(), z, h, w,
-                  *grid, *inv, KC._FINALIZE[finalize])
+                  x.data_ptr(), luts.data_ptr(), out.data_ptr(), *x.shape,
+                  *grid, tz, th, tw, *inv, *launch, int(aligned),
+                  KC._FINALIZE[finalize])
     return out
 
 

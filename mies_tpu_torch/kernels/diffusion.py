@@ -1,8 +1,9 @@
 """Perona-Malik diffusion and SRAD on the card: K9 and K10
 (``csrc/diffusion.cu``).
 
-For a CUDA tensor ``anisotropic_diffusion_cuda`` runs ``niter`` K9
-launches, one per iteration, and ``srad_cuda`` runs ``niter`` SRAD steps in
+For a CUDA tensor ``anisotropic_diffusion_cuda`` runs ``niter`` Perona-
+Malik steps in ``pm_launches_per_call(niter)`` K9 launches of at most
+``PM_STEPS`` steps each, and ``srad_cuda`` runs ``niter`` SRAD steps in
 ``launches_per_call(niter)`` K10 launches of at most ``STEPS`` steps each
 (the last one shorter), both ping-ponging two buffers (the input is never
 written); for a CPU tensor each runs the plain ``ops.restoration`` op. Any
@@ -28,11 +29,38 @@ STEPS = 2
 # it). The launch passes it and csrc/diffusion.cu refuses any other than the
 # halo it loads.
 HALO = (STEPS, 2 * STEPS)
+# Perona-Malik steps per K9 launch, csrc/diffusion.cu kPmSteps: 3 ran
+# faster than 2 and 6 at w8's 6 steps on an H100 (PERF.md)
+PM_STEPS = 3
+# the halo a K9 warp loads on every side of its tile: a step reads one
+# pixel each way (tests/test_torch_restoration.py pins it). The launch
+# passes it and csrc/diffusion.cu refuses any other than the halo it loads.
+PM_HALO = PM_STEPS
 
 
 def launches_per_call(niter: int) -> int:
     """K10 launches of one ``srad_cuda`` call on the card."""
     return -(-int(niter) // STEPS)
+
+
+def pm_launches_per_call(niter: int) -> int:
+    """K9 launches of one ``anisotropic_diffusion_cuda`` call on the card."""
+    return -(-int(niter) // PM_STEPS)
+
+
+def _chunks(batch: torch.Tensor, niter: int, steps: int, launch
+            ) -> torch.Tensor:
+    """``niter`` steps in launches of at most ``steps`` steps each:
+    ``launch(src, dst, k, n)`` runs steps k .. k + n - 1 from src into dst,
+    alternating two buffers (the input is never written)."""
+    bufs = (torch.empty_like(batch),
+            torch.empty_like(batch) if niter > steps else None)
+    src = batch
+    for c, k in enumerate(range(0, niter, steps)):
+        dst = bufs[c % 2]
+        launch(src, dst, k, min(steps, niter - k))
+        src = dst
+    return src
 
 
 def anisotropic_diffusion_cuda(
@@ -42,22 +70,20 @@ def anisotropic_diffusion_cuda(
     gamma: float = 0.1,
     option: int = 1,
 ) -> torch.Tensor:
-    """K9: ``niter`` Perona-Malik steps of [B, H, W] float32."""
+    """K9: ``niter`` Perona-Malik steps of [B, H, W] float32, PM_STEPS a
+    launch."""
     niter, option = int(niter), int(option)
     R.check_pm_args(niter, option)
     _build.check_tensor(batch, "anisotropic_diffusion: batch")
     if batch.device.type == "cpu":
         return R.anisotropic_diffusion(batch, niter, kappa, gamma, option)
     inv_k2, g32 = R.pm_constants(kappa, gamma)
-    B, h, w = batch.shape
-    bufs = (torch.empty_like(batch), torch.empty_like(batch))
-    src = batch
-    for t in range(niter):  # src -> dst, alternating two buffers
+
+    def launch(src, dst, _, n):
         _build.launch("perona_malik", "mies_perona_malik", batch.device,
-                      src.data_ptr(), bufs[t % 2].data_ptr(), B, h, w, inv_k2,
-                      g32, option)
-        src = bufs[t % 2]
-    return src
+                      src.data_ptr(), dst.data_ptr(), *batch.shape, n,
+                      PM_HALO, inv_k2, g32, option)
+    return _chunks(batch, niter, PM_STEPS, launch)
 
 
 def srad_cuda(
@@ -85,19 +111,11 @@ def _srad_consts(dt, q0, rho, eps) -> tuple[float, ...]:
 
 def _srad_chunks(batch: torch.Tensor, t0: int, niter: int,
                  consts: tuple[float, ...]) -> torch.Tensor:
-    """Steps t0 .. t0 + niter - 1 in K10 launches of at most STEPS steps,
-    src -> dst, alternating two buffers."""
-    B, h, w = batch.shape
-    bufs = (torch.empty_like(batch),
-            torch.empty_like(batch) if niter > STEPS else None)
-    src = batch
-    for c, k in enumerate(range(0, niter, STEPS)):
-        dst = bufs[c % 2]
+    """Steps t0 .. t0 + niter - 1 in K10 launches of at most STEPS steps."""
+    def launch(src, dst, k, n):
         _build.launch("srad", "mies_srad", batch.device, src.data_ptr(),
-                      dst.data_ptr(), B, h, w, t0 + k, min(STEPS, niter - k),
-                      *HALO, *consts)
-        src = dst
-    return src
+                      dst.data_ptr(), *batch.shape, t0 + k, n, *HALO, *consts)
+    return _chunks(batch, niter, STEPS, launch)
 
 
 def srad_step(batch: torch.Tensor, t: int, dt: float = 0.15, q0: float = 1.0,

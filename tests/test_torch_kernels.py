@@ -476,10 +476,43 @@ def test_k9_on_card_matches_plain(cuda_device, shape, option):
     x = _on(cuda_device, shape, 8)
     _build.reset_launches()
     got = KD.anisotropic_diffusion_cuda(x, 6, 0.05, 0.2, option)
-    assert _build.LAUNCHES["perona_malik"] == 6
+    assert _build.LAUNCHES["perona_malik"] == KD.pm_launches_per_call(6)
     want = TR.anisotropic_diffusion(x, 6, 0.05, 0.2, option)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 1), (2, 7, 5), (1, 251, 333),
+                                   (32, 512, 512)])
+@pytest.mark.parametrize("niter", [1, 2, 6, 7, 15])
+@pytest.mark.parametrize("option", [1, 2])
+def test_k9_on_card_bit_equal(cuda_device, shape, niter, option):
+    """K9's chunks of PM_STEPS steps, each warp a window of 32 columns x
+    32 rows in registers that writes its inner tile (a halo of PM_HALO on
+    every side; the window moved inside the image at its edges): bit-equal
+    to the plain Perona-Malik at images smaller than a window or its halo,
+    at tile edges, and at step counts that are not a multiple of PM_STEPS;
+    ceil(niter / PM_STEPS) launches. kappa 0.3: the noise's differences
+    pass (w8's 0.05 stops most of them)."""
+    x = _on(cuda_device, shape, 8)
+    _build.reset_launches()
+    got = KD.anisotropic_diffusion_cuda(x, niter, 0.3, 0.2, option)
+    assert _build.LAUNCHES["perona_malik"] == KD.pm_launches_per_call(niter)
+    assert torch.equal(got, TR.anisotropic_diffusion(x, niter, 0.3, 0.2,
+                                                     option))
+
+
+@pytest.mark.cuda
+def test_k9_refuses_a_halo_it_does_not_load(cuda_device, monkeypatch):
+    """kernels/diffusion.py PM_HALO (pinned on the CPU by
+    test_pm_chunk_halo_covers_its_steps) is passed to the launch;
+    csrc/diffusion.cu refuses any other than the halo it loads."""
+    x = _on(cuda_device, (1, 80, 96), 12)
+    for halo in (KD.PM_HALO - 1, KD.PM_HALO + 1):
+        monkeypatch.setattr(KD, "PM_HALO", halo)
+        with pytest.raises(RuntimeError, match="did not launch"):
+            KD.anisotropic_diffusion_cuda(x, 5)
 
 
 @pytest.mark.cuda

@@ -275,6 +275,53 @@ def test_srad_launches_per_call(niter, launches):
     assert KD.launches_per_call(niter) == launches
 
 
+@pytest.mark.parametrize("where", ["top-left", "inside", "bottom-right"])
+def test_pm_chunk_halo_covers_its_steps(where):
+    """K9 runs kernels/diffusion.py PM_STEPS Perona-Malik steps on a tile
+    and its halo of PM_HALO pixels on every side: those steps on the window
+    (the image's zero-flux border rule at the window's edges, wrong values
+    where the window ends inside the image) equal, on the tile, the same
+    steps on the whole slice, in float32 and float64. Inside the image a
+    halo one pixel narrower on either side does not. The launch passes
+    PM_HALO, and csrc/diffusion.cu refuses any other than the one it loads
+    (test_k9_refuses_a_halo_it_does_not_load, on the card)."""
+    x = _t(np.random.default_rng(7).random((1, 40, 52)).astype(np.float32))
+    th, tw = 10, 12
+    y0, x0 = {"top-left": (0, 0), "inside": (15, 20),
+              "bottom-right": (40 - th, 52 - tw)}[where]
+    # kappa 0.5: the noise's differences pass (at w8's 0.05 they stop
+    # nearly all flux, and a narrower halo would change nothing)
+    inv_k2, g32 = TR.pm_constants(0.5, 0.2)
+
+    def run(img):
+        for _ in range(KD.PM_STEPS):
+            img = TR._pm_step(img, inv_k2, g32, 1)
+        return img
+
+    def on_window(img, lo, hi):
+        wy, wx = max(y0 - lo, 0), max(x0 - lo, 0)
+        got = run(img[:, wy:min(y0 + th + hi, 40), wx:min(x0 + tw + hi, 52)])
+        return got[:, y0 - wy:y0 - wy + th, x0 - wx:x0 - wx + tw]
+
+    halo = KD.PM_HALO
+    assert halo == KD.PM_STEPS
+    for img in (x, x.double()):
+        whole = run(img)[:, y0:y0 + th, x0:x0 + tw]
+        assert torch.equal(on_window(img, halo, halo), whole)
+        if where == "inside":
+            assert not torch.equal(on_window(img, halo, halo - 1), whole)
+            assert not torch.equal(on_window(img, halo - 1, halo), whole)
+
+
+@pytest.mark.parametrize("niter,launches", [(1, 1), (2, 1), (3, 1), (6, 2),
+                                            (7, 3), (15, 5)])
+def test_pm_launches_per_call(niter, launches):
+    """ceil(niter / PM_STEPS) K9 launches (at the shipped 3 steps each):
+    w8's 6 steps in 2."""
+    assert KD.PM_STEPS == 3
+    assert KD.pm_launches_per_call(niter) == launches
+
+
 # --- box blur, Lee ------------------------------------------------------------
 
 

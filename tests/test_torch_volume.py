@@ -78,6 +78,76 @@ def test_k8_gather_bit_equals_jax_gather(rng, grid, shape):
     np.testing.assert_array_equal(out, ref)
 
 
+def _cell_start(c: int, t: int, inv: np.float32, lo: int, hi: int) -> int:
+    """csrc/cells.cuh cell_start in numpy float32 (each product and
+    difference rounded once, as the kernel's _rn intrinsics)."""
+    def cell(p):
+        return int(np.floor(np.float32(p) * inv - np.float32(0.5)))
+    p = min(max(c * t + (t + 1) // 2, lo), hi)
+    while p > lo and cell(p - 1) >= c:
+        p -= 1
+    while p < hi and cell(p) < c:
+        p += 1
+    return p
+
+
+def _k8_units(x_lo: int, x_hi: int, aligned: bool) -> list[list[int]]:
+    """The columns of each of a cell's column units, as csrc/clahe3d.cu
+    assigns them: scalar head, four columns a unit on aligned rows, scalar
+    tail."""
+    a = min((x_lo + 3) & ~3, x_hi) if aligned else x_hi
+    e = max(x_hi & ~3, a) if aligned else x_hi
+    return ([[c] for c in range(x_lo, a)]
+            + [[c, c + 1, c + 2, c + 3] for c in range(a, e, 4)]
+            + [[c] for c in range(e, x_hi)])
+
+
+@pytest.mark.parametrize("shape,grid", [
+    ((32, 512, 512), (4, 8, 8)), ((256, 512, 512), (4, 8, 8)),
+    ((12, 96, 160), (3, 3, 5)), ((12, 96, 165), (3, 3, 5)),
+    ((7, 33, 165), (1, 3, 5)), ((6, 20, 21), (2, 1, 3)),
+    ((5, 9, 14), (5, 9, 7)), ((9, 15, 26), (3, 5, 2))])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k8_blocks_cover_every_voxel_once(shape, grid, aligned):
+    """K8's blocks (kernels/clahe3d.py apply_launch, the cell edges by the
+    kernel's own f32 formula) cover every voxel exactly once, and each voxel
+    blends the tiles ops.volume3d._axis_weights gives it. The partition is
+    the product of one cell partition per axis, a cell's (slice, row) pairs
+    cut into `strips` runs of `rpb`, and its column units cut into
+    `col_splits` chunks of THREADS: each is checked whole."""
+    rpb, strips, col_splits = K3D.apply_launch(shape, grid, aligned)
+    extents = []
+    for axis, (n, g) in enumerate(zip(shape, grid)):
+        t = n // g
+        inv = np.float32(1.0) / np.float32(t)
+        edges = [_cell_start(c, t, inv, 0, n) for c in range(-1, g + 1)]
+        lo, hi, _ = TV._axis_weights(n, t, g, "cpu")
+        seen = np.zeros(n, np.int64)
+        for c in range(-1, g):  # block slot c + 1
+            p0, p1 = edges[c + 1], edges[c + 2]
+            seen[p0:p1] += 1
+            assert (lo[p0:p1] == max(c, 0)).all()
+            assert (hi[p0:p1] == min(c + 1, g - 1)).all()
+            assert p1 - p0 <= t + 1
+            if axis == 2:
+                units = _k8_units(p0, p1, aligned)
+                assert len(units) <= col_splits * K3D.THREADS
+                assert sorted(sum(units, [])) == list(range(p0, p1))
+        assert (seen == 1).all(), (axis, edges)
+        extents.append(np.diff(edges))
+    assert extents[0].max() * extents[1].max() <= strips * rpb
+    assert rpb * (shape[2] // grid[2] + 1) <= K3D.PIXELS_PER_BLOCK
+
+
+def test_k8_launch_takes_any_z_and_refuses_a_grid_past_the_card():
+    """Z is no grid dimension of K8's launch (only the grid's cells are):
+    70,000 slices launch; 70,000 tiles on one axis do not."""
+    rpb, strips, _ = K3D.apply_launch((70000, 2, 4), (2, 1, 1), True)
+    assert strips * rpb >= (35000 + 1) * 3
+    with pytest.raises(ValueError, match="launch grid"):
+        K3D.apply_launch((1, 70000, 4), (1, 70000, 1), True)
+
+
 def test_k8_opencv_mode_matches_pallas_blocks8(rng):
     """The global-cell fractions of _blocks8_kernel's opencv mode, on the
     half-tile-shifted cells of the reference's selection form, within the
@@ -386,6 +456,68 @@ def test_k1_k8_on_card_equal_plain(cuda_device, grid, shape, convention, clip):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["clahe3d_apply"] == 1
     assert torch.equal(got, TV.clahe3d(vol, clip, grid, convention))
+
+
+def _k8_inputs(device, shape, grid, finalize, seed):
+    """A volume in [0, 1] and LUTs: integer levels for u8norm, fractions
+    around [0, 1] (the clip at work) for clip01."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    vol = torch.rand(shape, generator=g, device=device)
+    luts = torch.rand((*grid, 256), generator=g, device=device)
+    luts = (torch.round(luts * 255.0) if finalize == "u8norm"
+            else luts * 1.2 - 0.1)
+    return vol, luts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,grid", [
+    ((32, 512, 512), (4, 8, 8)), ((256, 512, 512), (4, 8, 8)),
+    ((12, 96, 160), (3, 3, 5)), ((12, 96, 165), (3, 3, 5)),
+    ((7, 33, 165), (1, 3, 5)), ((6, 20, 21), (2, 1, 3)),
+    ((5, 9, 14), (5, 9, 7))])
+@pytest.mark.parametrize("finalize", ["u8norm", "clip01"])
+def test_k8_on_card_equals_plain(cuda_device, shape, grid, finalize):
+    """K8's cell blocks: bit-equal to the plain gather at the main paths'
+    shapes, at widths that are no multiple of 4 (scalar columns), on a
+    single-tile axis (g = 1) and at tiles of one voxel; one launch."""
+    vol, luts = _k8_inputs(cuda_device, shape, grid, finalize, 3)
+    _build.reset_launches()
+    got = K3D.clahe3d_apply_lut(vol, luts, grid, finalize)
+    assert _build.LAUNCHES["clahe3d_apply"] == 1
+    assert torch.equal(got, K3D.clahe3d_apply_lut_plain(vol, luts, grid,
+                                                        finalize))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("finalize", ["u8norm", "clip01"])
+def test_k8_on_card_takes_unaligned_rows_and_any_z(cuda_device, finalize):
+    """Rows that are not 16-byte aligned (a volume one float into its
+    storage) run the scalar columns; 65,540 slices, more than a grid
+    dimension of the card takes, launch."""
+    shape, grid = (8, 24, 64), (2, 3, 4)
+    vol, luts = _k8_inputs(cuda_device, shape, grid, finalize, 4)
+    off = torch.empty(vol.numel() + 1, device=cuda_device)[1:].view(shape)
+    off.copy_(vol)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    want = K3D.clahe3d_apply_lut_plain(vol, luts, grid, finalize)
+    assert torch.equal(K3D.clahe3d_apply_lut(off, luts, grid, finalize), want)
+    shape, grid = (65540, 2, 4), (2, 1, 1)
+    vol, luts = _k8_inputs(cuda_device, shape, grid, finalize, 5)
+    assert torch.equal(K3D.clahe3d_apply_lut(vol, luts, grid, finalize),
+                       K3D.clahe3d_apply_lut_plain(vol, luts, grid, finalize))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("convention,clip", [("opencv", 2.0),
+                                             ("fraction", 0.01)])
+def test_clahe3d_volume_on_card_equals_plain_at_main_path_shapes(
+        cuda_device, convention, clip):
+    """clahe3d_volume (K1 -> LUT build -> K8) at w6's [32, 512, 512] and
+    the CT volume's [256, 512, 512], grid (4, 8, 8)."""
+    for shape in ((32, 512, 512), (256, 512, 512)):
+        vol = _k8_inputs(cuda_device, shape, (4, 8, 8), "u8norm", 6)[0]
+        assert torch.equal(K3D.clahe3d_volume(vol, clip, (4, 8, 8), convention),
+                           TV.clahe3d(vol, clip, (4, 8, 8), convention))
 
 
 @pytest.mark.cuda
