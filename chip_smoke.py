@@ -10,15 +10,17 @@ Phases, one printed line each (or a few):
                at the main paths' shapes ([32, 512, 512]: the flagship's
                8x8 tiles (K1 to the OpenCV LUTs, K1's float counts, K2
                in both epilogues), the skimage config's 8x8 regions of
-               64x64; the
+               64x64 (K6 also at nbins 1000); the
                restoration kernels K9-K12 on the inputs their chains give
                them, at the shipped parameters (K9 also at option 2 and at
                1 and 7 steps); the 3-D CLAHE kernels K8 (both epilogues)
-               and K8s on a [32, 512, 512] volume at grid (4, 8, 8), K8
+               and K8s on a [32, 512, 512] volume at grid (4, 8, 8) (K8s
+               also at nbins 1000), K8
                also on the windowed [256, 512, 512] CT phantom; K7, K3 and
                K4 at [8, 1024, 1024]; at a 4096^2
                slice K1 to the LUTs (twice: repeated calls give equal
-               LUTs), K1 float and bins, K2 in both epilogues and K5 at
+               LUTs), K1 float and bins, K2 in both epilogues, K6 on
+               regions of 512^2 and K5 at
                every band of a 4-way row split, the stitched bands against
                K2; K13 against K3 ->
                K4 and its plain version at [32, 512, 512] and
@@ -29,7 +31,8 @@ Phases, one printed line each (or a few):
                operations), and for K1, K2 and K5 also the profiler's
                device time; then on ragged shapes (251x333 slices, skimage
                regions 31x41: odd region columns, kc % 64 != 0; volumes
-               [12, 96, 160] at grid (3, 3, 5) and [20, 251, 333]; K5 on a
+               [12, 96, 160] at grid (3, 3, 5) and [20, 251, 333], K8s at
+               [12, 96, 166] (W % 4 != 0); K5 on a
                3-way split at grid (6, 5); K13 in K3's three borders; K3
                at k 3, 5, 7, 9 in its three borders and K4 at radii 1.0,
                1.5 and 4.0, both quantize modes, at 1x1, 3x5, 130x77,
@@ -57,15 +60,17 @@ Phases, one printed line each (or a few):
   5. timing  — slices/s at batch 32 of 512^2 for every 2-D chain of phase 4
                but fraction and kornia, at batch 8 of 1024^2 for w3, the
                mammogram config and the flagship, z-slices/s for w6 and
-               the CT volume config, flagship batch-1 latency p50/p95, and
+               the CT volume config and clahe3d skimage, flagship batch-1
+               latency p50/p95, and
                each timed chain's device time by kernel and its device
                launches per call (torch.profiler; not w10's) against its
                event-timed time per call: the device's busy share; the
                fused tail's A/B on the flagship (MIES_TPU_FUSE_TAIL off,
                on, on, off by time_pipeline; with it on K1 to the LUTs,
                K2, K13 once each and the same output); one line each of
-               K3's and K4's, and of K1's, K2's and K5's, ms beside the
-               device time and busy share of the chains they lie on.
+               K3's and K4's, of K1's, K2's and K5's, and of K6's and K8s's,
+               ms beside the device time and busy share of the chains they
+               lie on.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -454,7 +459,18 @@ def main() -> int:
     _require(torch.equal(ak, ap), f"K6 output differs by up to {err}")
     record("K6", err, lambda: KC.skimage_apply(binned, mk, ks, origin, out_hw),
            lambda: KC.skimage_apply_plain(binned, mk, ks, origin, out_hw),
-           8 * npx + 4 * mk.numel(), 16 * npx)
+           8 * npx + 4 * mk.numel(), 16 * npx, profiled=True)
+    # K6 at nbins 1000 (16 KB of corner quads a block), the same regions
+    b1k = H._skimage_binned(x, ks, 1000)
+    m1k = KC.skimage_maps(KC.tile_hists_bins(b1k, origin, rgrid, ks, 1000),
+                          clim, k_elems)
+    ak = KC.skimage_apply(b1k, m1k, ks, origin, out_hw)
+    ap = KC.skimage_apply_plain(b1k, m1k, ks, origin, out_hw)
+    err = (ak - ap).abs().max().item()
+    _require(torch.equal(ak, ap), f"K6 at nbins 1000 differs by up to {err}")
+    record("K6n", err, lambda: KC.skimage_apply(b1k, m1k, ks, origin, out_hw),
+           lambda: KC.skimage_apply_plain(b1k, m1k, ks, origin, out_hw),
+           8 * npx + 4 * m1k.numel(), 16 * npx, profiled=True)
     # the restoration kernels on the inputs their chains give them, at the
     # shipped parameters: NL-means and TV of configs/ct_lowdose_nlm.yaml
     # on the windowed int16 phantom, SRAD of ultrasound_despeckle.yaml on
@@ -627,7 +643,22 @@ def main() -> int:
     # multiplies and 7 adds, the floor
     record("K8s", err, lambda: K3D.clahe3d_skimage_apply(b3, m3, ks3, pad3, x.shape),
            lambda: K3D.clahe3d_skimage_apply_plain(b3, m3, ks3, pad3, x.shape),
-           8 * npx + 4 * m3.numel(), 41 * npx, plain_iters=5)
+           8 * npx + 4 * m3.numel(), 41 * npx, plain_iters=5, profiled=True)
+    # K8s at nbins 1000 (32 KB of quads a block), the same regions
+    b3k = V._skimage3d_binned(x, ks3, 1000)
+    sh3k = KC.tile_hists_bins(b3k[pad3[0]:pad3[0] + ns3[0] * ks3[0]], pad3[1:],
+                              ns3[1:], ks3[1:], 1000)
+    sh3k = sh3k.reshape(ns3[0], ks3[0], *ns3[1:], 1000).sum(1, dtype=torch.int32)
+    m3k = V._edge_pad_maps(KC.skimage_maps(
+        sh3k, int(np.clip(0.01 * k3e, 1, None)), k3e))
+    sk3 = K3D.clahe3d_skimage_apply(b3k, m3k, ks3, pad3, x.shape)
+    sp3 = K3D.clahe3d_skimage_apply_plain(b3k, m3k, ks3, pad3, x.shape)
+    err = (sk3 - sp3).abs().max().item()
+    _require(torch.equal(sk3, sp3), f"K8s at nbins 1000 differs by up to {err}")
+    record("K8sn", err,
+           lambda: K3D.clahe3d_skimage_apply(b3k, m3k, ks3, pad3, x.shape),
+           lambda: K3D.clahe3d_skimage_apply_plain(b3k, m3k, ks3, pad3, x.shape),
+           8 * npx + 4 * m3k.numel(), 41 * npx, plain_iters=5, profiled=True)
     for conv, clip in (("opencv", 2.0), ("fraction", 0.01), ("skimage", 0.01)):
         _require(torch.equal(K3D.clahe3d_volume(x, clip, g3, conv),
                              V.clahe3d(x, clip, g3, conv)),
@@ -681,9 +712,9 @@ def main() -> int:
     ks_s = H.skimage_kernel_size((BS, BS), GRID)
     (sr0, _, sc0, _), sreg = H.skimage_geometry((BS, BS), ks_s)
     sbins = H._skimage_binned(xs, ks_s, nbins)
+    shs = KC.tile_hists_bins(sbins, (sr0, sc0), sreg, ks_s, nbins)
     _require(torch.equal(
-        KC.tile_hists_bins(sbins, (sr0, sc0), sreg, ks_s, nbins),
-        KC.tile_hists_bins_plain(sbins, (sr0, sc0), sreg, ks_s, nbins)),
+        shs, KC.tile_hists_bins_plain(sbins, (sr0, sc0), sreg, ks_s, nbins)),
         "K1 bins at 4096^2 differs from plain")
     luts_s = {"u8norm": ls_plain,
               "clip01": KC.tile_luts(xs, GRID, 0.01, "fraction")}
@@ -692,12 +723,24 @@ def main() -> int:
                              KC.clahe_apply_lut_plain(xs, lt, GRID, fin)),
                  f"K2 {fin} at 4096^2 differs from plain")
     n4 = BS * BS
+    # K6 on the skimage regions of 512^2 (blocks in strips of 16 rows)
+    k_s = ks_s[0] * ks_s[1]
+    sms = KC.skimage_maps(shs, int(np.clip(0.01 * k_s, 1, None)), k_s)
+    s_args = (ks_s, (sr0, sc0), (BS, BS))
+    ak = KC.skimage_apply(sbins, sms, *s_args)
+    ap = KC.skimage_apply_plain(sbins, sms, *s_args)
+    err = (ak - ap).abs().max().item()
+    _require(torch.equal(ak, ap), f"K6 at 4096^2 differs by up to {err}")
+    record("K6x", err, lambda: KC.skimage_apply(sbins, sms, *s_args),
+           lambda: KC.skimage_apply_plain(sbins, sms, *s_args),
+           8 * n4 + 4 * sms.numel(), 16 * n4, plain_iters=5, at=f"[1,{BS},{BS}]",
+           profiled=True)
     dev4096 = {
         "K1L": device_ms(lambda: KC.tile_luts(xs, GRID, 2.0)),
         "K1": device_ms(lambda: KC.tile_hists(xs, GRID)),
         "K2": device_ms(lambda: KC.clahe_apply_lut(xs, ls_plain, GRID))}
     print(f"[1, {BS}, {BS}]: K1 to the LUTs (twice), K1 float and bins "
-          f"(regions {ks_s}), K2 u8norm and clip01 equal to their plain "
+          f"(regions {ks_s}), K2 u8norm and clip01, K6 equal to their plain "
           f"versions | profiler ms: "
           + "; ".join(f"{k} {v:.4f}" for k, v in dev4096.items()) + f" | {card}")
     bands_s = [xs[:, i * hb_s:(i + 1) * hb_s].contiguous() for i in range(NBANDS)]
@@ -893,13 +936,28 @@ def main() -> int:
     _require(torch.equal(K3D.clahe3d_skimage_cuda(rs, rks3, 0.01),
                          V.clahe3d(rs, 0.01, g3, "skimage")),
              "skimage 3-D path (K1 bins, K6a, K8s) on [20, 251, 333] differs")
+    # K8s alone at a width W % 4 != 0 (scalar columns; x0 = 10)
+    ru3 = x[:12, :96, :166].contiguous()
+    uks3 = V.skimage3d_kernel_size(ru3.shape, g3)
+    upad3, _, uns3 = V.skimage3d_geometry(ru3.shape, uks3)
+    ub3 = V._skimage3d_binned(ru3, uks3, nbins)
+    uk3e = uks3[0] * uks3[1] * uks3[2]
+    uh3 = KC.tile_hists_bins(ub3[upad3[0]:upad3[0] + uns3[0] * uks3[0]],
+                             upad3[1:], uns3[1:], uks3[1:], nbins)
+    uh3 = uh3.reshape(uns3[0], uks3[0], *uns3[1:], nbins).sum(1, dtype=torch.int32)
+    um3 = V._edge_pad_maps(KC.skimage_maps(uh3, max(uk3e // 100, 1), uk3e))
+    _require(torch.equal(
+        K3D.clahe3d_skimage_apply(ub3, um3, uks3, upad3, ru3.shape),
+        K3D.clahe3d_skimage_apply_plain(ub3, um3, uks3, upad3, ru3.shape)),
+        f"K8s on [12, 96, 166] (regions {uks3}) differs from plain")
     _require(torch.equal(KU.unsharp_gauss_cuda(r, 1.5, 1.0, 1.5),
                          KU.unsharp_gauss_plain(r, 1.5, 1.0, 1.5)),
              "K7 on 251x333 differs from the plain pair")
     torch.cuda.synchronize()
     print(f"ragged volumes: K1+K8 equal on [12, 96, 160] at grid (3, 3, 5) "
           f"(opencv, fraction), skimage 3-D path equal on [20, 251, 333] "
-          f"(regions {rks3}); K7 equal on 251x333")
+          f"(regions {rks3}), K8s equal on [12, 96, 166] (regions {uks3}); "
+          f"K7 equal on 251x333")
     print(f"ragged 251x333: K1+K2 equal (opencv, fraction/clip01), skimage "
           f"regions {rks[0]}x{rks[1]} x {rreg[0]}x{rreg[1]}: K1 bins, K6a, "
           f"K6 and the path equal, K3 max abs {worst} (3 modes x k 3/5/7/9 "
@@ -1202,6 +1260,7 @@ def main() -> int:
     vonce = {"iters": 10, "warmup": 2, "repeats": 1, "device": dev}
     tw6 = time_volume(w6_cfg, vol=w6vol, quantize=False, **vonce)
     tctv = time_volume(ctv_cfg, vol=ctv, **vonce)
+    tsk3 = time_volume(sk3_cfg, vol=x, **vonce)
     torch.cuda.synchronize()
     for label, t in (("flagship", tp), ("skimage yaml", tsk),
                      ("ct_lowdose_nlm yaml int16", tct),
@@ -1216,7 +1275,8 @@ def main() -> int:
               f"{t['slices_per_sec']:.1f} slices/s | {t['ms_per_batch']:.4f} "
               f"ms/batch | {card}")
     for label, t in (("w6 clahe3d opencv float32", tw6),
-                     ("ct_volume_3d yaml int16", tctv)):
+                     ("ct_volume_3d yaml int16", tctv),
+                     ("clahe3d skimage float32", tsk3)):
         print(f"throughput {label} {t['shape']}: {t['z_slices_per_sec']:.1f} "
               f"z-slices/s | {t['ms_per_volume']:.4f} ms/volume | {card}")
     print(f"latency flagship b1 {SIZE}^2 (200 x 32 calls): p50 "
@@ -1236,7 +1296,8 @@ def main() -> int:
     profiles += [
         ("w6 volume", profile_volume(w6_cfg, vol=w6vol, quantize=False,
                                      device=dev)),
-        ("ct_volume_3d yaml", profile_volume(ctv_cfg, vol=ctv, device=dev))]
+        ("ct_volume_3d yaml", profile_volume(ctv_cfg, vol=ctv, device=dev)),
+        ("clahe3d skimage volume", profile_volume(sk3_cfg, vol=x, device=dev))]
     for label, prof in profiles:
         top = "; ".join(f"{name[:48]} {ms:.4f}" for name, ms in
                         list(prof["by_kernel"].items())[:8])
@@ -1321,6 +1382,28 @@ def main() -> int:
                            "ultrasound_despeckle yaml", "w9", "sharded 4096^2"))
           + f" | {card}")
 
+    # K6 and K8s, and the chains they lie on
+    def in_chain(label, kernel):
+        return sum(ms for name, ms in dict(profiles)[label]["by_kernel"].items()
+                   if kernel in name)
+
+    print(f"K6 {rec['K6']['ms']:.4f} ms (profiler {rec_dev['K6']:.4f}; in the "
+          f"skimage chain {in_chain('skimage yaml', 'skimage_apply_kernel'):.4f}) "
+          f"[{BATCH},{SIZE},{SIZE}], nbins 1000 {rec['K6n']['ms']:.4f} "
+          f"({rec_dev['K6n']:.4f}), {rec['K6x']['ms']:.4f} ({rec_dev['K6x']:.4f}) "
+          f"[1,{BS},{BS}]; K8s {rec['K8s']['ms']:.4f} ({rec_dev['K8s']:.4f}; "
+          f"in the volume {in_chain('clahe3d skimage volume', 'clahe3d_skimage_apply'):.4f}), "
+          f"nbins 1000 {rec['K8sn']['ms']:.4f} ({rec_dev['K8sn']:.4f}) "
+          f"[{BATCH},{SIZE},{SIZE}] | bounds {rec['K6']['bound_ms']:.4f}, "
+          f"{rec['K6x']['bound_ms']:.4f}, {rec['K8s']['bound_ms']:.4f} | "
+          f"device ms, launches per call (busy): skimage "
+          f"{dev_ms['skimage yaml']:.4f}, "
+          f"{dict(profiles)['skimage yaml']['device_launches_per_call']:g} "
+          f"({busy['skimage yaml']:.1%}), clahe3d skimage volume "
+          f"{dev_ms['clahe3d skimage volume']:.4f}, "
+          f"{dict(profiles)['clahe3d skimage volume']['device_launches_per_call']:g} "
+          f"({busy['clahe3d skimage volume']:.1%}) | {card}")
+
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (
         ("tile_luts", "K1L", launches, "mies_tpu_torch/csrc/clahe.cu",
@@ -1341,6 +1424,12 @@ def main() -> int:
          "mies_tpu_torch/csrc/clahe_skimage.cu",
          "mies_tpu/ops/histogram.py:602"),
         ("skimage_apply", "K6", sk_launches,
+         "mies_tpu_torch/csrc/clahe_skimage.cu",
+         "mies_tpu/kernels/clahe.py:1271"),
+        ("skimage_apply", "K6n", sk_launches,
+         "mies_tpu_torch/csrc/clahe_skimage.cu",
+         "mies_tpu/kernels/clahe.py:1271"),
+        ("skimage_apply", "K6x", sk_launches,
          "mies_tpu_torch/csrc/clahe_skimage.cu",
          "mies_tpu/kernels/clahe.py:1271"),
         ("perona_malik", "K9", w8_launches, "mies_tpu_torch/csrc/diffusion.cu",
@@ -1364,6 +1453,8 @@ def main() -> int:
          "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/kernels/clahe.py:348"),
         ("clahe3d_skimage_apply", "K8s", sk3_launches,
          "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/kernels/clahe.py:1062"),
+        ("clahe3d_skimage_apply", "K8sn", sk3_launches,
+         "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/kernels/clahe.py:1062"),
         ("bilateral", "K3r", fm_launches, "mies_tpu_torch/csrc/bilateral.cu",
          "mies_tpu/kernels/bilateral.py:48"),
         ("unsharp_quant", "K4r", mm_launches, "mies_tpu_torch/csrc/unsharp.cu",
@@ -1378,6 +1469,9 @@ def main() -> int:
              "K8c": "clahe3d_apply[clip01]",
              "K8v": "clahe3d_apply[u8norm,256x512x512]",
              "K8cv": "clahe3d_apply[clip01,256x512x512]",
+             "K6n": "skimage_apply[nbins1000]",
+             "K6x": "skimage_apply[1x4096x4096]",
+             "K8sn": "clahe3d_skimage_apply[nbins1000]",
              "K3r": "bilateral[8x1024x1024]",
              "K4r": "unsharp_quant[8x1024x1024]"}
     kernels = []

@@ -2,7 +2,9 @@
 // (clahe.cu) and K8 (clahe3d.cu): the level quantize, the interpolation
 // cell of a position along an axis by the blend's own f32 formula, and
 // the first position of a cell. Every product and difference is an _rn
-// intrinsic, as in the plain versions.
+// intrinsic, as in the plain versions. Also the column units of a row
+// segment and the host's row alignment test of the vector loads, which
+// K6 and K8s (regions.cuh) use too.
 
 #pragma once
 
@@ -39,6 +41,27 @@ __device__ int cell_start(int c, int t, float inv, int lo, int hi) {
   while (p < hi && cell_of(p, inv) < c) ++p;
   return p;
 }
+
+// The columns [lo, hi) as units: a scalar head up to the first multiple
+// of 4, float4 units of four columns, a scalar tail (every unit scalar
+// unless vec). At most (hi - lo) / 4 + 6 units on aligned rows
+// (kernels/clahe.py max_units).
+struct Units {
+  int lo, a, e, nh, nb, n;
+
+  __device__ Units(int lo_, int hi, bool vec) : lo(lo_) {
+    a = vec ? min((lo + 3) & ~3, hi) : hi;
+    e = vec ? max(hi & ~3, a) : hi;
+    nh = a - lo;
+    nb = (e - a) >> 2;
+    n = nh + nb + (hi - e);
+  }
+  __device__ bool is_vec(int u) const { return u >= nh && u < nh + nb; }
+  // the first column of unit u
+  __device__ int col(int u) const {
+    return u < nh ? lo + u : is_vec(u) ? a + 4 * (u - nh) : e + (u - nh - nb);
+  }
+};
 
 // Rows of W elements at p start 16-byte aligned: the vector loads' rule.
 inline int rows_aligned(const void* p, int W) {

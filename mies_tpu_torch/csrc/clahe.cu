@@ -364,14 +364,10 @@ apply_lut_kernel(const float* __restrict__ x, const float* __restrict__ luts,
   if (r_lo >= r_hi || x_lo >= x_hi) return;
   // column units: scalar head, float4 body (rows 16-byte aligned), scalar
   // tail
-  const bool aligned = vec_ok;
-  const int a = aligned ? min((x_lo + 3) & ~3, x_hi) : x_hi;
-  const int e = aligned ? max(x_hi & ~3, a) : x_hi;
-  const int nh = a - x_lo, nb = (e - a) >> 2;
-  const int units = nh + nb + (x_hi - e);
+  const Units units(x_lo, x_hi, vec_ok);
   const int u_lo = csub * kThreads;
-  if (u_lo >= units) return;
-  const int nu = min(units - u_lo, kThreads);
+  if (u_lo >= units.n) return;
+  const int nu = min(units.n - u_lo, kThreads);
 
   // the cell's four LUTs, one float4 per level
   {
@@ -392,8 +388,8 @@ apply_lut_kernel(const float* __restrict__ x, const float* __restrict__ luts,
   const int rrow = threadIdx.x / nu;
   if (rrow >= rows_per_pass) return;
   const int u = u_lo + threadIdx.x - rrow * nu;
-  const bool vec = u >= nh && u < nh + nb;
-  const int c = u < nh ? x_lo + u : vec ? a + 4 * (u - nh) : e + (u - nh - nb);
+  const bool vec = units.is_vec(u);
+  const int c = units.col(u);
   // OpenCV: txf = x * (1/tw) - 0.5; tx1 = max(floor, 0);
   // tx2 = min(UNCLIPPED floor + 1, gx - 1); xa = txf - floor
   float xa[4], omx[4];

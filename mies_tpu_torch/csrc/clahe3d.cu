@@ -33,9 +33,23 @@
 // neighbouring region maps of the edge-padded map array at each voxel's
 // bin, coefficients (cz * cy) * cx from arange(k) / k by true division,
 // the 8 sel * coeff terms summed in corner order (z, y, x lexicographic)
-// and floored. One thread per voxel of the output crop, reading the padded
-// binned volume in place at the crop's origin. Bound: 4 B of bins in + 4 B
-// out per voxel.
+// and floored. K8's design on skimage's regions (regions.cuh): a block owns
+// (a strip of) one region block (bz, by, bx) of the padded volume, cut to
+// the crop, whose voxels all blend map_array[bz + ez, by + ey, bx + ex].
+// Its edges are multiples of k, so no edge search. The 8 maps are staged
+// as two float4 per bin (the z-lo and the z-hi quad; 8 KB at 256 bins,
+// 32 KB at 1024), so a voxel takes two 16-byte shared loads instead of 8
+// gathers from the map array in device memory. A block's (slice, row)
+// pairs are cut into strips of about kernels/clahe.py SK_PIXELS_PER_BLOCK
+// voxels (grid: x block, column chunk and strip on x; y block on y; z
+// block on z: Z is no grid dimension). Each thread keeps its column unit
+// (four columns, an int4 load of bins and a float4 store, where the bins
+// rows, the crop's x origin and the output rows are 16-byte aligned;
+// scalar head and tail) while it walks the pairs: wx once per column, wy
+// once per row, wz once per slice, the four cz * cy once per row; per
+// voxel the 8 coefficients (cz * cy) * cx, the 8 terms in corner order,
+// floorf: the plain version's order, so bit-equal. Bound: 4 B of bins in +
+// 4 B out per voxel.
 //
 // Every multiply, add and divide is an explicit _rn intrinsic: nvcc would
 // contract a*b+c into FMA, which breaks the bit-exactness against the
@@ -44,12 +58,14 @@
 #include <cuda_runtime.h>
 
 #include "cells.cuh"
+#include "regions.cuh"
 
 namespace {
 
 constexpr int kBins = 256;
 constexpr int kThreads = 256;  // kernels/clahe3d.py THREADS
 constexpr int kMaxGridYZ = 65535;
+constexpr int kMaxBins = 1024;  // kernels/clahe.py MAX_BINS
 
 // lo * (1 - a) + hi * a, with 1 - a given
 __device__ __forceinline__ float lerp_rn(float lo, float hi, float a,
@@ -120,13 +136,10 @@ clahe3d_apply_kernel(const float* __restrict__ x,
   if (r_lo >= r_hi || x_lo >= x_hi) return;
   // column units: scalar head, float4 body (rows 16-byte aligned), scalar
   // tail
-  const int a = vec_ok ? min((x_lo + 3) & ~3, x_hi) : x_hi;
-  const int e = vec_ok ? max(x_hi & ~3, a) : x_hi;
-  const int nh = a - x_lo, nb = (e - a) >> 2;
-  const int units = nh + nb + (x_hi - e);
+  const Units units(x_lo, x_hi, vec_ok);
   const int u_lo = csub * kThreads;
-  if (u_lo >= units) return;
-  const int nu = min(units - u_lo, kThreads);
+  if (u_lo >= units.n) return;
+  const int nu = min(units.n - u_lo, kThreads);
 
   // the cell's 8 LUTs: the z-lo and the z-hi quad, one float4 each a level
   {
@@ -152,8 +165,8 @@ clahe3d_apply_kernel(const float* __restrict__ x,
   int r = r_lo + rrow;
   if (rrow >= rows_per_pass || r >= r_hi) return;
   const int u = u_lo + threadIdx.x - rrow * nu;
-  const bool vec = u >= nh && u < nh + nb;
-  const int c = u < nh ? x_lo + u : vec ? a + 4 * (u - nh) : e + (u - nh - nb);
+  const bool vec = units.is_vec(u);
+  const int c = units.col(u);
   Weight wx[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) wx[k] = weight_of(c + k, inv_tw);
@@ -188,45 +201,118 @@ clahe3d_apply_kernel(const float* __restrict__ x,
   }
 }
 
-// Block index and skimage weight w = (p % k) / k of padded coordinate p.
-struct Region {
-  int b;
-  float w;
-};
-
-__device__ __forceinline__ Region region_of(int p, int k) {
-  return {p / k, __fdiv_rn(static_cast<float>(p % k), static_cast<float>(k))};
+// skimage's 8-map blend at bin v: lo / hi are the z-lo and z-hi quads
+// (y-lo x-lo, y-lo x-hi, y-hi x-lo, y-hi x-hi), czy the four cz * cy in
+// (z, y) order, cx the column's weights.
+__device__ __forceinline__ float blend8s(const float4& lo, const float4& hi,
+                                         const float* czy, Weights cx) {
+  float acc = __fmul_rn(lo.x, __fmul_rn(czy[0], cx.lo));
+  acc = __fadd_rn(acc, __fmul_rn(lo.y, __fmul_rn(czy[0], cx.hi)));
+  acc = __fadd_rn(acc, __fmul_rn(lo.z, __fmul_rn(czy[1], cx.lo)));
+  acc = __fadd_rn(acc, __fmul_rn(lo.w, __fmul_rn(czy[1], cx.hi)));
+  acc = __fadd_rn(acc, __fmul_rn(hi.x, __fmul_rn(czy[2], cx.lo)));
+  acc = __fadd_rn(acc, __fmul_rn(hi.y, __fmul_rn(czy[2], cx.hi)));
+  acc = __fadd_rn(acc, __fmul_rn(hi.z, __fmul_rn(czy[3], cx.lo)));
+  acc = __fadd_rn(acc, __fmul_rn(hi.w, __fmul_rn(czy[3], cx.hi)));
+  return floorf(acc);
 }
 
+// Block ((strip * nbx + bxi) * col_splits + csub, byi, bzi) owns the
+// (slice, row) pairs [strip * rpb, (strip + 1) * rpb) of region block
+// (bz, by, bx) = (z0 / kz + bzi, y0 / ky + byi, x0 / kx + bxi), cut to the
+// crop, in slice-major order, and its column units [csub * kThreads, ...).
+// rpb, strips and col_splits: kernels/clahe3d.py skimage_launch.
 __global__ void __launch_bounds__(kThreads)
 clahe3d_skimage_apply_kernel(const int* __restrict__ bins,
                              const float* __restrict__ maps,
                              float* __restrict__ out, int Hp, int Wp,
                              int ny1, int nx1, int kz, int ky, int kx,
-                             int nbins, int z0, int y0, int x0, int H0,
-                             int W0) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y, z = blockIdx.z;
-  if (c >= W0) return;
-  const int pz = z0 + z, py = y0 + y, px = x0 + c;
-  const int v = bins[(static_cast<size_t>(pz) * Hp + py) * Wp + px];
-  const Region cz = region_of(pz, kz), cy = region_of(py, ky),
-               cx = region_of(px, kx);
-  const float wz[2] = {__fsub_rn(1.0f, cz.w), cz.w};
-  const float wy[2] = {__fsub_rn(1.0f, cy.w), cy.w};
-  const float wx[2] = {__fsub_rn(1.0f, cx.w), cx.w};
+                             int nbins, int z0, int y0, int x0, int Z0,
+                             int H0, int W0, int nbx, int rpb, int col_splits,
+                             int vec_ok) {
+  extern __shared__ float4 quads[];  // [2][nbins]: the z-lo, z-hi quads
+  const int csub = blockIdx.x % col_splits;
+  const int rest = blockIdx.x / col_splits;
+  const int bx = x0 / kx + rest % nbx, strip = rest / nbx;
+  const int by = y0 / ky + static_cast<int>(blockIdx.y);
+  const int bz = z0 / kz + static_cast<int>(blockIdx.z);
+  const Span sz = region_span(bz, kz, z0, Z0);
+  const Span sy = region_span(by, ky, y0, H0);
+  const Span sx = region_span(bx, kx, x0, W0);
+  const int ny = sy.hi - sy.lo;
+  const int r_lo = strip * rpb;
+  const int r_hi = min(r_lo + rpb, (sz.hi - sz.lo) * ny);
+  if (r_lo >= r_hi) return;  // block-uniform, before the barrier
+  const Units units(sx.lo, sx.hi, vec_ok);
+  const int u_lo = csub * kThreads;
+  if (u_lo >= units.n) return;
+  const int nu = min(units.n - u_lo, kThreads);
 
-  float acc = 0.0f;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int ez = e >> 2, ey = (e >> 1) & 1, ex = e & 1;
-    const size_t cell =
-        (static_cast<size_t>(cz.b + ez) * ny1 + cy.b + ey) * nx1 + cx.b + ex;
-    const float term = __fmul_rn(__ldg(maps + cell * nbins + v),
-                                 __fmul_rn(__fmul_rn(wz[ez], wy[ey]), wx[ex]));
-    acc = e == 0 ? term : __fadd_rn(acc, term);
+  // the block's 8 maps: the z-lo and the z-hi quad, one float4 each a bin
+  {
+    auto map = [&](int ez, int ey, int ex) {
+      return maps + ((static_cast<size_t>(bz + ez) * ny1 + by + ey) * nx1 +
+                     bx + ex) * nbins;
+    };
+    const float *m000 = map(0, 0, 0), *m001 = map(0, 0, 1),
+                *m010 = map(0, 1, 0), *m011 = map(0, 1, 1),
+                *m100 = map(1, 0, 0), *m101 = map(1, 0, 1),
+                *m110 = map(1, 1, 0), *m111 = map(1, 1, 1);
+    for (int v = threadIdx.x; v < nbins; v += kThreads) {
+      quads[v] = make_float4(m000[v], m001[v], m010[v], m011[v]);
+      quads[nbins + v] = make_float4(m100[v], m101[v], m110[v], m111[v]);
+    }
   }
-  out[(static_cast<size_t>(z) * H0 + y) * W0 + c] = floorf(acc);
+  __syncthreads();
+
+  // this thread's unit and first (slice, row) pair; it keeps the unit
+  // while it walks the pairs
+  const int rows_per_pass = kThreads / nu;
+  const int rrow = threadIdx.x / nu;
+  int r = r_lo + rrow;
+  if (rrow >= rows_per_pass || r >= r_hi) return;
+  const int u = u_lo + threadIdx.x - rrow * nu;
+  const bool vec = units.is_vec(u);
+  const int c = units.col(u);
+  Weights wx[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wx[k] = region_weights(c + k, bx, kx);
+  // the wrapper's binning keeps bins in [0, nbins); the clamp keeps the
+  // shared loads inside the quads whatever the input
+  auto blend = [&](int v, const float* czy, Weights cx) {
+    v = min(max(v, 0), nbins - 1);
+    return blend8s(quads[v], quads[nbins + v], czy, cx);
+  };
+  int z = sz.lo + r / ny, y = sy.lo + r % ny;
+  Weights wz = region_weights(z, bz, kz);
+  for (;;) {
+    const Weights wy = region_weights(y, by, ky);
+    const float czy[4] = {__fmul_rn(wz.lo, wy.lo), __fmul_rn(wz.lo, wy.hi),
+                          __fmul_rn(wz.hi, wy.lo), __fmul_rn(wz.hi, wy.hi)};
+    const int* s = bins + (static_cast<size_t>(z) * Hp + y) * Wp + c;
+    float* d = out + (static_cast<size_t>(z - z0) * H0 + (y - y0)) * W0 +
+               (c - x0);
+    if (vec) {
+      const int4 v = *reinterpret_cast<const int4*>(s);
+      float4 o;
+      o.x = blend(v.x, czy, wx[0]);
+      o.y = blend(v.y, czy, wx[1]);
+      o.z = blend(v.z, czy, wx[2]);
+      o.w = blend(v.w, czy, wx[3]);
+      *reinterpret_cast<float4*>(d) = o;
+    } else {
+      *d = blend(*s, czy, wx[0]);
+    }
+    r += rows_per_pass;
+    if (r >= r_hi) break;
+    y += rows_per_pass;
+    if (y >= sy.hi) {  // the next slice (or several, for short rows)
+      const int q = (y - sy.lo) / ny;
+      z += q;
+      y -= q * ny;
+      wz = region_weights(z, bz, kz);
+    }
+  }
 }
 
 }  // namespace
@@ -264,16 +350,28 @@ extern "C" int mies_clahe3d_apply(const float* x, const float* luts,
 
 // bins: [Zp, Hp, Wp] int32 bins of the padded volume; maps: [nz1, ny1, nx1,
 // nbins] f32, the edge-padded region maps; out: [Z0, H0, W0] f32, the crop
-// whose first voxel is (z0, y0, x0) of the padded volume.
-extern "C" int mies_clahe3d_skimage_apply(const int* bins, const float* maps,
-                                          float* out, int Hp, int Wp, int ny1,
-                                          int nx1, int kz, int ky, int kx,
-                                          int nbins, int z0, int y0, int x0,
-                                          int Z0, int H0, int W0,
-                                          cudaStream_t stream) {
-  const dim3 grid((W0 + kThreads - 1) / kThreads, H0, Z0);
-  clahe3d_skimage_apply_kernel<<<grid, kThreads, 0, stream>>>(
-      bins, maps, out, Hp, Wp, ny1, nx1, kz, ky, kx, nbins, z0, y0, x0, H0,
-      W0);
+// whose first voxel is (z0, y0, x0) of the padded volume. nbx, nby, nbz,
+// rpb, strips, col_splits: kernels/clahe3d.py skimage_launch; vec_ok: bins
+// and out rows 16-byte aligned and x0 % 4 == 0 (refused if the pointers
+// say otherwise).
+extern "C" int mies_clahe3d_skimage_apply(
+    const int* bins, const float* maps, float* out, int Hp, int Wp, int ny1,
+    int nx1, int kz, int ky, int kx, int nbins, int z0, int y0, int x0,
+    int Z0, int H0, int W0, int nbx, int nby, int nbz, int rpb, int strips,
+    int col_splits, int vec_ok, cudaStream_t stream) {
+  const long long blocks_x =
+      static_cast<long long>(nbx) * strips * col_splits;
+  if (rpb < 1 || strips < 1 || col_splits < 1 || nbins < 1 ||
+      nbins > kMaxBins || nby > kMaxGridYZ || nbz > kMaxGridYZ ||
+      blocks_x > 0x7fffffffLL ||
+      (vec_ok && !(rows_aligned(bins, Wp) && rows_aligned(out, W0) &&
+                   x0 % 4 == 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(blocks_x), nby, nbz);
+  clahe3d_skimage_apply_kernel<<<grid, kThreads, 2 * nbins * sizeof(float4),
+                                 stream>>>(
+      bins, maps, out, Hp, Wp, ny1, nx1, kz, ky, kx, nbins, z0, y0, x0, Z0,
+      H0, W0, nbx, rpb, col_splits, vec_ok);
   return static_cast<int>(cudaGetLastError());
 }

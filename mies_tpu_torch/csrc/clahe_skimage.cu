@@ -14,23 +14,39 @@
 //
 // K6 (mies_skimage_apply) replaces mies_tpu/kernels/clahe.py:
 // _apply_maps_rows_kernel (kc % 64 == 0) and _apply_maps_kernel (every other
-// kc) with one kernel for any kr, kc. One block per kr x kc interpolation
-// block of the padded binned image; its four corner maps (4 x nbins f32) are
-// staged in shared memory from clamped region indices, which is the
-// edge-replicated map grid without a padded copy. The TPU selected map
-// entries by onehot matmul because it has no gather; here they are
-// shared-memory gathers. Per pixel: wy = r / kr and wx = c / kc by
-// __fdiv_rn, the four coefficients with __fsub_rn/__fmul_rn, the four
-// sel * coeff terms summed in corner order with __fadd_rn (nvcc would
-// otherwise contract them into FMAs), floorf. Only the pixels of the
-// unpadded crop are written. Bound: 4 B of bins read and 4 B written per
-// output pixel.
+// kc) with one kernel for any kr, kc: skimage's bilinear blend of the four
+// neighbouring region maps at each pixel's bin, floored. The TPU selected
+// map entries by onehot matmul because it has no gather; on Hopper the
+// gather is a shared-memory load. A block owns (a strip of) one kr x kc
+// interpolation block of the padded binned image, cut to the crop: every
+// pixel there blends the same four corner maps, staged from clamped region
+// indices (the edge-replicated map grid without a padded copy) as one
+// float4 per bin (00, 01, 10, 11; 4 KB at 256 bins), so a pixel takes one
+// 16-byte shared load. Blocks of more than about kernels/clahe.py
+// SK_PIXELS_PER_BLOCK pixels are cut into strips of rows (so a 4096^2
+// slice at grid 8 x 8 fills the card).
+// Each thread keeps its column unit (four columns on 16-byte aligned rows:
+// an int4 load of bins and a float4 store; scalar head and tail) while it
+// walks the strip's rows: wx = (x - bx kc) / kc by __fdiv_rn once per
+// column, wy and 1 - wy once per row (regions.cuh), no integer divide per
+// pixel. Per pixel the coefficients (1 - wy)(1 - wx), (1 - wy) wx,
+// wy (1 - wx), wy wx, the four sel * coeff terms summed in corner order
+// with _rn intrinsics (nvcc would otherwise contract them into FMAs), then
+// floorf: the plain version's order, so bit-equal. Only the pixels of the
+// unpadded crop are written. The launch geometry (blocks, strips, column
+// chunks) is kernels/clahe.py skimage_launch's. Bound: 4 B of bins read
+// and 4 B written per output pixel.
 
 #include <cuda_runtime.h>
 
+#include "cells.cuh"
+#include "regions.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // kernels/clahe.py THREADS
+constexpr int kMaxBins = 1024;  // kernels/clahe.py MAX_BINS
+constexpr int kMaxGridYZ = 65535;
 constexpr float kMaxGray = 16383.0f;  // NR_OF_GRAY - 1
 
 // Sum of one int per thread over the block (all threads must call it).
@@ -102,43 +118,84 @@ __global__ void skimage_maps_kernel(const int* __restrict__ hists,
         floorf(fminf(__fmul_rn(__int2float_rn(scan[t]), scale), kMaxGray));
 }
 
+// skimage's blend of the corner quad q at weights (omy, wy) x (omx, wx)
+__device__ __forceinline__ float blend4(const float4& q, float omy, float wy,
+                                        float omx, float wx) {
+  float acc = __fmul_rn(q.x, __fmul_rn(omy, omx));
+  acc = __fadd_rn(acc, __fmul_rn(q.y, __fmul_rn(omy, wx)));
+  acc = __fadd_rn(acc, __fmul_rn(q.z, __fmul_rn(wy, omx)));
+  acc = __fadd_rn(acc, __fmul_rn(q.w, __fmul_rn(wy, wx)));
+  return floorf(acc);
+}
+
+// Block ((strip * nbx + bxi) * col_splits + csub, byi, b) owns rows
+// [strip * rpb, (strip + 1) * rpb) of interpolation block (by, bx) =
+// (y0 / kr + byi, x0 / kc + bxi) of slice b, cut to the crop, and its
+// column units [csub * kThreads, ...).
 __global__ void __launch_bounds__(kThreads)
 skimage_apply_kernel(const int* __restrict__ bins,
                      const float* __restrict__ maps, float* __restrict__ out,
                      int H, int W, int nr, int nc, int kr, int kc, int nbins,
-                     int y0, int x0, int H0, int W0) {
-  extern __shared__ float corner[];  // [4][nbins]: 00, 01, 10, 11
-  const int bx = blockIdx.x, by = blockIdx.y, b = blockIdx.z;
-  // the part of this block inside the crop [y0, y0+H0) x [x0, x0+W0)
-  const int ya = max(by * kr, y0), yb = min((by + 1) * kr, y0 + H0);
-  const int xa = max(bx * kc, x0), xb = min((bx + 1) * kc, x0 + W0);
-  if (ya >= yb || xa >= xb) return;  // block-uniform, before any barrier
+                     int y0, int x0, int H0, int W0, int nbx, int rpb,
+                     int col_splits, int vec_ok) {
+  extern __shared__ float4 quad[];  // [nbins]: corners 00, 01, 10, 11
+  const int csub = blockIdx.x % col_splits;
+  const int rest = blockIdx.x / col_splits;
+  const int bx = x0 / kc + rest % nbx, strip = rest / nbx;
+  const int by = y0 / kr + static_cast<int>(blockIdx.y);
+  const int b = blockIdx.z;
+  const Span sy = region_span(by, kr, y0, H0);
+  const Span sx = region_span(bx, kc, x0, W0);
+  const int r_lo = sy.lo + strip * rpb, r_hi = min(r_lo + rpb, sy.hi);
+  if (r_lo >= r_hi) return;  // block-uniform, before the barrier
+  const Units units(sx.lo, sx.hi, vec_ok);
+  const int u_lo = csub * kThreads;
+  if (u_lo >= units.n) return;
+  const int nu = min(units.n - u_lo, kThreads);
 
-  const float* mb = maps + static_cast<size_t>(b) * nr * nc * nbins;
-  for (int k = threadIdx.x; k < 4 * nbins; k += blockDim.x) {
-    const int e = k / nbins, bin = k % nbins;
-    const int my = min(max(by - 1 + (e >> 1), 0), nr - 1);
-    const int mx = min(max(bx - 1 + (e & 1), 0), nc - 1);
-    corner[k] = mb[(static_cast<size_t>(my) * nc + mx) * nbins + bin];
+  {
+    const int my0 = min(max(by - 1, 0), nr - 1), my1 = min(by, nr - 1);
+    const int mx0 = min(max(bx - 1, 0), nc - 1), mx1 = min(bx, nc - 1);
+    const float* mb = maps + static_cast<size_t>(b) * nr * nc * nbins;
+    const float* m00 = mb + static_cast<size_t>(my0 * nc + mx0) * nbins;
+    const float* m01 = mb + static_cast<size_t>(my0 * nc + mx1) * nbins;
+    const float* m10 = mb + static_cast<size_t>(my1 * nc + mx0) * nbins;
+    const float* m11 = mb + static_cast<size_t>(my1 * nc + mx1) * nbins;
+    for (int v = threadIdx.x; v < nbins; v += kThreads)
+      quad[v] = make_float4(m00[v], m01[v], m10[v], m11[v]);
   }
   __syncthreads();
 
+  // this thread's unit and first row; it keeps the unit while it walks
+  const int rows_per_pass = kThreads / nu;
+  const int rrow = threadIdx.x / nu;
+  if (rrow >= rows_per_pass) return;
+  const int u = u_lo + threadIdx.x - rrow * nu;
+  const bool vec = units.is_vec(u);
+  const int c = units.col(u);
+  Weights wx[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) wx[k] = region_weights(c + k, bx, kc);
   const int* src = bins + static_cast<size_t>(b) * H * W;
   float* dst = out + static_cast<size_t>(b) * H0 * W0;
-  const int cols = xb - xa, npx = (yb - ya) * cols;
-  const float fkr = static_cast<float>(kr), fkc = static_cast<float>(kc);
-  for (int p = threadIdx.x; p < npx; p += blockDim.x) {
-    const int y = ya + p / cols, x = xa + p % cols;
-    // the wrapper's binning keeps bins in [0, nbins)
-    const int v = min(max(src[static_cast<size_t>(y) * W + x], 0), nbins - 1);
-    const float wy = __fdiv_rn(static_cast<float>(y - by * kr), fkr);
-    const float wx = __fdiv_rn(static_cast<float>(x - bx * kc), fkc);
-    const float omy = __fsub_rn(1.0f, wy), omx = __fsub_rn(1.0f, wx);
-    float acc = __fmul_rn(corner[v], __fmul_rn(omy, omx));
-    acc = __fadd_rn(acc, __fmul_rn(corner[nbins + v], __fmul_rn(omy, wx)));
-    acc = __fadd_rn(acc, __fmul_rn(corner[2 * nbins + v], __fmul_rn(wy, omx)));
-    acc = __fadd_rn(acc, __fmul_rn(corner[3 * nbins + v], __fmul_rn(wy, wx)));
-    dst[static_cast<size_t>(y - y0) * W0 + (x - x0)] = floorf(acc);
+  // the wrapper's binning keeps bins in [0, nbins); the clamp keeps the
+  // shared loads inside the quads whatever the input
+  auto q = [&](int v) { return quad[min(max(v, 0), nbins - 1)]; };
+  for (int y = r_lo + rrow; y < r_hi; y += rows_per_pass) {
+    const Weights wy = region_weights(y, by, kr);
+    const int* s = src + static_cast<size_t>(y) * W + c;
+    float* d = dst + static_cast<size_t>(y - y0) * W0 + (c - x0);
+    if (vec) {
+      const int4 v = *reinterpret_cast<const int4*>(s);
+      float4 o;
+      o.x = blend4(q(v.x), wy.lo, wy.hi, wx[0].lo, wx[0].hi);
+      o.y = blend4(q(v.y), wy.lo, wy.hi, wx[1].lo, wx[1].hi);
+      o.z = blend4(q(v.z), wy.lo, wy.hi, wx[2].lo, wx[2].hi);
+      o.w = blend4(q(v.w), wy.lo, wy.hi, wx[3].lo, wx[3].hi);
+      *reinterpret_cast<float4*>(d) = o;
+    } else {
+      *d = blend4(q(*s), wy.lo, wy.hi, wx[0].lo, wx[0].hi);
+    }
   }
 }
 
@@ -157,13 +214,27 @@ extern "C" int mies_skimage_maps(const int* hists, float* maps, int R,
 
 // bins: [B, H, W] int32, the padded binned image; maps: [B, nr, nc, nbins]
 // f32; out: [B, H0, W0] f32, the crop whose top-left corner is (y0, x0).
+// nbx, nby, rpb, strips, col_splits: kernels/clahe.py skimage_launch;
+// vec_ok: bins and out rows 16-byte aligned and x0 % 4 == 0 (refused if
+// the pointers say otherwise).
 extern "C" int mies_skimage_apply(const int* bins, const float* maps,
                                   float* out, int B, int H, int W, int nr,
                                   int nc, int kr, int kc, int nbins, int y0,
-                                  int x0, int H0, int W0,
-                                  cudaStream_t stream) {
-  const dim3 grid((x0 + W0 + kc - 1) / kc, (y0 + H0 + kr - 1) / kr, B);
-  skimage_apply_kernel<<<grid, kThreads, 4 * nbins * sizeof(float), stream>>>(
-      bins, maps, out, H, W, nr, nc, kr, kc, nbins, y0, x0, H0, W0);
+                                  int x0, int H0, int W0, int nbx, int nby,
+                                  int rpb, int strips, int col_splits,
+                                  int vec_ok, cudaStream_t stream) {
+  const long long blocks_x =
+      static_cast<long long>(nbx) * strips * col_splits;
+  if (rpb < 1 || strips < 1 || col_splits < 1 || nbins < 1 ||
+      nbins > kMaxBins || nby > kMaxGridYZ || B > kMaxGridYZ ||
+      blocks_x > 0x7fffffffLL ||
+      (vec_ok && !(rows_aligned(bins, W) && rows_aligned(out, W0) &&
+                   x0 % 4 == 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(blocks_x), nby, B);
+  skimage_apply_kernel<<<grid, kThreads, nbins * sizeof(float4), stream>>>(
+      bins, maps, out, H, W, nr, nc, kr, kc, nbins, y0, x0, H0, W0, nbx, rpb,
+      col_splits, vec_ok);
   return static_cast<int>(cudaGetLastError());
 }

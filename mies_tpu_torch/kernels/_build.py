@@ -52,7 +52,7 @@ _SIGNATURES = {
     "mies_apply_lut": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
     "mies_apply_lut_band": (_P, _P, _P, *(_I,) * 7, _F, _F, _I, _I, _P),
     "mies_skimage_maps": (_P, _P, _I, _I, _I, _F, _P),
-    "mies_skimage_apply": (_P, _P, _P, *(_I,) * 12, _P),
+    "mies_skimage_apply": (_P, _P, _P, *(_I,) * 18, _P),
     "mies_bilateral": (_P, _P, _I, _I, _I, _I, _P, _F, _I, _P),
     "mies_unsharp": (_P, _P, _I, _I, _I, _P, _I, _F, _I, _P),
     "mies_nl_means": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
@@ -62,7 +62,7 @@ _SIGNATURES = {
     "mies_srad": (_P, _P, *(_I,) * 7, _F, _F, _F, _F, _P),
     "mies_clahe3d_apply": (_P, _P, _P, *(_I,) * 9, _F, _F, _F, *(_I,) * 5,
                            _P),
-    "mies_clahe3d_skimage_apply": (_P, _P, _P, *(_I,) * 14, _P),
+    "mies_clahe3d_skimage_apply": (_P, _P, _P, *(_I,) * 21, _P),
     "mies_unsharp_gauss": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _F, _P),
     "mies_bilateral_unsharp": (_P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _I, _F,
                                _I, _P),

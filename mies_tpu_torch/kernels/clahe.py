@@ -34,6 +34,12 @@ from mies_tpu_torch.ops import histogram as H
 
 NBINS = H.NBINS
 MAX_BINS = 1024  # K6a runs one thread per bin, and a block has at most 1024
+THREADS = 256  # csrc/clahe_skimage.cu kThreads (K6)
+# about a K6 or K8s block's share of an interpolation block, as K1 and K2
+# take: 8,192 ran faster than 16,384 for K8s and no slower for K6 on an
+# H100 (PERF.md)
+SK_PIXELS_PER_BLOCK = 8192
+MAX_GRID_X, MAX_GRID_YZ = 2**31 - 1, 65535
 _FINALIZE = {"u8norm": 0, "clip01": 1}
 EPILOGUE = {"opencv": "u8norm", "fraction": "clip01"}  # K2's, by convention
 
@@ -334,6 +340,52 @@ def skimage_apply_plain(binned: torch.Tensor, maps: torch.Tensor,
                             tuple(out_shape))
 
 
+def region_span(origin: int, n: int, k: int) -> tuple[int, int, int]:
+    """skimage's interpolation blocks of an axis (block b holds the padded
+    positions [b k, (b + 1) k)) that meet the crop [origin, origin + n):
+    the first one, their count, and the most crop positions one holds."""
+    b0, b1 = origin // k, (origin + n - 1) // k
+    if b0 == b1:
+        return b0, 1, n
+    ends = ((b0 + 1) * k - origin, origin + n - b1 * k)
+    return b0, b1 - b0 + 1, max(*ends, k if b1 - b0 > 1 else 0)
+
+
+def max_units(extent: int, aligned: bool) -> int:
+    """The most column units of a row segment of ``extent`` columns
+    (csrc/cells.cuh Units): a scalar head and tail of at most 3 columns
+    each around units of 4 on aligned rows, else one column a unit."""
+    return extent // 4 + 6 if aligned else extent
+
+
+def skimage_launch(batch: int, kernel_size, origin, out_shape,
+                   aligned: bool) -> tuple[int, int, int, int, int]:
+    """K6's blocks: (nbx, nby, rows per block, strips, column chunks). A
+    block owns up to ``rpb`` rows of one interpolation block of a slice,
+    cut to the crop, and up to THREADS of its column units; the grid is
+    (nbx strips col_splits, nby, batch)."""
+    (kr, kc), (y0, x0), (h0, w0) = kernel_size, origin, out_shape
+    _, nby, ext_y = region_span(y0, h0, kr)
+    _, nbx, ext_x = region_span(x0, w0, kc)
+    rpb = max(1, SK_PIXELS_PER_BLOCK // ext_x)
+    strips = -(-ext_y // rpb)
+    col_splits = -(-max_units(ext_x, aligned) // THREADS)
+    if nbx * strips * col_splits > MAX_GRID_X or max(nby, batch) > \
+            MAX_GRID_YZ:
+        raise ValueError(f"skimage_apply: crop {tuple(out_shape)} of a batch "
+                         f"of {batch} at regions {tuple(kernel_size)} exceeds "
+                         f"the kernel's launch grid")
+    return nbx, nby, rpb, strips, col_splits
+
+
+def _vec_ok(binned: torch.Tensor, out: torch.Tensor, x0: int) -> bool:
+    """K6 and K8s read bins and write out four columns at a time: rows of
+    both 16-byte aligned, at columns that are multiples of 4 in both."""
+    return ((binned.data_ptr() | out.data_ptr()) % 16 == 0
+            and binned.shape[-1] % 4 == 0 and out.shape[-1] % 4 == 0
+            and x0 % 4 == 0)
+
+
 def skimage_apply(binned: torch.Tensor, maps: torch.Tensor, kernel_size,
                   origin, out_shape) -> torch.Tensor:
     """K6: skimage's bilinear blend of the four neighbouring region maps,
@@ -358,9 +410,12 @@ def skimage_apply(binned: torch.Tensor, maps: torch.Tensor, kernel_size,
     if binned.device.type == "cpu":
         return skimage_apply_plain(binned, maps, kernel_size, origin, out_shape)
     out = torch.empty((B, h0, w0), dtype=torch.float32, device=binned.device)
+    aligned = _vec_ok(binned, out, x0)
+    launch = skimage_launch(B, (kr, kc), (y0, x0), (h0, w0), aligned)
     _build.launch("skimage_apply", "mies_skimage_apply", binned.device,
                   binned.data_ptr(), maps.data_ptr(), out.data_ptr(), B, h, w,
-                  nr, nc, kr, kc, nbins, y0, x0, h0, w0)
+                  nr, nc, kr, kc, nbins, y0, x0, h0, w0, *launch,
+                  int(aligned))
     return out
 
 

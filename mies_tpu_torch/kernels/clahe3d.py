@@ -28,18 +28,13 @@ from mies_tpu_torch.ops import histogram as H
 from mies_tpu_torch.ops import volume3d as V
 
 NBINS = H.NBINS
-MAX_GRID_DIM = 65535  # K8s puts H0 and Z0 on grid y and z; K8 its cells
-MAX_GRID_X = 2**31 - 1
+MAX_GRID_DIM = 65535  # K8 puts its y and z cells on grid y and z, K8s
+MAX_GRID_X = 2**31 - 1  # its y and z region blocks: Z is no grid dimension
 THREADS = 256  # csrc/clahe3d.cu kThreads
 # about a K8 block's share of a cell: 16,384 ran faster than 8,192 and
-# 32,768 at [256, 512, 512] on an H100 (PERF.md)
+# 32,768 at [256, 512, 512] on an H100 (PERF.md); K8s takes K6's
+# (kernels.clahe.SK_PIXELS_PER_BLOCK)
 PIXELS_PER_BLOCK = 16384
-
-
-def _check_launch_dims(z: int, h: int, what: str) -> None:
-    if z > MAX_GRID_DIM or h > MAX_GRID_DIM:
-        raise ValueError(f"{what}: Z={z}, H={h}; the kernel takes at most "
-                         f"{MAX_GRID_DIM} of each")
 
 
 # --- K8: trilinear LUT apply ------------------------------------------------
@@ -57,8 +52,7 @@ def apply_launch(shape, grid, aligned: bool) -> tuple[int, int, int]:
     (gz, gy, gx), (tz, th, tw) = grid, V.tile_shape_3d(shape, grid)
     rpb = max(1, PIXELS_PER_BLOCK // (tw + 1))
     strips = -(-((tz + 1) * (th + 1)) // rpb)
-    max_units = (tw + 1) // 4 + 8 if aligned else tw + 1
-    col_splits = -(-max_units // THREADS)
+    col_splits = -(-KC.max_units(tw + 1, aligned) // THREADS)
     if (gx + 1) * col_splits * strips > MAX_GRID_X or max(gy, gz) + 1 > \
             MAX_GRID_DIM or (tz + 1) * (th + 1) > MAX_GRID_X:
         raise ValueError(f"clahe3d_apply_lut: volume {tuple(shape)} at grid "
@@ -136,6 +130,26 @@ def clahe3d_skimage_apply_plain(binned: torch.Tensor, map_array: torch.Tensor,
                             tuple(origin), tuple(out_shape))
 
 
+def skimage_launch(kernel_size, origin, out_shape, aligned: bool
+                   ) -> tuple[int, int, int, int, int, int]:
+    """K8s's blocks: (nbx, nby, nbz, rows per block, strips, column
+    chunks). A block owns up to ``rpb`` (slice, row) pairs of one region
+    block, cut to the crop (``kernels.clahe.region_span`` per axis), and up
+    to THREADS of its column units; the grid is (nbx strips col_splits,
+    nby, nbz), so any Z launches whose region blocks fit a grid axis."""
+    (_, nz, ez), (_, ny, ey), (_, nx, ex) = (
+        KC.region_span(o, n, k) for o, n, k in zip(origin, out_shape,
+                                                    kernel_size))
+    rpb = max(1, KC.SK_PIXELS_PER_BLOCK // ex)
+    strips = -(-(ez * ey) // rpb)
+    col_splits = -(-KC.max_units(ex, aligned) // THREADS)
+    if nx * strips * col_splits > MAX_GRID_X or max(ny, nz) > MAX_GRID_DIM:
+        raise ValueError(f"clahe3d_skimage_apply: crop {tuple(out_shape)} at "
+                         f"regions {tuple(kernel_size)} exceeds the kernel's "
+                         f"launch grid")
+    return nx, ny, nz, rpb, strips, col_splits
+
+
 def clahe3d_skimage_apply(binned: torch.Tensor, map_array: torch.Tensor,
                           kernel_size, origin, out_shape) -> torch.Tensor:
     """K8s: skimage's trilinear blend of the 8 neighbouring region maps,
@@ -168,12 +182,14 @@ def clahe3d_skimage_apply(binned: torch.Tensor, map_array: torch.Tensor,
     if binned.device.type == "cpu":
         return clahe3d_skimage_apply_plain(binned, map_array, ks, origin,
                                            out_shape)
-    _check_launch_dims(out_shape[0], out_shape[1], "clahe3d_skimage_apply")
+    KC._check_nbins(nbins)
     out = torch.empty(out_shape, dtype=torch.float32, device=binned.device)
+    aligned = KC._vec_ok(binned, out, origin[2])
+    launch = skimage_launch(ks, origin, out_shape, aligned)
     _build.launch("clahe3d_skimage_apply", "mies_clahe3d_skimage_apply",
                   binned.device, binned.data_ptr(), map_array.data_ptr(),
                   out.data_ptr(), binned.shape[1], binned.shape[2], ny1, nx1,
-                  *ks, nbins, *origin, *out_shape)
+                  *ks, nbins, *origin, *out_shape, *launch, int(aligned))
     return out
 
 

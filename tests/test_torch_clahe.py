@@ -184,6 +184,61 @@ def test_skimage_pad_is_numpy_reflect(rng, n, before, after):
         out.numpy(), np.pad(img, ((before, after), (after, before)), "reflect"))
 
 
+def _units(lo: int, hi: int, aligned: bool) -> list[list[int]]:
+    """The columns of each column unit of a row segment, as csrc/cells.cuh
+    Units assigns them: scalar head, four columns a unit on aligned rows,
+    scalar tail."""
+    a = min((lo + 3) & ~3, hi) if aligned else hi
+    e = max(hi & ~3, a) if aligned else hi
+    return ([[c] for c in range(lo, a)]
+            + [[c, c + 1, c + 2, c + 3] for c in range(a, e, 4)]
+            + [[c] for c in range(e, hi)])
+
+
+@pytest.mark.parametrize("hw,ks", [((512, 512), (64, 64)),
+                                   ((4096, 4096), (512, 512)),
+                                   ((251, 333), (31, 41)), ((1, 1), (1, 1)),
+                                   ((7, 5), (3, 4)), ((40, 9), (64, 64))])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k6_blocks_cover_every_pixel_once(hw, ks, aligned):
+    """K6's blocks (kernels/clahe.py skimage_launch; csrc/clahe_skimage.cu)
+    cover every pixel of the crop exactly once, each in the interpolation
+    block and at the weights ops.histogram._skimage_apply gives it. Per
+    axis the blocks [b k, (b + 1) k) cut to the crop, a block's rows cut
+    into `strips` runs of `rpb`, its column units (csrc/cells.cuh Units)
+    into `col_splits` chunks of THREADS: each is checked whole."""
+    (pr0, _, pc0, _), _ = TH.skimage_geometry(hw, ks)
+    origin = (pr0, pc0)
+    nbx, nby, rpb, strips, col_splits = KC.skimage_launch(32, ks, origin, hw,
+                                                          aligned)
+    extents = []
+    for axis, (o, n, k, nb) in enumerate(zip(origin, hw, ks, (nby, nbx))):
+        pos = np.arange(o, o + n)
+        want_w = ((torch.from_numpy(pos) % k).to(torch.float32)
+                  / torch.tensor(float(k))).numpy()  # the plain version's
+        seen = np.zeros(n, np.int64)
+        ext = []
+        for b in range(o // k, o // k + nb):
+            p0, p1 = max(b * k, o), min((b + 1) * k, o + n)
+            assert p0 < p1
+            seen[p0 - o:p1 - o] += 1
+            assert (pos[p0 - o:p1 - o] // k == b).all()
+            w = np.arange(p0 - b * k, p1 - b * k, dtype=np.float32) / \
+                np.float32(k)  # csrc/regions.cuh region_weights
+            np.testing.assert_array_equal(w, want_w[p0 - o:p1 - o])
+            ext.append(p1 - p0)
+            if axis == 1:
+                units = _units(p0, p1, aligned)
+                assert len(units) <= col_splits * KC.THREADS
+                assert sorted(sum(units, [])) == list(range(p0, p1))
+        assert (seen == 1).all(), axis
+        extents.append(max(ext))
+    assert extents[0] <= strips * rpb
+    assert rpb == 1 or rpb * extents[1] <= KC.SK_PIXELS_PER_BLOCK
+    if hw == (4096, 4096) and aligned:  # strips of 16 rows: 2,592 blocks
+        assert (nbx * nby * strips * col_splits, rpb) == (2592, 16)
+
+
 # --- fraction ---------------------------------------------------------------
 
 

@@ -453,6 +453,51 @@ def test_skimage_on_card_equals_plain(cuda_device, shape, ks):
                        KC.skimage_apply_plain(binned, maps, *args))
 
 
+def _k6_inputs(device, shape, ks, nbins, seed):
+    """The padded bins and K6a's maps of a random batch, and K6's crop."""
+    x = _on(device, shape, seed)
+    (pr0, _, pc0, _), (nr, nc) = TH.skimage_geometry(shape[1:], ks)
+    binned = TH._skimage_binned(x, ks, nbins)
+    k_elems = ks[0] * ks[1]
+    hists = KC.tile_hists_bins(binned, (pr0, pc0), (nr, nc), ks, nbins)
+    maps = KC.skimage_maps(hists, max(k_elems // 100, 1), k_elems)
+    return binned, maps, (ks, (pr0, pc0), shape[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ks", [
+    ((2, 128, 128), (64, 64)),   # the vector path (x0 = 32, kc = 64)
+    ((1, 251, 333), (31, 41)),   # scalar columns: W0 % 4 != 0
+    ((2, 40, 130), (64, 16)),    # a single region row (nr = 1)
+    ((2, 130, 7), (16, 64)),     # a single region column (nc = 1)
+    ((1, 4096, 4096), (512, 512))])  # blocks of 512^2 in strips of rows
+@pytest.mark.parametrize("nbins", [2, 256, 1000])
+def test_k6_on_card_equals_plain(cuda_device, shape, ks, nbins):
+    """K6's interpolation blocks, their four maps as one float4 a bin:
+    bit-equal to the plain blend at every bin count the convention takes
+    (up to 1000: 16 KB of quads), at unaligned widths, at a single region
+    on an axis and at 4096^2; one launch."""
+    binned, maps, args = _k6_inputs(cuda_device, shape, ks, nbins, 9)
+    _build.reset_launches()
+    got = KC.skimage_apply(binned, maps, *args)
+    assert _build.LAUNCHES["skimage_apply"] == 1
+    assert torch.equal(got, KC.skimage_apply_plain(binned, maps, *args))
+
+
+@pytest.mark.cuda
+def test_k6_on_card_takes_unaligned_rows(cuda_device):
+    """Bins one int into their storage (rows not 16-byte aligned) run the
+    scalar columns where the shape alone would take the vector path."""
+    binned, maps, args = _k6_inputs(cuda_device, (2, 128, 128), (64, 64),
+                                    256, 10)
+    off = torch.empty(binned.numel() + 1, dtype=torch.int32,
+                      device=cuda_device)[1:].view(binned.shape)
+    off.copy_(binned)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    assert torch.equal(KC.skimage_apply(off, maps, *args),
+                       KC.skimage_apply_plain(binned, maps, *args))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 128, 128), (1, 251, 333)])
 def test_k2_clip01_on_card_equals_plain(cuda_device, shape):

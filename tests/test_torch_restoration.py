@@ -91,6 +91,25 @@ def test_window_hu_equals_jax(rng, kw):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+def test_window_hu_levels_equal_float64_at_in_window_ties():
+    """The uint8 levels of window_hu at center 40, width 400 (the CT
+    configs' window) equal the exact levels, rint((hu + 160) * 255 / 400)
+    in float64 (exact: one rounding of an integer quotient), at every HU
+    of the window [-160, 240]. -120, -40, 40, 120 and 200 land on a tie
+    (25.5, 76.5, 127.5, 178.5, 229.5), where a reciprocal multiply's ulp
+    would pick the other level (the jitted reference does)."""
+    from mies_tpu_torch.ops.histogram import _levels
+
+    hu = np.arange(-160, 241, dtype=np.int16)
+    exact = np.rint((hu.astype(np.float64) + 160.0) * 255.0 / 400.0)
+    ties = np.isin(hu, (-120, -40, 40, 120, 200))
+    assert (exact[ties] % 2 == 0).all() and np.array_equal(
+        np.abs((hu[ties] + 160.0) * 255.0 / 400.0 - exact[ties]),
+        np.full(5, 0.5))
+    got = _levels(TI.window_hu(_t(hu), center=40.0, width=400.0)).numpy()
+    np.testing.assert_array_equal(got, exact)
+
+
 def test_window_hu_argument_errors():
     with pytest.raises(ValueError, match="unknown HU preset"):
         TI.window_hu(torch.zeros(4, 4, dtype=torch.int16), preset="spleen")

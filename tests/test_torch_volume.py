@@ -18,6 +18,7 @@ from pytest import skip
 
 import mies_tpu_torch
 from mies_tpu_torch.kernels import _build
+from mies_tpu_torch.kernels import clahe as KC
 from mies_tpu_torch.kernels import clahe3d as K3D
 from mies_tpu_torch.ops import volume3d as TV
 from mies_tpu_torch.pipeline import compiler as TC
@@ -148,6 +149,62 @@ def test_k8_launch_takes_any_z_and_refuses_a_grid_past_the_card():
         K3D.apply_launch((1, 70000, 4), (1, 70000, 1), True)
 
 
+@pytest.mark.parametrize("shape,kernel_size", [
+    ((32, 512, 512), (8, 64, 64)), ((20, 251, 333), None),
+    ((5, 9, 14), (3, 7, 11)), ((9, 40, 70), (3, 7, 11)),
+    ((7, 33, 165), (2, 5, 9)), ((1, 1, 1), (1, 1, 1)), ((6, 3, 2), (4, 8, 8))])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k8s_blocks_cover_every_voxel_once(shape, kernel_size, aligned):
+    """K8s's blocks (kernels/clahe3d.py skimage_launch; csrc/clahe3d.cu)
+    cover every voxel of the crop exactly once, each in the region block
+    and at the weights ops.volume3d._apply_maps_3d gives it. Per axis the
+    region blocks [b k, (b + 1) k) cut to the crop, a block's (slice, row)
+    pairs cut into `strips` runs of `rpb`, its column units (csrc/
+    cells.cuh Units) into `col_splits` chunks of THREADS: each is checked
+    whole."""
+    ks = TV.skimage3d_kernel_size(shape, (4, 8, 8), kernel_size)
+    origin, _, _ = TV.skimage3d_geometry(shape, ks)
+    *nblocks, rpb, strips, col_splits = K3D.skimage_launch(ks, origin, shape,
+                                                           aligned)
+    nbx, nby, nbz = nblocks
+    extents = []
+    for axis, (o, n, k, nb) in enumerate(zip(origin, shape, ks,
+                                             (nbz, nby, nbx))):
+        pos = np.arange(o, o + n)
+        want_w = ((_t(pos) % k).to(torch.float32)
+                  / torch.tensor(float(k))).numpy()  # the plain version's
+        seen = np.zeros(n, np.int64)
+        ext = []
+        for b in range(o // k, o // k + nb):
+            p0, p1 = max(b * k, o), min((b + 1) * k, o + n)
+            assert p0 < p1
+            seen[p0 - o:p1 - o] += 1
+            assert (pos[p0 - o:p1 - o] // k == b).all()
+            w = np.arange(p0 - b * k, p1 - b * k, dtype=np.float32) / \
+                np.float32(k)  # csrc/regions.cuh region_weights
+            np.testing.assert_array_equal(w, want_w[p0 - o:p1 - o])
+            ext.append(p1 - p0)
+            if axis == 2:
+                units = _k8_units(p0, p1, aligned)
+                assert len(units) <= col_splits * K3D.THREADS
+                assert sorted(sum(units, [])) == list(range(p0, p1))
+        assert (seen == 1).all(), axis
+        extents.append(max(ext))
+    assert extents[0] * extents[1] <= strips * rpb
+    assert rpb == 1 or rpb * extents[2] <= KC.SK_PIXELS_PER_BLOCK
+
+
+def test_k8s_launch_takes_any_z_and_refuses_a_grid_past_the_card():
+    """Z is no grid dimension of K8s's launch (only its region blocks
+    are): 70,000 slices at kz = 2 launch; 70,000 region blocks on an axis
+    do not."""
+    nbx, nby, nbz, rpb, strips, _ = K3D.skimage_launch(
+        (2, 1, 4), (1, 0, 2), (70000, 2, 4), True)
+    assert (nbz, nby, nbx) == (35001, 2, 2) and strips * rpb >= 2 * 1
+    with pytest.raises(ValueError, match="launch grid"):
+        K3D.skimage_launch((1, 1, 4), (0, 0, 2), (70000, 2, 4), True)
+
+
 def test_k8_opencv_mode_matches_pallas_blocks8(rng):
     """The global-cell fractions of _blocks8_kernel's opencv mode, on the
     half-tile-shifted cells of the reference's selection form, within the
@@ -249,6 +306,34 @@ def test_clahe3d_opencv_levels_equal_jax(grid, shape):
     ref = np.asarray(clahe3d(jnp.asarray(vol), clip_limit=2.0, grid_size=grid))
     out = TV.clahe3d(_t(vol), 2.0, grid).numpy()
     np.testing.assert_array_equal(_levels(out), _levels(ref))
+
+
+def test_clahe3d_opencv_levels_on_an_in_window_ct_phantom_match_jax():
+    """clahe3d opencv (grid (4, 8, 8), clip 2) on identical float input, the
+    windowed levels of a CT phantom whose HU lie mostly inside the window
+    (center 40, width 400: soft tissue, fat, a vessel, noise of 25 HU):
+    levels within 1 on < 1e-3 of voxels of the JAX package (XLA:CPU's
+    reciprocal multiplies move a level at its rounding edges)."""
+    import jax.numpy as jnp
+    from mies_tpu.ops.volume3d import clahe3d
+
+    from mies_tpu_torch.ops.intensity import window_hu
+
+    z, h, w = 16, 64, 96
+    yy, xx = np.mgrid[:h, :w]
+    r = np.hypot((yy - h / 2) / (0.45 * h), (xx - w / 2) / (0.45 * w))
+    hu = np.where(r < 1.0, 40.0, -100.0)
+    hu = np.where((yy - 0.35 * h) ** 2 + (xx - w / 2) ** 2 < (0.1 * w) ** 2,
+                  200.0, hu)
+    hu = hu[None] + 25.0 * np.random.default_rng(83).standard_normal((z, h, w))
+    hu = np.rint(hu).astype(np.int16)
+    assert ((hu > -160) & (hu < 240)).mean() > 0.95
+    vol = window_hu(_t(hu), center=40.0, width=400.0).numpy()
+    ref = np.asarray(clahe3d(jnp.asarray(vol), clip_limit=2.0,
+                             grid_size=(4, 8, 8)))
+    out = TV.clahe3d(_t(vol), 2.0, (4, 8, 8)).numpy()
+    d = np.abs(_levels(out) - _levels(ref))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
 
 
 def test_clahe3d_fraction_matches_jax():
@@ -533,6 +618,69 @@ def test_skimage3d_on_card_equals_plain(cuda_device, shape, kernel_size):
     assert _build.LAUNCHES["clahe3d_skimage_apply"] == 1
     assert torch.equal(got, TV.clahe3d(vol, 0.01, (4, 8, 8), "skimage",
                                        kernel_size))
+
+
+def _k8s_inputs(device, shape, ks, nbins, seed):
+    """The padded bins and edge-padded maps of a random volume, and K8s's
+    crop (the plain scale-in and binning, K1 bins summed per kz, K6a)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    vol = torch.rand(shape, generator=g, device=device)
+    pad0, _, ns = TV.skimage3d_geometry(shape, ks)
+    binned = TV._skimage3d_binned(vol, ks, nbins)
+    slab = binned[pad0[0]:pad0[0] + ns[0] * ks[0]]
+    hists = KC.tile_hists_bins(slab, pad0[1:], ns[1:], ks[1:], nbins)
+    hists = hists.reshape(ns[0], ks[0], ns[1], ns[2], nbins).sum(
+        1, dtype=torch.int32)
+    k_elems = ks[0] * ks[1] * ks[2]
+    maps = KC.skimage_maps(hists, max(k_elems // 100, 1), k_elems)
+    return binned, TV._edge_pad_maps(maps), (ks, pad0, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ks", [
+    ((32, 512, 512), (8, 64, 64)),   # the vector path (x0 = 32)
+    ((20, 251, 333), (5, 31, 41)),   # scalar columns: W0 % 4 != 0
+    ((9, 40, 70), (3, 7, 11)),       # x0 = 5: scalar columns
+    ((6, 40, 130), (16, 64, 16)),    # a single region block on z and y
+    ((4, 36, 9), (2, 8, 32))])       # a single region block on x
+@pytest.mark.parametrize("nbins", [2, 256, 1000])
+def test_k8s_on_card_equals_plain(cuda_device, shape, ks, nbins):
+    """K8s's region blocks, their 8 maps as two float4 a bin: bit-equal to
+    the plain blend at every bin count the convention takes (up to 1000:
+    32 KB of quads), at unaligned widths and at a single region block on
+    an axis; one launch."""
+    binned, maps, args = _k8s_inputs(cuda_device, shape, ks, nbins, 7)
+    _build.reset_launches()
+    got = K3D.clahe3d_skimage_apply(binned, maps, *args)
+    assert _build.LAUNCHES["clahe3d_skimage_apply"] == 1
+    assert torch.equal(got, K3D.clahe3d_skimage_apply_plain(binned, maps,
+                                                            *args))
+
+
+@pytest.mark.cuda
+def test_k8s_on_card_takes_unaligned_rows_and_any_z(cuda_device):
+    """Bins one int into their storage run the scalar columns; 65,540
+    slices at kz = 2 (32,771 region blocks on grid z) launch."""
+    binned, maps, args = _k8s_inputs(cuda_device, (8, 64, 64), (4, 16, 16),
+                                     256, 8)
+    off = torch.empty(binned.numel() + 1, dtype=torch.int32,
+                      device=cuda_device)[1:].view(binned.shape)
+    off.copy_(binned)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    assert torch.equal(K3D.clahe3d_skimage_apply(off, maps, *args),
+                       K3D.clahe3d_skimage_apply_plain(binned, maps, *args))
+    # random bins and integer maps: K1 bins takes the slices as its grid z
+    shape, ks = (65540, 4, 8), (2, 4, 8)
+    pad0, pad1, ns = TV.skimage3d_geometry(shape, ks)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    binned = torch.randint(0, 256, [s + a + b for s, a, b in
+                                    zip(shape, pad0, pad1)], generator=g,
+                           device=cuda_device, dtype=torch.int32)
+    maps = torch.randint(0, 16384, [n + 2 for n in ns] + [256], generator=g,
+                         device=cuda_device).to(torch.float32)
+    args = (ks, pad0, shape)
+    assert torch.equal(K3D.clahe3d_skimage_apply(binned, maps, *args),
+                       K3D.clahe3d_skimage_apply_plain(binned, maps, *args))
 
 
 @pytest.mark.cuda
