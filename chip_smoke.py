@@ -10,7 +10,7 @@ Phases, one printed line each (or a few):
                at the main paths' shapes ([32, 512, 512]: the flagship's
                8x8 tiles (K1 to the OpenCV LUTs, K1's float counts, K2
                in both epilogues), the skimage config's 8x8 regions of
-               64x64 (K6 also at nbins 1000); the
+               64x64 (K6a and K6 also at nbins 1000); the
                restoration kernels K9-K12 on the inputs their chains give
                them, at the shipped parameters (K9 also at option 2 and at
                1 and 7 steps); the 3-D CLAHE kernels K8 (both epilogues)
@@ -24,13 +24,14 @@ Phases, one printed line each (or a few):
                every band of a 4-way row split, the stitched bands against
                K2; K13 against K3 ->
                K4 and its plain version at [32, 512, 512] and
-               [8, 1024, 1024]), with the
+               [8, 1024, 1024], by the profiler beside K3 + K4), with the
                kernel's, the plain version's and (where one PyTorch call
                computes the same function) the library call's time (CUDA
                events), the bound (least time for the bytes and the
-               operations), and for K1, K2 and K5 also the profiler's
-               device time; then on ragged shapes (251x333 slices, skimage
-               regions 31x41: odd region columns, kc % 64 != 0; volumes
+               operations), and for K1-K4, K5, K6, K6a and K13 also the
+               profiler's device time; then on ragged shapes (251x333
+               slices, skimage regions 31x41: odd region columns, kc % 64
+               != 0; volumes
                [12, 96, 160] at grid (3, 3, 5) and [20, 251, 333], K8s at
                [12, 96, 166] (W % 4 != 0); K5 on a
                3-way split at grid (6, 5); K13 in K3's three borders; K3
@@ -68,7 +69,8 @@ Phases, one printed line each (or a few):
                fused tail's A/B on the flagship (MIES_TPU_FUSE_TAIL off,
                on, on, off by time_pipeline; with it on K1 to the LUTs,
                K2, K13 once each and the same output); one line each of
-               K3's and K4's, of K1's, K2's and K5's, and of K6's and K8s's,
+               K3's and K4's, of K1's, K2's and K5's, of K6a's, and of K6's
+               and K8s's,
                ms beside the device time and busy share of the chains they
                lie on.
 The line before the last is the kernels' JSON record, the last line
@@ -397,7 +399,7 @@ def main() -> int:
     _require(err <= 2e-6, f"K3 max abs error {err} > 2e-6")
     record("K3", err, lambda: KB.bilateral_cuda(ck, 5, 0.1, 1.5, "reflect"),
            lambda: F.bilateral_blur(ck, 5, 0.1, 1.5, "reflect"),
-           8 * npx, _bilateral_ops(5) * npx)
+           8 * npx, _bilateral_ops(5) * npx, profiled=True)
 
     # K4: 4 B in + 1 B out per pixel; two 13-tap passes (mul + add per
     # tap), the unsharp blend and the quantize
@@ -409,7 +411,7 @@ def main() -> int:
              "K4 float32 (quantize=False) is not bit-equal")
     record("K4", err, lambda: KU.unsharp_quant_cuda(bk, 1.5, 1.0),
            lambda: KU.unsharp_quant_plain(bk, 1.5, 1.0),
-           5 * npx, (4 * 13 + 8) * npx)
+           5 * npx, (4 * 13 + 8) * npx, profiled=True)
 
     # the skimage config's kernels: 8x8 regions of 64x64 at 512^2
     ks = H.skimage_kernel_size((SIZE, SIZE), GRID)
@@ -434,9 +436,9 @@ def main() -> int:
            4 * win.numel() + 4 * sk.numel(), win.numel(),
            _index_add_ms(bkey, sk.numel()), profiled=True)
 
-    # K6a: R regions x nbins threads; ops counted from this run's phase-3
-    # steps: 16 per bin for phases 1-2, the scale and the floor, 8 per bin
-    # per sweep step, 2 per bin per scan level
+    # K6a: a warp per region; ops counted from this run's phase-3 steps: 16
+    # per bin for phases 1-2, the scale and the floor, 8 per bin per sweep
+    # step, 2 per bin per scan level
     mk, mp = KC.skimage_maps(sk, clim, k_elems), KC.skimage_maps_plain(sk, clim, k_elems)
     err = (mk - mp).abs().max().item()
     _require(torch.equal(mk, mp), f"K6a maps differ by up to {err}")
@@ -446,7 +448,7 @@ def main() -> int:
                        + 8 * steps.sum().item())
     record("K6a", err, lambda: KC.skimage_maps(sk, clim, k_elems),
            lambda: KC.skimage_maps_plain(sk, clim, k_elems),
-           8 * sk.numel(), k6a_ops, plain_iters=3)
+           8 * sk.numel(), k6a_ops, plain_iters=3, profiled=True)
     print(f"K6a phase-3 steps per region: max {steps.max().item()}, mean "
           f"{steps.float().mean().item():.2f}, regions with a sweep "
           f"{int((steps > 0).sum().item())} of {n_regions}")
@@ -462,8 +464,17 @@ def main() -> int:
            8 * npx + 4 * mk.numel(), 16 * npx, profiled=True)
     # K6 at nbins 1000 (16 KB of corner quads a block), the same regions
     b1k = H._skimage_binned(x, ks, 1000)
-    m1k = KC.skimage_maps(KC.tile_hists_bins(b1k, origin, rgrid, ks, 1000),
-                          clim, k_elems)
+    s1k = KC.tile_hists_bins(b1k, origin, rgrid, ks, 1000)
+    m1k = KC.skimage_maps(s1k, clim, k_elems)
+    # K6a at nbins 1000: 32 bins a lane
+    err = (m1k - KC.skimage_maps_plain(s1k, clim, k_elems)).abs().max().item()
+    _require(err == 0, f"K6a at nbins 1000 differs by up to {err}")
+    _, steps1k = H._clip_histogram_skimage(s1k, clim, 1000, with_steps=True)
+    record("K6an", err, lambda: KC.skimage_maps(s1k, clim, k_elems),
+           lambda: KC.skimage_maps_plain(s1k, clim, k_elems), 8 * s1k.numel(),
+           1000 * (n_regions * (16 + 2 * math.log2(1000))
+                   + 8 * steps1k.sum().item()),
+           plain_iters=3, profiled=True)
     ak = KC.skimage_apply(b1k, m1k, ks, origin, out_hw)
     ap = KC.skimage_apply_plain(b1k, m1k, ks, origin, out_hw)
     err = (ak - ap).abs().max().item()
@@ -811,9 +822,16 @@ def main() -> int:
     # 4 B in + 1 B out per pixel; K3's 136 and K4's 60 operations per pixel
     record("K13", k13_err["u8"], lambda: KF.bilateral_unsharp_cuda(ck, *kp),
            lambda: KF.bilateral_unsharp_plain(ck, *kp), 5 * npx,
-           (_bilateral_ops(5) + 4 * 13 + 8) * npx)
+           (_bilateral_ops(5) + 4 * 13 + 8) * npx, profiled=True)
+    record("K13m", k13m_err["u8"], lambda: KF.bilateral_unsharp_cuda(cm, *kp),
+           lambda: KF.bilateral_unsharp_plain(cm, *kp), 5 * npm,
+           (_bilateral_ops(5) + 4 * 13 + 8) * npm, at=at_m, profiled=True)
     print(f"K13: == K3 -> K4 at [{BATCH},{SIZE},{SIZE}] and {at_m}, both quantize "
           f"modes; max abs vs the plain tail {k13_err} / {k13m_err}")
+    k3k4 = rec_dev["K3"] + rec_dev["K4"]
+    print(f"K13 {rec_dev['K13']:.4f} ms by the profiler against K3 + K4 "
+          f"{k3k4:.4f} ({rec_dev['K3']:.4f} + {rec_dev['K4']:.4f}) "
+          f"[{BATCH},{SIZE},{SIZE}]; {rec_dev['K13m']:.4f} {at_m} | {card}")
 
     torch.cuda.synchronize()
     for k, r in rec.items():
@@ -1387,6 +1405,13 @@ def main() -> int:
         return sum(ms for name, ms in dict(profiles)[label]["by_kernel"].items()
                    if kernel in name)
 
+    print(f"K6a {rec['K6a']['ms']:.4f} ms (profiler {rec_dev['K6a']:.4f}; in "
+          f"the skimage chain {in_chain('skimage yaml', 'skimage_maps_kernel'):.4f}, "
+          f"in the volume "
+          f"{in_chain('clahe3d skimage volume', 'skimage_maps_kernel'):.4f}), "
+          f"nbins 1000 {rec['K6an']['ms']:.4f} ({rec_dev['K6an']:.4f}) | "
+          f"bounds {rec['K6a']['bound_ms']:.4f}, {rec['K6an']['bound_ms']:.4f} "
+          f"| {card}")
     print(f"K6 {rec['K6']['ms']:.4f} ms (profiler {rec_dev['K6']:.4f}; in the "
           f"skimage chain {in_chain('skimage yaml', 'skimage_apply_kernel'):.4f}) "
           f"[{BATCH},{SIZE},{SIZE}], nbins 1000 {rec['K6n']['ms']:.4f} "
@@ -1421,6 +1446,9 @@ def main() -> int:
         ("unsharp_quant", "K4", launches, "mies_tpu_torch/csrc/unsharp.cu",
          "mies_tpu/kernels/unsharp_gauss.py:159"),
         ("skimage_maps", "K6a", sk_launches,
+         "mies_tpu_torch/csrc/clahe_skimage.cu",
+         "mies_tpu/ops/histogram.py:602"),
+        ("skimage_maps", "K6an", sk_launches,
          "mies_tpu_torch/csrc/clahe_skimage.cu",
          "mies_tpu/ops/histogram.py:602"),
         ("skimage_apply", "K6", sk_launches,
@@ -1463,6 +1491,8 @@ def main() -> int:
          "mies_tpu_torch/csrc/clahe.cu", "mies_tpu/kernels/clahe.py:1149"),
         ("bilateral_unsharp", "K13", fused_launches,
          "mies_tpu_torch/csrc/fused.cu", "mies_tpu/kernels/fused.py:43"),
+        ("bilateral_unsharp", "K13m", fused_launches,
+         "mies_tpu_torch/csrc/fused.cu", "mies_tpu/kernels/fused.py:43"),
     )
     names = {"K1b": "tile_hists_bins", "K2c": "clahe_apply_lut[clip01]",
              "K2": "clahe_apply_lut[u8norm]", "K8": "clahe3d_apply[u8norm]",
@@ -1470,6 +1500,8 @@ def main() -> int:
              "K8v": "clahe3d_apply[u8norm,256x512x512]",
              "K8cv": "clahe3d_apply[clip01,256x512x512]",
              "K6n": "skimage_apply[nbins1000]",
+             "K6an": "skimage_maps[nbins1000]",
+             "K13m": "bilateral_unsharp[8x1024x1024]",
              "K6x": "skimage_apply[1x4096x4096]",
              "K8sn": "clahe3d_skimage_apply[nbins1000]",
              "K3r": "bilateral[8x1024x1024]",

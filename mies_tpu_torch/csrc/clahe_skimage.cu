@@ -2,15 +2,30 @@
 //
 // K6a (mies_skimage_maps) replaces XLA-side code, not a Pallas kernel:
 // mies_tpu/ops/histogram.py:_clip_histogram_skimage + _skimage_maps. One
-// block per region, one thread per bin. Phases 1-2 (clip, uniform spread,
-// top-up of near-limit bins) use block sums; phase 3, the iterative strided
-// sweep, runs in the block: each step counts the bins under the limit and
-// the bins it tops up with __syncthreads_count, so the loop never returns
-// to the host (the plain version synchronises with the host at every step).
-// Then an inclusive block scan for the cumsum, __fmul_rn by the f32 scale
-// 16383 / k_elems, min and floor. Integers until the scale: bit-equal to the
-// plain version. Bound: its latency (a few KB per region, a data-dependent
-// number of barrier steps), not bytes.
+// warp per region, kMapWarps regions a block, no shared memory and no block
+// barrier: lane l holds the contiguous bins [l P, l P + P) in registers
+// (P = 8 up to 256 bins: two int4 loads and two float4 stores a lane; P =
+// 32 up to 1024; bins at or past nbins never count and are never stored).
+// Phases 1-2 (clip, uniform spread, top-up of near-limit bins) are per-lane
+// sums over the lane's bins and one __reduce_add_sync each. Phase 3, the
+// iterative strided sweep, runs on warp-uniform n, index and sweep_start,
+// so the loop never returns to the host (the plain version synchronises
+// with the host at every step): a lane keeps its bins under the limit as a
+// bit mask; each step takes step = max(n_under / max(n, 1), 1), finds the
+// lane's first selected bin with one modulo (the first t >= max(index,
+// l P) with (t - index) % step == 0), selects every step-th under-limit bin
+// from there (a mask of bits step apart), and one warp reduction gives the
+// selected count (off n) and the count that reached the limit (off
+// n_under). No loop over a lane's bins carries a dependence. A step with
+// no under-limit bin at or past index ends the sweep at once: the steps it
+// skips select nothing (stalled sweeps, and most of a sweep whose last
+// under-limit bins lie behind index, are made of them). Then a
+// serial inclusive scan of the lane's bins, a warp exclusive scan of the
+// lane totals by __shfl_up_sync (5 levels), __fmul_rn by the f32 scale
+// 16383 / k_elems, min and floor. Integers until the scale: bit-equal to
+// the plain version. Bound: 8 B per bin (the counts read, the maps
+// written); what costs is the latency of the data-dependent number of
+// phase-3 steps, one warp reduction each.
 //
 // K6 (mies_skimage_apply) replaces mies_tpu/kernels/clahe.py:
 // _apply_maps_rows_kernel (kc % 64 == 0) and _apply_maps_kernel (every other
@@ -39,64 +54,124 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "cells.cuh"
 #include "regions.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // kernels/clahe.py THREADS
-constexpr int kMaxBins = 1024;  // kernels/clahe.py MAX_BINS
+constexpr int kThreads = 256;  // kernels/clahe.py THREADS (K6)
+constexpr int kMaxBins = 1024;  // kernels/clahe.py MAX_BINS: 32 lanes x 32
+constexpr int kMapWarps = 4;  // K6a's regions a block, a warp each
 constexpr int kMaxGridYZ = 65535;
 constexpr float kMaxGray = 16383.0f;  // NR_OF_GRAY - 1
+constexpr unsigned kFull = 0xffffffffu;
 
-// Sum of one int per thread over the block (all threads must call it).
-__device__ __forceinline__ int block_sum(int v, int* acc) {
-  if (threadIdx.x == 0) *acc = 0;
-  __syncthreads();
-  if (v) atomicAdd(acc, v);
-  __syncthreads();
-  const int total = *acc;
-  __syncthreads();
-  return total;
-}
-
-// blockDim.x = nbins rounded up to a warp; thread t owns bin t < nbins.
-__global__ void skimage_maps_kernel(const int* __restrict__ hists,
-                                    float* __restrict__ maps, int nbins,
-                                    int clim, float scale) {
-  extern __shared__ int scan[];  // blockDim.x ints
-  __shared__ int acc;
-  const int t = threadIdx.x;
-  const bool valid = t < nbins;
-  const size_t base = static_cast<size_t>(blockIdx.x) * nbins;
-  int h = valid ? hists[base + t] : 0;
+// Warp w of block b owns region b * kMapWarps + w; lane l its bins
+// [l P, l P + P) cut to nbins. vec: the lane's P bins as int4 / float4 when
+// they are all valid (hists and maps 16-byte aligned, nbins % 4 == 0).
+template <int P>
+__global__ void __launch_bounds__(32 * kMapWarps)
+skimage_maps_kernel(const int* __restrict__ hists, float* __restrict__ maps,
+                    int R, int nbins, int clim, float scale, int vec) {
+  const int region = blockIdx.x * kMapWarps + threadIdx.x / 32;
+  if (region >= R) return;  // warp-uniform: no block barrier below
+  const int lane = threadIdx.x % 32;
+  const int lo = lane * P;                        // the lane's first bin
+  const int nv = min(max(nbins - lo, 0), P);      // its valid bins
+  const bool full = vec && nv == P;
+  const size_t base = static_cast<size_t>(region) * nbins + lo;
+  int h[P];
+  if (full) {
+#pragma unroll
+    for (int i = 0; i < P; i += 4) {
+      const int4 q = *reinterpret_cast<const int4*>(hists + base + i);
+      h[i] = q.x, h[i + 1] = q.y, h[i + 2] = q.z, h[i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) h[i] = i < nv ? hists[base + i] : 0;
+  }
 
   // phase 1: clip at the limit, count the excess
-  int n = block_sum(h > clim ? h - clim : 0, &acc);
-  h = min(h, clim);
+  int part = 0;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    if (h[i] > clim) part += h[i] - clim;
+    h[i] = min(h[i], clim);
+  }
+  int n = __reduce_add_sync(kFull, part);
 
   // phase 2: uniform spread to the bins below clim - incr, then the top-up
   // of bins at or above that (on the UPDATED hist, as skimage does)
   const int incr = n / nbins;
   const int upper = clim - incr;
-  const bool low = valid && h < upper;
-  n -= __syncthreads_count(low) * incr;
-  if (low) h += incr;
-  const bool mid = valid && h >= upper && h < clim;
-  n -= block_sum(mid ? clim - h : 0, &acc);
-  if (mid) h = clim;
+  part = 0;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    if (i < nv && h[i] < upper) {
+      h[i] += incr;
+      ++part;
+    }
+  }
+  n -= __reduce_add_sync(kFull, part) * incr;
+  part = 0;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    if (i < nv && h[i] >= upper && h[i] < clim) {
+      part += clim - h[i];
+      h[i] = clim;
+    }
+  }
+  n -= __reduce_add_sync(kFull, part);
 
   // phase 3: from sweep index `index`, every under-limit bin at stride
   // max(n_under / n, 1) gets one; a full sweep without progress stalls.
-  // n, index and sweep_start are block-uniform, so is the loop.
+  // n, n_under, index and sweep_start are warp-uniform, so is the loop.
+  // The lane's bins under the limit are a bit mask; a step selects the
+  // lane's first bin at index + a multiple of step (one modulo), then every
+  // step-th bin after it (a pattern of bits step apart, shifted there).
+  // Only a selected bin can reach the limit, so n_under drops by those,
+  // summed in the same warp reduction as the selected ones.
+  unsigned under = 0;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    under |= static_cast<unsigned>(i < nv && h[i] < clim) << i;
+  }
+  int n_under = __reduce_add_sync(kFull, __popc(under));
   int index = 0, sweep_start = n;
   bool stalled = false;
   while (n > 0 && !stalled) {
-    const bool under = valid && h < clim;
-    const int step = max(__syncthreads_count(under) / max(n, 1), 1);
-    const bool sel = under && t >= index && (t - index) % step == 0;
-    n -= __syncthreads_count(sel);
-    h += sel;
+    // no bin under the limit at or past index: the sweep's remaining steps
+    // select nothing, so go to its end at once (n is what they leave)
+    const int past = index - lo;
+    const unsigned ahead = past <= 0 ? under : past < 32 ? under >> past : 0u;
+    if (!__any_sync(kFull, ahead != 0u)) {
+      stalled = n == sweep_start;
+      sweep_start = n;
+      index = 0;
+      continue;
+    }
+    const int step = max(n_under / max(n, 1), 1);
+    const int t0 = max(index, lo);
+    const int rem = (t0 - index) % step;
+    const int first = t0 - lo + (rem ? step - rem : 0);
+    unsigned stride = 1;  // bits 0, step, 2 step, ...
+    for (int w = step; w < 32; w <<= 1) stride |= stride << w;
+    const unsigned sel = first < P ? (stride << first) & under : 0u;
+    unsigned full = 0;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      h[i] += (sel >> i) & 1u;
+      full |= static_cast<unsigned>(h[i] >= clim) << i;
+    }
+    const unsigned filled = sel & full;
+    under &= ~filled;
+    const int taken = __reduce_add_sync(
+        kFull, static_cast<int>((__popc(sel) << 16) | __popc(filled)));
+    n -= taken >> 16;
+    n_under -= taken & 0xffff;
     if (++index == nbins) {
       stalled = n == sweep_start;
       sweep_start = n;
@@ -104,18 +179,38 @@ __global__ void skimage_maps_kernel(const int* __restrict__ hists,
     }
   }
 
-  // inclusive scan (Hillis-Steele) of the integer counts
-  scan[t] = valid ? h : 0;
-  __syncthreads();
-  for (int off = 1; off < blockDim.x; off <<= 1) {
-    const int add = t >= off ? scan[t - off] : 0;
-    __syncthreads();
-    scan[t] += add;
-    __syncthreads();
+  // inclusive cumsum: the lane's bins, then the lanes before it
+  int run = 0;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    run += h[i];  // 0 past nbins
+    h[i] = run;
   }
-  if (valid)
-    maps[base + t] =
-        floorf(fminf(__fmul_rn(__int2float_rn(scan[t]), scale), kMaxGray));
+  int before = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, before, off);
+    if (lane >= off) before += y;
+  }
+  before -= run;  // exclusive
+  float m[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    m[i] = floorf(
+        fminf(__fmul_rn(__int2float_rn(h[i] + before), scale), kMaxGray));
+  }
+  if (full) {
+#pragma unroll
+    for (int i = 0; i < P; i += 4) {
+      *reinterpret_cast<float4*>(maps + base + i) =
+          make_float4(m[i], m[i + 1], m[i + 2], m[i + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      if (i < nv) maps[base + i] = m[i];
+    }
+  }
 }
 
 // skimage's blend of the corner quad q at weights (omy, wy) x (omx, wx)
@@ -202,13 +297,24 @@ skimage_apply_kernel(const int* __restrict__ bins,
 }  // namespace
 
 // hists: [R, nbins] int32 region counts; maps: [R, nbins] f32. clim is the
-// integer clip limit, scale the f32 16383 / k_elems. nbins <= 1024.
+// integer clip limit, scale the f32 16383 / k_elems. 1 <= nbins <= 1024.
 extern "C" int mies_skimage_maps(const int* hists, float* maps, int R,
                                  int nbins, int clim, float scale,
                                  cudaStream_t stream) {
-  const int threads = (nbins + 31) / 32 * 32;
-  skimage_maps_kernel<<<R, threads, threads * sizeof(int), stream>>>(
-      hists, maps, nbins, clim, scale);
+  if (R < 1 || nbins < 1 || nbins > kMaxBins) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int vec = nbins % 4 == 0 &&
+                  (reinterpret_cast<uintptr_t>(hists) |
+                   reinterpret_cast<uintptr_t>(maps)) % 16 == 0;
+  const unsigned blocks = (R + kMapWarps - 1) / kMapWarps;
+  if (nbins <= 32 * 8) {
+    skimage_maps_kernel<8><<<blocks, 32 * kMapWarps, 0, stream>>>(
+        hists, maps, R, nbins, clim, scale, vec);
+  } else {
+    skimage_maps_kernel<32><<<blocks, 32 * kMapWarps, 0, stream>>>(
+        hists, maps, R, nbins, clim, scale, vec);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,7 +33,7 @@ from mies_tpu_torch.kernels import _build
 from mies_tpu_torch.ops import histogram as H
 
 NBINS = H.NBINS
-MAX_BINS = 1024  # K6a runs one thread per bin, and a block has at most 1024
+MAX_BINS = 1024  # K6a's warp holds a region's bins, at most 32 a lane
 THREADS = 256  # csrc/clahe_skimage.cu kThreads (K6)
 # about a K6 or K8s block's share of an interpolation block, as K1 and K2
 # take: 8,192 ran faster than 16,384 for K8s and no slower for K6 on an
@@ -61,7 +61,7 @@ def _check_nbins(nbins: int) -> None:
     if not 2 <= nbins <= MAX_BINS:
         raise ValueError(
             f"nbins={nbins}: the skimage kernels take 2..{MAX_BINS} bins "
-            f"(K6a runs one thread per bin)"
+            f"(K6a holds at most 32 bins a lane of a warp)"
         )
 
 

@@ -8,8 +8,12 @@ the tail runs as K3 -> K4. K13 is bit-equal to K3 -> K4 on the card (the
 same arithmetic, the unsharp's border replicating the bilateral OUTPUT's
 edge); against its plain version it agrees as K3 does with the plain
 bilateral (f32 within 2e-6, uint8 within one level on rounding ties).
-Its only limits are the kernel's: k <= 9, and the staged tiles within a
-block's shared memory.
+The kernel runs K3's pair-weight strip walk (``csrc/bilateral.cuh``)
+feeding K4's column windows (``csrc/strip.cuh``) in one block: a strip of
+``STRIP_W`` output columns at the register radii, ``WIDE_W - 2 rg`` at any
+other, walking 128 rows. Its only limits are the kernel's: k <= 9,
+and a Gaussian radius whose strip keeps an output column and whose rings
+fit a block's shared memory (every radius 1..63 at every k).
 """
 
 from __future__ import annotations
@@ -21,33 +25,46 @@ from mies_tpu_torch.kernels.bilateral import MAX_KERNEL_SIZE, _MODE_CODE
 from mies_tpu_torch.kernels.unsharp_gauss import _tap_radius
 from mies_tpu_torch.ops import filters as F
 
-TILE = 64  # the kernel's output tile, rows and columns (csrc/fused.cu kTile)
-MAX_RADIUS = 64  # the widest Gaussian radius its taps hold
+MAX_RADIUS = 63  # the widest Gaussian radius (csrc/fused.cu kMaxRg)
+REGISTER_RADII = (6, 4)  # radii whose windows sit in registers
+STRIP_W = 256  # output columns of a strip at those radii (kStripW)
+WIDE_W = 128  # bilateral columns of a strip at the other radii (kWideW)
 SMEM_MAX = 232448  # the shared memory a block may use on sm_90
 TRUNCATE = 4.0  # unsharp_mask's Gaussian is truncated at 4 sigma
 
 
+def strip_columns(rg: int) -> int:
+    """Output columns of a K13 strip at Gaussian radius rg: the bilateral
+    strip less its rg halo on each side."""
+    return STRIP_W if rg in REGISTER_RADII else WIDE_W - 2 * rg
+
+
 def smem_bytes(kernel_size: int, rg: int) -> int:
-    """Shared memory bytes of a K13 block: the weights and taps, the input
-    with an rb + rg halo and the bilateral over an rg halo (csrc/fused.cu
-    smem_bytes)."""
-    xw = TILE + 2 * (kernel_size // 2 + rg)
-    bw = TILE + 2 * rg
-    return 4 * (kernel_size * kernel_size + 2 * rg + 1 + xw * xw + bw * bw)
+    """Shared memory bytes of a K13 block (csrc/fused.cu smem_floats): K3's
+    rings of input rows and pair weights over the bilateral strip, its
+    staged bilateral row and vertical sums, and at a radius outside
+    REGISTER_RADII the taps and a ring of 2 rg + 1 bilateral rows."""
+    r = kernel_size // 2
+    bw = strip_columns(rg) + 2 * rg
+    rings = (r + 1) * (bw + 4 * r + r * (kernel_size + 1) * (bw + 2 * r))
+    window = 0 if rg in REGISTER_RADII else (2 * rg + 1) * (1 + bw)
+    return 4 * (rings + 2 * bw + window)
 
 
 def bilateral_unsharp_supported(kernel_size: int, radius: float,
                                 bilateral_mode: str = "reflect") -> bool:
     """Whether K13 takes this tail: an odd k <= 9 with a border K3 has, a
-    Gaussian radius within its taps, and the staged tiles within a block's
-    shared memory (decided from the config; any image shape runs)."""
+    Gaussian radius within its taps whose strip keeps an output column, and
+    the rings within a block's shared memory (decided from the config; any
+    image shape runs)."""
     k = int(kernel_size)
     if k % 2 != 1 or not 1 <= k <= MAX_KERNEL_SIZE:
         return False
     if bilateral_mode not in _MODE_CODE or radius <= 0:
         return False
     rg = _tap_radius(radius, TRUNCATE)
-    return 1 <= rg <= MAX_RADIUS and smem_bytes(k, rg) <= SMEM_MAX
+    return (1 <= rg <= MAX_RADIUS and strip_columns(rg) >= 1
+            and smem_bytes(k, rg) <= SMEM_MAX)
 
 
 def bilateral_unsharp_plain(
@@ -89,7 +106,7 @@ def bilateral_unsharp_cuda(
             f"bilateral k={kernel_size} mode {bilateral_mode!r} -> unsharp "
             f"radius {radius}: K13 takes odd k <= {MAX_KERNEL_SIZE}, a "
             f"border in {sorted(_MODE_CODE)} and Gaussian radii "
-            f"1..{MAX_RADIUS} whose tiles fit {SMEM_MAX} bytes of shared "
+            f"1..{MAX_RADIUS} whose rings fit {SMEM_MAX} bytes of shared "
             f"memory"
         )
     if batch.device.type == "cpu":

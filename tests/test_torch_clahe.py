@@ -112,6 +112,123 @@ def test_k6a_plain_equals_jax(rng, nbins, clim, k_elems):
     np.testing.assert_array_equal(out.reshape(-1, nbins).numpy(), np.asarray(ref))
 
 
+def _k6a_warp_model(hists: np.ndarray, clim: int, nbins: int) -> np.ndarray:
+    """numpy model of K6a's warp (csrc/clahe_skimage.cu): lane l of 32
+    holds bins [l P, l P + P) (P = 8 up to 256 bins, else 32), bins past
+    nbins held as invalid; sums are per-lane sums then the warp's; phase 3
+    keeps the under-limit bins as masks and their count n_under, ends a
+    sweep at once when no under-limit bin lies at or past index, and a step
+    finds each lane's first selected bin with one modulo, selects every
+    step-th under-limit bin from there, and takes the selected bins that
+    reach the limit off n_under; the cumsum is a serial scan in each lane
+    plus a Hillis-Steele exclusive scan of the lane totals (the shuffles).
+    Returns the cumsums [R, nbins] int64."""
+    p = 8 if nbins <= 256 else 32
+    valid = (np.arange(32 * p) < nbins).reshape(32, p)
+    lane_lo = np.arange(32) * p
+    out = []
+    for hist in hists.reshape(-1, nbins).astype(np.int64):
+        h = np.zeros(32 * p, np.int64)
+        h[:nbins] = hist
+        h = h.reshape(32, p)
+
+        def warp_sum(per_bin):
+            return int(np.where(valid, per_bin, 0).sum(axis=1).sum())
+
+        n = warp_sum(np.maximum(h - clim, 0))
+        h = np.minimum(h, clim)
+        incr = n // nbins
+        upper = clim - incr
+        low = valid & (h < upper)
+        n -= warp_sum(low) * incr
+        h = h + np.where(low, incr, 0)
+        mid = valid & (h >= upper) & (h < clim)
+        n -= warp_sum(np.where(mid, clim - h, 0))
+        h = np.where(mid, clim, h)
+        under = valid & (h < clim)
+        n_under = warp_sum(under)
+        index, sweep_start, stalled = 0, n, False
+        while n > 0 and not stalled:
+            if not (under & (np.arange(32 * p).reshape(32, p) >= index)).any():
+                stalled, sweep_start, index = n == sweep_start, n, 0
+                continue  # the sweep's steps left select nothing
+            step = max(n_under // max(n, 1), 1)
+            t0 = np.maximum(index, lane_lo)
+            rem = (t0 - index) % step  # one modulo a lane
+            first = t0 - lane_lo + np.where(rem > 0, step - rem, 0)
+            walk = np.zeros_like(valid)
+            for lane in np.flatnonzero(first < p):
+                walk[lane, first[lane]::step] = True  # bits step apart
+            sel = walk & under
+            h = h + sel
+            filled = sel & (h >= clim)
+            under &= ~filled
+            n -= warp_sum(sel)
+            n_under -= warp_sum(filled)
+            index += 1
+            if index == nbins:
+                stalled, sweep_start, index = n == sweep_start, n, 0
+        run = np.cumsum(h, axis=1)
+        before = run[:, -1].copy()
+        off = 1
+        while off < 32:  # __shfl_up_sync: lane l adds lane l - off's value
+            before[off:] = before[off:] + before[:-off].copy()
+            off *= 2
+        out.append((run + (before - run[:, -1])[:, None]).reshape(-1)[:nbins])
+    return np.stack(out)
+
+
+def _k6a_cases(rng, nbins, k_elems, clim):
+    """Region histograms: random and peaked of k_elems pixels, a one-bin
+    spike, and two that phase 3 sweeps more than once: more excess than
+    the under-limit bins hold (a sweep that fills them, then one that
+    stalls), and two under-limit bins at the front with room for two each
+    (a sweep that leaves one for the next)."""
+    flat = rng.multinomial(k_elems, np.full(nbins, 1.0 / nbins), 2)
+    peak = np.exp(-0.5 * ((np.arange(nbins) - nbins / 3)
+                          / max(nbins / 16, 0.5)) ** 2) + 1e-3
+    peaked = rng.multinomial(k_elems, peak / peak.sum(), 2)
+    spike = np.zeros((1, nbins), np.int64)
+    spike[0, rng.integers(0, nbins)] = k_elems
+    front = max(nbins // 4, 1)
+    overfull = np.full((1, nbins), clim, np.int64)
+    overfull[0, :front] = clim - 1
+    overfull[0, -1] += front + 5
+    slow = np.full((1, nbins), clim, np.int64)
+    slow[0, :2] = max(clim - 2, 0)
+    slow[0, -1] += 4
+    return np.concatenate([flat, peaked, spike, overfull, slow]).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("nbins", [2, 31, 33, 256, 1000, 1024])
+@pytest.mark.parametrize("clim", ["1", "2", "0.01k"])
+def test_k6a_warp_model_equals_jax_and_plain(rng, nbins, clim):
+    """K6a's lane partition reproduces the JAX package's
+    _clip_histogram_skimage (and its maps) and the port's plain version,
+    at clip limits whose phase 3 needs several sweeps (1, 2) and the
+    shipped 0.01 of a region."""
+    k_elems = 1024
+    c = {"1": 1, "2": 2, "0.01k": max(int(0.01 * k_elems), 1)}[clim]
+    hists = _k6a_cases(rng, nbins, k_elems, c)
+    _, steps = TH._clip_histogram_skimage(torch.from_numpy(hists), c, nbins,
+                                          with_steps=True)
+    cums = _k6a_warp_model(hists, c, nbins)
+    ref_clip = np.asarray(JH._clip_histogram_skimage(jnp.asarray(hists), c,
+                                                     nbins))
+    np.testing.assert_array_equal(np.diff(cums, axis=1, prepend=0), ref_clip)
+    scale = np.float32((TH.NR_OF_GRAY - 1) / k_elems)
+    maps = np.floor(np.minimum(cums.astype(np.float32) * scale,
+                               np.float32(TH.NR_OF_GRAY - 1)))
+    np.testing.assert_array_equal(
+        maps, np.asarray(JH._skimage_maps(jnp.asarray(ref_clip), k_elems)))
+    plain = KC.skimage_maps(torch.from_numpy(hists).reshape(1, 1, -1, nbins),
+                            c, k_elems)
+    np.testing.assert_array_equal(maps, plain.reshape(-1, nbins).numpy())
+    if nbins > 2:  # two bins: phase 2 spreads any excess a sweep could
+        assert steps.max() > nbins, "no region swept more than once"
+
+
 def test_k6a_clip_equals_golden_transcription(rng):
     """Phase by phase, the golden's sequential loop over one region."""
     hists = _hist_cases(rng, 256)

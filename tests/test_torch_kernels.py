@@ -11,6 +11,8 @@ tests/conftest.py, so on a card without jax they run as
 chip_smoke.py runs the same comparisons at the main path's shapes.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -373,6 +375,44 @@ def test_k3_on_card_repeats_its_bits(cuda_device):
     assert torch.equal(KB.bilateral_cuda(x, 5, 0.1, 1.5), first)
 
 
+# K3's output before its strip walk moved to csrc/bilateral.cuh (shared
+# with K13): the first 16 hex digits of the sha256 of bilateral_cuda's f32
+# output, sigma_color 0.1, sigma_space 1.5, on
+# np.random.default_rng(31).random(shape), by (shape, k) and border
+K3_SHA256 = {
+    ((1, 513, 511), 1): {"reflect": "b1cad589ff29f476", "mirror": "b1cad589ff29f476",
+                         "nearest": "b1cad589ff29f476"},
+    ((1, 513, 511), 3): {"reflect": "54297271bdcaee0d", "mirror": "2919165abcbaf9d2",
+                         "nearest": "54297271bdcaee0d"},
+    ((1, 513, 511), 5): {"reflect": "a2bead2ca342d7b9", "mirror": "78839b540b45948b",
+                         "nearest": "ddeaf0426908e3cc"},
+    ((1, 513, 511), 7): {"reflect": "bb35d74808e74228", "mirror": "86f80a9ea9799cba",
+                         "nearest": "4f869a6016f6c79d"},
+    ((1, 513, 511), 9): {"reflect": "4f16622f8f489aa3", "mirror": "e10b8048e6353ad9",
+                         "nearest": "dfc13f02e9ddf3ac"},
+    ((2, 77, 130), 1): {"reflect": "088579a882a1efaf", "mirror": "088579a882a1efaf",
+                         "nearest": "088579a882a1efaf"},
+    ((2, 77, 130), 3): {"reflect": "231ffd11fbc17137", "mirror": "e96e303f3cd1551a",
+                         "nearest": "231ffd11fbc17137"},
+    ((2, 77, 130), 5): {"reflect": "18c901c463dbb1bb", "mirror": "8a9ad2c1d538dce3",
+                         "nearest": "ac98e5b2bf66e060"},
+    ((2, 77, 130), 7): {"reflect": "5f4247c32623dc52", "mirror": "cad5ea54dea34c5e",
+                         "nearest": "d99e9712f27aa0d5"},
+    ((2, 77, 130), 9): {"reflect": "d9f89ff44f019bcb", "mirror": "3202320eecf04f06",
+                         "nearest": "27f1704931f1fe34"},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", sorted(K3_SHA256))
+def test_k3_on_card_hashes_as_before_the_shared_walk(cuda_device, shape, k):
+    x = torch.from_numpy(np.random.default_rng(31).random(shape).astype(
+        np.float32)).to(cuda_device)
+    for mode, want in K3_SHA256[(shape, k)].items():
+        got = KB.bilateral_cuda(x, k, 0.1, 1.5, mode).cpu().numpy()
+        assert hashlib.sha256(got.tobytes()).hexdigest()[:16] == want, mode
+
+
 @pytest.mark.cuda
 def test_k3_refuses_asymmetric_spatial_weights(cuda_device):
     """The pair weights assume spatial[c + i] == spatial[c - i]; the C entry
@@ -431,6 +471,53 @@ def test_k6a_on_card_equals_plain(cuda_device, nbins, clim):
     assert steps.max().item() > 0  # phase 3 runs
     got = KC.skimage_maps(hists, clim, 4096)
     assert torch.equal(got, KC.skimage_maps_plain(hists, clim, 4096))
+
+
+def _k6a_hists(shape, k_elems: int, clim: int) -> torch.Tensor:
+    """[..., nbins] int32 region counts, the regions in turn: random and
+    peaked counts of k_elems pixels, and two kinds that phase 3 sweeps more
+    than once (more excess than the under-limit bins hold; two under-limit
+    bins at the front with room for two each)."""
+    rng = np.random.default_rng(6)
+    nbins = shape[-1]
+    regions = int(np.prod(shape[:-1]))
+    peak = np.exp(-0.5 * ((np.arange(nbins) - nbins / 3)
+                          / max(nbins / 16, 0.5)) ** 2) + 1e-3
+    out = np.empty((regions, nbins), np.int64)
+    for r in range(regions):
+        kind = r % 4
+        if kind == 0:
+            out[r] = rng.multinomial(k_elems, np.full(nbins, 1.0 / nbins))
+        elif kind == 1:
+            out[r] = rng.multinomial(k_elems, peak / peak.sum())
+        elif kind == 2:
+            front = max(nbins // 4, 1)
+            out[r] = clim
+            out[r, :front] = clim - 1
+            out[r, -1] += front + 5
+        else:
+            out[r] = clim
+            out[r, :2] = max(clim - 2, 0)
+            out[r, -1] += 4
+    return torch.from_numpy(out.reshape(shape).astype(np.int32))
+
+
+# K6a holds a region in one warp, 8 bins a lane up to 256 and 32 up to
+# 1024: the main path's shapes, then bin counts that leave lanes empty or
+# part full
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 8, 8, 256), (4, 8, 8, 1000),
+                                   (2, 2, 4, 2), (2, 2, 4, 31),
+                                   (2, 2, 4, 33), (2, 2, 4, 1024)])
+@pytest.mark.parametrize("clim", ["1", "2", "0.01k"])
+def test_k6a_on_card_equals_plain_at_every_clip(cuda_device, shape, clim):
+    k_elems = 4096
+    c = {"1": 1, "2": 2, "0.01k": int(0.01 * k_elems)}[clim]
+    hists = _k6a_hists(shape, k_elems, c).to(cuda_device)
+    _build.reset_launches()
+    got = KC.skimage_maps(hists, c, k_elems)
+    assert _build.LAUNCHES["skimage_maps"] == 1
+    assert torch.equal(got, KC.skimage_maps_plain(hists, c, k_elems))
 
 
 @pytest.mark.cuda
