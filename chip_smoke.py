@@ -44,6 +44,14 @@ Phases, one printed line each (or a few):
                configs/ct_lowdose_nlm.yaml (int16 HU), configs/ultrasound_
                despeckle.yaml, configs/mammogram_sharpen.yaml (uint16,
                1024^2) and the BASELINE w10, w9, w8 and w3 (1024^2) chains;
+               the chains of the intensity, equalization, median, guided
+               and morphology ops: configs/histeq_baseline.yaml (uint8),
+               BASELINE w1 (float32, batch 1), configs/ct_soft_tissue.yaml
+               and configs/ct_guided_denoise.yaml (int16; K1 to the LUTs,
+               K2, K4), BASELINE w4 (int16, batch 64; K3), configs/
+               mammo_microcalc_tophat.yaml (uint8, 8 x 1024^2) and
+               BASELINE w7 (float32; its uint8 hash equal to the CPU
+               plain chain's), each equal to its plain chain on the card;
                and through compile_volume_pipeline: configs/ct_volume_3d.yaml
                on an int16 [256, 512, 512] phantom, BASELINE w6 and clahe3d
                fraction and skimage at [32, 512, 512]. Each kernel of the
@@ -59,8 +67,9 @@ Phases, one printed line each (or a few):
                call, timed and
                (the 4096^2 slice) profiled beside compile_pipeline;
   5. timing  — slices/s at batch 32 of 512^2 for every 2-D chain of phase 4
-               but fraction and kornia, at batch 8 of 1024^2 for w3, the
-               mammogram config and the flagship, z-slices/s for w6 and
+               but fraction and kornia (w1 at its batch 1, w4 at 64), at
+               batch 8 of 1024^2 for w3, the mammogram configs and the
+               flagship, z-slices/s for w6 and
                the CT volume config and clahe3d skimage, flagship batch-1
                latency p50/p95, and
                each timed chain's device time by kernel and its device
@@ -1134,6 +1143,58 @@ def main() -> int:
                            ("tile_luts", "clahe_apply_lut", "bilateral",
                             "unsharp_quant"))
 
+    # the chains of the intensity, global-equalization, median, guided and
+    # morphology ops (plain PyTorch): K1 to the LUTs, K2 and K4 once each in
+    # the two CT configs, K3 once in w4, no hand kernel in the other four;
+    # each output equal to its plain chain on the card, single == batched row
+    hu64 = torch.from_numpy(_ct_batch(64, SIZE, SIZE, seed=4)).to(dev)
+    xm8 = _quantize_u8(xm)
+    w1_cfg = PipelineConfig.make(
+        [("equalize_hist", {}), ("adjust_gamma", {"gamma": 0.8})], name="w1")
+    w4_cfg = PipelineConfig.make(
+        [("window_hu", {"center": 40.0, "width": 400.0}),
+         ("median_blur", {"kernel_size": 3}),
+         ("bilateral_blur", {"kernel_size": 5, "sigma_color": 0.1,
+                             "sigma_space": 1.5})], name="w4")
+    w7_cfg = PipelineConfig.make(
+        [("median_blur", {"kernel_size": 3}),
+         ("top_hat", {"kernel_size": 7, "shape": "ellipse"}),
+         ("rescale_intensity", {"out_range": (0.0, 1.0)})], name="w7")
+    ct_tail = {"tile_luts": 1, "clahe_apply_lut": 1, "unsharp_quant": 1}
+    new_chains = (
+        ("histeq_baseline yaml", load_config(repo / "configs" /
+                                             "histeq_baseline.yaml"),
+         "uint8", x8, {}),
+        ("w1 histeq+gamma", w1_cfg, "float32", x[:1], {}),
+        ("ct_soft_tissue yaml", load_config(repo / "configs" /
+                                            "ct_soft_tissue.yaml"),
+         "int16", ct, ct_tail),
+        ("ct_guided_denoise yaml", load_config(repo / "configs" /
+                                               "ct_guided_denoise.yaml"),
+         "int16", ct, ct_tail),
+        ("w4 window+median+bilateral", w4_cfg, "int16", hu64, {"bilateral": 1}),
+        ("mammo_microcalc_tophat yaml", load_config(
+            repo / "configs" / "mammo_microcalc_tophat.yaml"), "uint8", xm8, {}),
+        ("w7 median+tophat+rescale", w7_cfg, "float32", x, {}),
+    )
+    for name, c, dtype, inp, want in new_chains:
+        fn, _ = drive(c, name, ((dtype, inp),), want)
+        out = fn(inp)
+        _require(torch.equal(out, plain_chain(c, inp)),
+                 f"{name}: output differs from the plain chain on the card")
+        _require(torch.equal(compile_pipeline(c)(inp[-1]), out[-1]),
+                 f"{name}: single-slice output differs from the batched row")
+    w7_card = levels_sha256(compile_pipeline(w7_cfg, batched=True)(x).cpu()
+                            .numpy())
+    w7_cpu = levels_sha256(compile_pipeline(w7_cfg, batched=True, device="cpu")(
+        x.cpu()).numpy())
+    _require(w7_card == w7_cpu, f"w7 uint8 sha256 on the card {w7_card} != "
+             f"the CPU plain chain's {w7_cpu}")
+    torch.cuda.synchronize()
+    print(f"new chains: each equal to its plain chain on the card, single == "
+          f"batched row; w7 uint8 sha256 [{BATCH},{SIZE},{SIZE}] X-ray seed 0: "
+          f"{w7_card} on the card == the CPU plain chain's")
+
     # the volume chains through compile_volume_pipeline: the stages in plain
     # PyTorch on the card are the reference, as for the slices
     def plain_volume(cfg, vol, quantize=True):
@@ -1275,6 +1336,8 @@ def main() -> int:
     tw3 = time_pipeline(w3_cfg, batch=xm, **once)
     tmm = time_pipeline(mm_cfg, batch=xm16, **once)
     tfm = time_pipeline(flagship_config(), batch=xm, **once)
+    tnew = [(name, dtype, c, inp, time_pipeline(c, batch=inp, **once))
+            for name, c, dtype, inp, _ in new_chains]
     vonce = {"iters": 10, "warmup": 2, "repeats": 1, "device": dev}
     tw6 = time_volume(w6_cfg, vol=w6vol, quantize=False, **vonce)
     tctv = time_volume(ctv_cfg, vol=ctv, **vonce)
@@ -1288,7 +1351,8 @@ def main() -> int:
                      ("w8 diffusion+musica float32", tw8),
                      ("w3 unsharp+gaussian float32", tw3),
                      ("mammogram_sharpen yaml uint16", tmm),
-                     ("flagship 1024^2 float32", tfm)):
+                     ("flagship 1024^2 float32", tfm),
+                     *[(f"{name} {dtype}", t) for name, dtype, _, _, t in tnew]):
         print(f"throughput {label} b{t['batch_size']} {t['shape'][0]}^2: "
               f"{t['slices_per_sec']:.1f} slices/s | {t['ms_per_batch']:.4f} "
               f"ms/batch | {card}")
@@ -1310,7 +1374,8 @@ def main() -> int:
                     ("ultrasound_despeckle yaml", us_cfg, us),
                     ("w9", w9_cfg, usf), ("w8", w8_cfg, x),
                     ("w3", w3_cfg, xm), ("mammogram_sharpen yaml", mm_cfg, xm16),
-                    ("flagship 1024^2", flagship_config(), xm))]
+                    ("flagship 1024^2", flagship_config(), xm),
+                    *[(name, c, inp) for name, _, c, inp, _ in tnew])]
     profiles += [
         ("w6 volume", profile_volume(w6_cfg, vol=w6vol, quantize=False,
                                      device=dev)),
@@ -1321,7 +1386,8 @@ def main() -> int:
                         list(prof["by_kernel"].items())[:8])
         ops = "; ".join(f"{name} {ms:.4f}" for name, ms in
                         list(prof["by_op"].items())[:8])
-        print(f"profile {label} {prof['shape']}: device "
+        batch = f"b{prof['batch_size']} " if "batch_size" in prof else ""
+        print(f"profile {label} {batch}{prof['shape']}: device "
               f"{prof['device_ms_per_call']:.4f} ms of "
               f"{prof['ms_per_call']:.4f} ms/call (busy "
               f"{prof['busy_share']:.1%}), {len(prof['by_kernel'])} device "

@@ -18,7 +18,11 @@ volume program ``pipeline.compiler.compile_volume_pipeline``
 (``configs/ct_volume_3d.yaml``: window_hu -> clahe3d -> gaussian_blur3d on
 a [Z, H, W] volume), the row- and batch-sharded chains of ``parallel`` on
 torch.distributed, and the opt-in fused bilateral -> unsharp tail
-(``MIES_TPU_FUSE_TAIL=1``). ROADMAP.md lists what follows.
+(``MIES_TPU_FUSE_TAIL=1``); the intensity ops, global equalization
+(``equalize_hist``, ``equalize``), median_blur, guided_blur and
+morphology, and with them ``configs/histeq_baseline.yaml``,
+``configs/ct_soft_tissue.yaml``, ``configs/ct_guided_denoise.yaml`` and
+``configs/mammo_microcalc_tophat.yaml``. ROADMAP.md lists what follows.
 
     import torch, mies_tpu_torch
     cfg = mies_tpu_torch.load_config("configs/ct_lowdose_nlm.yaml")

@@ -1,10 +1,12 @@
-"""Spatial filters of the flagship chain, plain PyTorch.
+"""Spatial filters, plain PyTorch.
 
 Same semantics and operation order as ``mies_tpu.ops.filters``:
   * gaussian_blur  -> skimage.filters.gaussian (truncate 4, scipy pads
     applied per 1-D pass, ascending-tap shifted adds);
   * unsharp_mask   -> img + amount * (img - gaussian(img, radius)), clipped;
-  * bilateral_blur -> kornia.filters.bilateral_blur (explicit odd window).
+  * bilateral_blur -> kornia.filters.bilateral_blur (explicit odd window);
+  * median_blur    -> skimage.filters.median (odd square footprint);
+  * guided_blur    -> kornia.filters.guided_blur (He et al., box means).
 
 Borders are built by INDEX from numpy's ``np.pad`` arithmetic: the
 reference's default bilateral mode 'reflect' is numpy 'symmetric', which
@@ -18,6 +20,8 @@ K3/K4 kernels are held against.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -111,6 +115,104 @@ def box_blur(img: torch.Tensor, kernel_size: int = 3,
         raise ValueError("kernel_size must be odd")
     k = np.full((kernel_size,), 1.0 / kernel_size, np.float32)
     return _sep_conv2d(img, k, k, mode)
+
+
+def guided_blur(
+    img: torch.Tensor,
+    kernel_size: int = 3,
+    eps: float = 1e-2,
+    mode: str = "reflect",
+    guide: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Guided filter (He et al. 2010), kornia.filters.guided_blur
+    semantics, self-guided by default: five box means of the port's
+    ``box_blur`` (the self-guided dataflow pairs them as the reference's
+    ``_guided_dataflow`` does, ``guided_dataflow`` here)."""
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+
+    def box(x):
+        return box_blur(x, kernel_size, mode)
+
+    if guide is None:
+        return guided_dataflow(lambda u, v: (box(u), box(v)), img, eps)
+    g = guide
+    mean_i = box(g)
+    mean_p = box(img)
+    corr_i = box(g * g)
+    corr_ip = box(g * img)
+    var_i = corr_i - mean_i * mean_i
+    cov_ip = corr_ip - mean_i * mean_p
+    a = cov_ip / (var_i + eps)
+    b = mean_p - a * mean_i
+    return box(a) * g + box(b)
+
+
+def guided_dataflow(box2, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The self-guided He-et-al dataflow on a box-mean pair function
+    ``box2(u, v) -> (box(u), box(v))``: ``guided_blur``'s, and the row
+    band's, whose pair function extends both arrays with one halo
+    exchange (``mies_tpu_torch.parallel.halo``)."""
+    mean_i, corr_i = box2(x, x * x)
+    var_i = corr_i - mean_i * mean_i
+    a = var_i / (var_i + eps)
+    b = mean_i - a * mean_i
+    fa, fb = box2(a, b)
+    return fa * x + fb
+
+
+@functools.lru_cache(maxsize=32)
+def _median_network(n: int) -> tuple:
+    """Batcher's odd-even mergesort on n wires (the reference's
+    comparators), cut to those the middle wire depends on: a tuple of
+    (i, j, keep_min, keep_max), the min going to wire i and the max to
+    wire j, each kept only where a later comparator or the output
+    reads it."""
+    pairs, p = [], 1
+    while p < n:
+        k = p
+        while k >= 1:
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(0, min(k, n - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    needed, kept = {n // 2}, []
+    for i, j in reversed(pairs):
+        lo, hi = i in needed, j in needed
+        if lo or hi:
+            kept.append((i, j, lo, hi))
+            needed |= {i, j}
+    return tuple(reversed(kept))
+
+
+def median_blur(img: torch.Tensor, kernel_size: int = 3,
+                mode: str = "nearest") -> torch.Tensor:
+    """Median filter with an odd square footprint,
+    skimage.filters.median(behavior='ndimage') semantics.
+
+    The window's k*k values are strided views of the padded image (no
+    stacked copy); the median is the middle wire of a sorting network cut
+    to the comparators it depends on (torch.minimum / torch.maximum).
+    Every exact median of an odd count is the same float, so this equals
+    the reference's full network bit for bit."""
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+    if kernel_size == 1:
+        return img
+    r = kernel_size // 2
+    h, w = img.shape[-2:]
+    p = _pad2d(img, r, r, mode)
+    vals = [p[..., dy:dy + h, dx:dx + w]
+            for dy in range(kernel_size) for dx in range(kernel_size)]
+    for i, j, keep_min, keep_max in _median_network(len(vals)):
+        a, b = vals[i], vals[j]
+        if keep_min:
+            vals[i] = torch.minimum(a, b)
+        if keep_max:
+            vals[j] = torch.maximum(a, b)
+    return vals[len(vals) // 2]
 
 
 def lee_filter(

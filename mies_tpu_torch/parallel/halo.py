@@ -9,7 +9,10 @@ and cropped after: the rows move between neighbouring ranks with
 stage's own border mode is reproduced locally. ``clahe`` runs its
 tile-aligned band form (``clahe_shard.clahe_band``: K1, the LUT build, one
 all_gather, K5). So the sharded chain equals the unsharded one bit for
-bit.
+bit. ``guided_blur`` halo-wraps each of its box means on its own: a box
+of the extended band's a and b is not a box of a and b padded by the
+border mode, so one extension for the whole op would change the edge rows.
+Morphology and ``sharpness`` have no band form yet and are refused.
 
 The band function is batched ([B, h, W] on every rank): one function
 serves ``spatial_shard_apply`` (one slice, B = 1) and
@@ -45,12 +48,23 @@ from mies_tpu_torch.pipeline.compiler import (
 from mies_tpu_torch.pipeline.config import PipelineConfig
 
 # ops whose output pixel reads the whole image or its tile grid
-_GLOBAL_OPS = frozenset({"clahe", "denoise_tv", "musica"})
-_POINTWISE = frozenset({"window_hu"})
+_GLOBAL_OPS = frozenset({
+    "clahe", "denoise_tv", "musica", "equalize_hist", "equalize",
+    "normalize", "rescale_intensity"})
+_POINTWISE = frozenset({
+    "adjust_gamma", "adjust_log", "adjust_sigmoid", "invert", "window_hu",
+    "adjust_brightness", "adjust_contrast", "solarize", "posterize"})
+# stencils whose band form is not (extend, run, crop): morphology's
+# 'ignore' border is no pad mode, and sharpness's interior mask needs the
+# band's global rows; their band forms are not ported yet
+_NO_BAND_FORM = frozenset({
+    "erode", "dilate", "morph_open", "morph_close", "morph_gradient",
+    "top_hat", "black_hat", "sharpness"})
 # each stencil op's default border mode (mies_tpu_torch.ops defaults)
 _DEFAULT_MODE = {
     "gaussian_blur": "nearest",
     "unsharp_mask": "nearest",
+    "median_blur": "nearest",
     "bilateral_blur": "reflect",
     # nl-means has no mode param: it pads numpy 'reflect' == scipy 'mirror'
     "denoise_nl_means": "mirror",
@@ -146,8 +160,13 @@ def stage_receptive_field(op: str, params: dict) -> int:
         sigma = params.get("sigma", params.get("radius", 1.0))
         truncate = params.get("truncate", 4.0)
         return int(truncate * float(sigma) + 0.5)
-    if op == "bilateral_blur":
-        return params.get("kernel_size", 5) // 2
+    if op in ("median_blur", "bilateral_blur"):
+        return params.get("kernel_size", 5 if op == "bilateral_blur" else 3) // 2
+    if op == "guided_blur":
+        # two box-filter levels: image statistics, then the a/b means
+        return 2 * (params.get("kernel_size", 3) // 2)
+    if op == "sharpness":
+        return 1
     if op == "denoise_nl_means":
         # single-pass patch stencil: search radius + patch radius
         s = params.get("patch_size", 7)
@@ -169,6 +188,11 @@ def stage_receptive_field(op: str, params: dict) -> int:
         # 1 px/iteration; the band form refreshes the halo each iteration,
         # so this is only the TOTAL extent diagnostic
         return int(params.get("niter", 10))
+    if op in ("erode", "dilate", "morph_gradient"):
+        return params.get("kernel_size", 3) // 2
+    if op in ("morph_open", "morph_close", "top_hat", "black_hat"):
+        # two morphology levels (erode then dilate or vice versa)
+        return 2 * (params.get("kernel_size", 3) // 2)
     if op in _GLOBAL_OPS:
         raise ValueError(
             f"op {op!r} has global/tile extent and cannot be spatially "
@@ -225,8 +249,35 @@ def _pm_band(p: dict, group) -> Callable:
     return run
 
 
+def _guided_band(p: dict, group) -> Callable:
+    """guided_blur on a band: each box mean halo-wraps on its own (the
+    second level boxes a and b, whose rows past the global edge are the
+    border mode's rows of a and b, not a and b of the border's rows), the
+    two boxes of a level stacked into one exchange."""
+    if p.get("guide") is not None:
+        raise ValueError("guided_blur with a separate guide image has no "
+                         "row-band form; shard the guide's chain by batch")
+    k, eps = int(p.get("kernel_size", 3)), float(p.get("eps", 1e-2))
+    mode = p.get("mode", "reflect")
+    if k % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+    box = _stencil(lambda x: F.box_blur(x, k, mode), k // 2, mode, group)
+
+    def box2(u, v):
+        both = box(torch.stack([u, v]))
+        return both[0], both[1]
+
+    return lambda x: F.guided_dataflow(box2, x, eps)
+
+
 def _band_stage(s, group) -> Callable:
     p = s.kwargs()
+    if s.op in _NO_BAND_FORM:
+        raise ValueError(
+            f"op {s.op!r} has no row-band form in mies_tpu_torch yet (its "
+            f"border is not a pad of the band); use batch sharding for "
+            f"chains containing it"
+        )
     if s.op == "clahe":
         CS.check_convention(p.get("convention", "opencv"))
         CS.check_grid_rows(tuple(p.get("grid_size", (8, 8))),
@@ -240,6 +291,8 @@ def _band_stage(s, group) -> Callable:
         return _srad_band(p, group)
     if s.op == "anisotropic_diffusion":
         return _pm_band(p, group)
+    if s.op == "guided_blur":
+        return _guided_band(p, group)
     fn = _bind_batched_stage(s)
     if r == 0:
         return fn

@@ -28,7 +28,15 @@ Batched chains on the card:
   BASELINE w3: unsharp_mask -> gaussian_blur as one kernel (K7, the
     pairwise peephole) -> uint8;
   configs/mammogram_sharpen.yaml: uint16 ingest -> gaussian_blur (plain
-    torch) -> unsharp + quantize (K4).
+    torch) -> unsharp + quantize (K4);
+  configs/ct_soft_tissue.yaml and configs/ct_guided_denoise.yaml: int16
+    HU -> window_hu -> median_blur / guided_blur (plain torch) -> clahe
+    opencv (K1, K2) -> unsharp + quantize (K4);
+  BASELINE w4: window_hu -> median_blur (plain torch) -> bilateral_blur
+    (K3) -> uint8;
+  configs/histeq_baseline.yaml and BASELINE w1 (equalize_hist ->
+    adjust_gamma), configs/mammo_microcalc_tophat.yaml and BASELINE w7
+    (median_blur -> top_hat -> rescale_intensity): plain torch only.
 The fraction convention runs K1 and K2 (clip01), kornia plain torch.
 
 Volume chains (``compile_volume_pipeline``, [Z, H, W] -> [Z, H, W]):
@@ -69,25 +77,55 @@ from mies_tpu_torch.kernels.unsharp_gauss import (
 from mies_tpu_torch.ops import filters as F
 from mies_tpu_torch.ops import histogram as H
 from mies_tpu_torch.ops import intensity as I
+from mies_tpu_torch.ops import morphology as M
 from mies_tpu_torch.ops import pyramid as P
 from mies_tpu_torch.ops import restoration as R
 from mies_tpu_torch.ops import volume3d as V
 from mies_tpu_torch.pipeline.config import PipelineConfig, validate
 
 # Every op a config can name in the port. Signature: fn(img, **params),
-# plain PyTorch on [..., H, W].
+# plain PyTorch on [..., H, W]; a statistic of the image (normalize's and
+# rescale_intensity's range, the equalizations' histograms) is taken per
+# image, so each op is also its own batched form.
 OP_REGISTRY: dict[str, Callable] = {
+    # intensity
+    "adjust_gamma": I.adjust_gamma,
+    "adjust_log": I.adjust_log,
+    "adjust_sigmoid": I.adjust_sigmoid,
+    "invert": I.invert,
+    "normalize": I.normalize_minmax,
+    "rescale_intensity": I.rescale_intensity,
+    "window_hu": I.window_hu,
+    "adjust_brightness": I.adjust_brightness,
+    "adjust_contrast": I.adjust_contrast,
+    "solarize": I.solarize,
+    "posterize": I.posterize,
+    "sharpness": I.sharpness,
+    # histogram
+    "equalize_hist": H.equalize_hist,
+    "equalize": H.equalize,
     "clahe": H.clahe,
+    # filters
     "bilateral_blur": F.bilateral_blur,
     "gaussian_blur": F.gaussian_blur,
     "unsharp_mask": F.unsharp_mask,
-    "window_hu": I.window_hu,
+    "median_blur": F.median_blur,
+    "guided_blur": F.guided_blur,
     "denoise_nl_means": R.denoise_nl_means,
     "denoise_tv": R.denoise_tv,
     "srad": R.srad,
     "anisotropic_diffusion": R.anisotropic_diffusion,
     "lee_filter": F.lee_filter,
     "musica": P.musica,
+    # morphology (cv2-compatible flat structuring elements)
+    "erode": M.erode,
+    "dilate": M.dilate,
+    "morph_open": M.morph_open,
+    "morph_close": M.morph_close,
+    "morph_gradient": M.morph_gradient,
+    "top_hat": M.top_hat,
+    "black_hat": M.black_hat,
+    # volumetric
     "clahe3d": V.clahe3d,
     "gaussian_blur3d": V.gaussian_blur3d,
 }

@@ -204,11 +204,43 @@ def _mode_ok(v) -> bool:
     return v in _PAD_MODES
 
 
+def _num_pair(v) -> bool:
+    return (
+        isinstance(v, (tuple, list)) and len(v) == 2 and all(_is_num(x) for x in v)
+    )
+
+
 def _hu_preset_ok(v) -> bool:
     return v is None or (isinstance(v, str) and v in HU_PRESETS)
 
 
 _VALUE_RULES: dict[str, dict[str, tuple]] = {
+    "adjust_gamma": {
+        "gamma": (_pos, "a number > 0"),
+        "gain": (_pos, "a number > 0"),
+    },
+    "adjust_log": {"gain": (_pos, "a number > 0")},
+    "adjust_sigmoid": {
+        "cutoff": (_is_num, "a number"),
+        "gain": (_is_num, "a number"),
+    },
+    "adjust_brightness": {"factor": (_is_num, "a number")},
+    "adjust_contrast": {"factor": (_nonneg, "a number >= 0")},
+    "solarize": {
+        "threshold": (lambda v: _is_num(v) and 0.0 <= v <= 1.0, "in [0, 1]")
+    },
+    "posterize": {
+        "bits": (lambda v: _is_int(v) and 1 <= v <= 8, "an int in [1, 8]")
+    },
+    "sharpness": {"factor": (_is_num, "a number")},
+    "normalize": {"eps": (_pos, "a number > 0")},
+    "rescale_intensity": {
+        "in_range": (lambda v: v is None or _num_pair(v), "a (lo, hi) pair"),
+        "out_range": (_num_pair, "a (lo, hi) pair"),
+    },
+    "equalize_hist": {
+        "nbins": (lambda v: _is_int(v) and v >= 2, "an int >= 2")
+    },
     "clahe": {
         "clip_limit": (_pos, "a number > 0"),
         "grid_size": (_int_pair(2), "a pair of ints >= 1"),
@@ -251,11 +283,39 @@ _VALUE_RULES: dict[str, dict[str, tuple]] = {
         "amount": (_nonneg, "a number >= 0"),
         "mode": (_mode_ok, f"one of {_PAD_MODES}"),
     },
+    "median_blur": {
+        "kernel_size": (_odd_kernel, "an odd int >= 1"),
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
     "bilateral_blur": {
         "kernel_size": (_odd_kernel, "an odd int >= 1"),
         "sigma_color": (_pos, "a number > 0"),
         "sigma_space": (_pos, "a number > 0"),
         "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    "guided_blur": {
+        "kernel_size": (_odd_kernel, "an odd int >= 1"),
+        "eps": (_pos, "a number > 0"),
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    **{
+        _m: {
+            "kernel_size": (_odd_kernel, "an odd int >= 1"),
+            "shape": (
+                lambda v: v in ("rect", "ellipse", "cross"),
+                "one of ('rect', 'ellipse', 'cross')",
+            ),
+            # 'ignore' = cv2's default morphology border (outside the
+            # image never wins the min/max)
+            "mode": (
+                lambda v: v == "ignore" or _mode_ok(v),
+                f"'ignore' or one of {_PAD_MODES}",
+            ),
+        }
+        for _m in (
+            "erode", "dilate", "morph_open", "morph_close",
+            "morph_gradient", "top_hat", "black_hat",
+        )
     },
     "window_hu": {
         "center": (lambda v: v is None or _is_num(v), "a number"),

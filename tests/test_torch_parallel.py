@@ -56,6 +56,17 @@ DIFFUSION = PipelineConfig.make(
      ("gaussian_blur", {"sigma": 1.0})],
     name="diffusion-chain",
 )
+# BASELINE w4 (benchmarks/workloads.py) and a guided_blur chain in two
+# border modes
+W4 = PipelineConfig.make(
+    [("window_hu", {"center": 40.0, "width": 400.0}),
+     ("median_blur", {"kernel_size": 3}),
+     ("bilateral_blur", {"kernel_size": 5, "sigma_color": 0.1,
+                         "sigma_space": 1.5})], name="w4")
+GUIDED = PipelineConfig.make(
+    [("guided_blur", {"kernel_size": 5, "eps": 1e-3}),
+     ("guided_blur", {"kernel_size": 3, "eps": 1e-2, "mode": "nearest"})],
+    name="guided-chain")
 CLAHE_CASES = (("opencv", 2.0), ("fraction", 0.02))
 SPAWN_TIMEOUT_S = 120
 
@@ -68,6 +79,8 @@ def _inputs() -> dict:
         "diffusion": (0.2 + 0.6 * rng.random((256, 128))).astype(np.float32),
         "batch": rng.random((4, 256, 128)).astype(np.float32),
         "data": rng.random((8, 64, 64)).astype(np.float32),
+        "w4": rng.integers(-200, 300, (256, 128)).astype(np.int16),
+        "guided": rng.random((256, 128)).astype(np.float32),
     }
 
 
@@ -95,6 +108,8 @@ def _rejections(world: int, mesh) -> dict:
     lee = PipelineConfig.make([("lee_filter", {"kernel_size": 3})])
     tv = PipelineConfig.make([("denoise_tv", {"weight": 0.1})])
     band = torch.zeros((1, 2, 8))
+    top_hat = PipelineConfig.make([("top_hat", {"kernel_size": 7})])
+    sharp = PipelineConfig.make([("sharpness", {"factor": 1.5})])
     return {
         "grid_rows": _error_of(
             lambda: clahe_spatial_shard(mesh, grid_size=(world - 1, 4))),
@@ -107,6 +122,8 @@ def _rejections(world: int, mesh) -> dict:
         "global": _error_of(lambda: spatial_shard_apply(tv, mesh)),
         "halo": _error_of(lambda: halo_extend_rows(band, 3, group)),
         "halo_fits": _error_of(lambda: halo_extend_rows(band, 2, group)),
+        "top_hat": _error_of(lambda: spatial_shard_apply(top_hat, mesh)),
+        "sharpness": _error_of(lambda: spatial_shard_apply(sharp, mesh)),
     }
 
 
@@ -133,6 +150,9 @@ def _worker(rank: int, world: int, store: str, out: str) -> None:
             _rows(x["flagship"], i, world)))
         save("diffusion", spatial_shard_apply(DIFFUSION, line)(
             _rows(x["diffusion"], i, world)))
+        save("w4", spatial_shard_apply(W4, line)(_rows(x["w4"], i, world)))
+        save("guided", spatial_shard_apply(GUIDED, line, quantize=False)(
+            _rows(x["guided"], i, world)))
         band = torch.from_numpy(_rows(x["clahe"], i, world).copy())
         save("halo", halo_extend_rows(band, 3, line.get_group("space"), "reflect"))
         for mode, ext in zip(("mirror", -1.0), halo_extend_rows_multi(
@@ -357,6 +377,31 @@ def test_spatial_shard_diffusion_chain_exact(world):
     _levels_close(_stitched(out, "diffusion", n), _unsharded(DIFFUSION, img))
 
 
+def test_spatial_shard_w4_exact(world):
+    """BASELINE w4 on int16 HU in n row bands (window_hu pointwise, the
+    median and the bilateral each extended by their own radius and border)
+    == the unsharded chain: tests/test_parallel.py's rule, and bit-equal."""
+    n, out = world
+    img = _inputs()["w4"]
+    got = _stitched(out, "w4", n)
+    assert got.dtype == np.uint8 and got.shape == img.shape
+    want = _unsharded(W4, img)
+    _levels_close(got, want)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_spatial_shard_guided_exact(world):
+    """guided_blur in n row bands, every box mean halo-wrapped on its own,
+    == the unsharded op bit for bit (float output), in 'reflect' and
+    'nearest'."""
+    n, out = world
+    img = _inputs()["guided"]
+    got = _stitched(out, "guided", n)
+    want = compile_pipeline(GUIDED, batched=False, quantize=False,
+                            device="cpu")(torch.from_numpy(img)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_halo_extend_rows_gives_neighbour_rows(world):
     """Each band extended: its neighbours' real rows inside the slice, the
     border mode's rows at the global edges (scipy 'reflect', 'mirror', and
@@ -398,7 +443,8 @@ def test_shard_pipeline_splits_over_both_dims(world4):
     ("grid_rows", "not divisible"), ("misaligned", "not tile-aligned"),
     ("skimage", "skimage"), ("kornia", "kornia"), ("lee_no_sigma", "sigma"),
     ("global", "global/tile extent"), ("halo", "exceeds the local band"),
-    ("halo_fits", "")])
+    ("halo_fits", ""), ("top_hat", "op 'top_hat' has no row-band form"),
+    ("sharpness", "op 'sharpness' has no row-band form")])
 def test_sharded_rejections(world, case, match):
     """The reference's errors, raised on every rank (a halo of 3 over a
     band of 2 rows; a halo of 2 fits)."""
@@ -426,7 +472,7 @@ def test_receptive_fields():
         [("bilateral_blur", {}), ("unsharp_mask", {"radius": 1.5})])) == 2 + 6
     for op, match in (("clahe", "global/tile"), ("denoise_tv", "global/tile"),
                       ("musica", "global/tile"), ("clahe3d", "unknown op"),
-                      ("median_blur", "not ported")):
+                      ("homomorphic", "not ported")):
         with pytest.raises(ValueError, match=match):
             stage_receptive_field(op, {})
     with pytest.raises(ValueError, match="sigma"):
