@@ -52,6 +52,15 @@ Phases, one printed line each (or a few):
                mammo_microcalc_tophat.yaml (uint8, 8 x 1024^2) and
                BASELINE w7 (float32; its uint8 hash equal to the CPU
                plain chain's), each equal to its plain chain on the card;
+               the chains of the frequency, wavelet and ridge ops:
+               configs/xray_homomorphic.yaml (uint8; K4),
+               configs/xray_wavelet_denoise.yaml (float32; K1 to the LUTs,
+               K2) and configs/angio_vessel_enhance.yaml (uint8, a
+               synthetic angiography batch; no hand kernel), each equal to
+               its plain chain on the card and within 1 level on < 1e-3
+               of pixels of the CPU plain chain on 4 slices; butterworth,
+               sato, meijering, hessian (off frangi's knife edge) and
+               cycle_spin (max_shifts 3) once each against the CPU;
                and through compile_volume_pipeline: configs/ct_volume_3d.yaml
                on an int16 [256, 512, 512] phantom, BASELINE w6 and clahe3d
                fraction and skimage at [32, 512, 512]. Each kernel of the
@@ -81,7 +90,8 @@ Phases, one printed line each (or a few):
                K3's and K4's, of K1's, K2's and K5's, of K6a's, and of K6's
                and K8s's,
                ms beside the device time and busy share of the chains they
-               lie on.
+               lie on; one line each for the homomorphic, wavelet and
+               angiography chains: slices/s, device ms, launches, busy.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -234,6 +244,26 @@ def _us_batch(b: int, h: int, w: int, seed: int) -> np.ndarray:
     return out
 
 
+def _angio_batch(b: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Synthetic uint8 angiography (DSA-like) slices: a bright, unevenly lit
+    field with dark vessels of 1-4 px radius meandering across it, one
+    branch, and noise; each slice shifted and rescaled."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = np.empty((b, h, w), np.uint8)
+    for i in range(b):
+        img = rng.uniform(0.6, 0.8) + 0.1 * (x / w) - 0.1 * (y / h)
+        for k, width in enumerate((1.0, 2.0, 4.0)):
+            c = (k + 1) * w / 4 + rng.uniform(-20, 20) + 12 * np.sin(
+                y / rng.uniform(25, 60))
+            img = img - rng.uniform(0.2, 0.35) * np.exp(-((x - c) / width) ** 2)
+        r = h / 2 + rng.uniform(-40, 40) + 0.3 * (x - w / 2)
+        img = img - 0.25 * np.exp(-((y - r) / 1.5) ** 2)
+        img = img + 0.02 * rng.standard_normal((h, w))
+        out[i] = np.clip(np.rint(255.0 * img), 0, 255)
+    return out
+
+
 def _ct_volume(z: int, h: int, w: int, seed: int,
                dev: torch.device) -> torch.Tensor:
     """Synthetic int16 CT volume in Hounsfield units, made on the card: an
@@ -283,10 +313,13 @@ def main() -> int:
     from mies_tpu_torch.kernels import tv as KT
     from mies_tpu_torch.kernels import unsharp_gauss as KU
     from mies_tpu_torch.ops import filters as F
+    from mies_tpu_torch.ops import frequency as FQ
     from mies_tpu_torch.ops import histogram as H
     from mies_tpu_torch.ops import intensity as I
     from mies_tpu_torch.ops import restoration as R
+    from mies_tpu_torch.ops import ridges as RG
     from mies_tpu_torch.ops import volume3d as V
+    from mies_tpu_torch.ops import wavelet as WV
     from mies_tpu_torch.parallel import (
         batch_spatial_shard_apply,
         init_distributed,
@@ -1195,6 +1228,73 @@ def main() -> int:
           f"batched row; w7 uint8 sha256 [{BATCH},{SIZE},{SIZE}] X-ray seed 0: "
           f"{w7_card} on the card == the CPU plain chain's")
 
+    # the chains of the frequency, wavelet and ridge ops (plain PyTorch;
+    # torch.fft runs cuFFT): K4 once in the homomorphic config, K1 to the
+    # LUTs and K2 once in the wavelet config (denoise_wavelet at level 4),
+    # no hand kernel in the angiography config. Each output equal to its
+    # plain chain on the card; against the CPU plain chain (cuFFT and CUDA's
+    # expf / logf round unlike the CPU) and its own single-slice call (a
+    # batched FFT plan need not round as one slice's) within 1 level on
+    # < 1e-3 of pixels
+    ang = torch.from_numpy(_angio_batch(BATCH, SIZE, SIZE, seed=14)).to(dev)
+    chains14 = (
+        ("xray_homomorphic yaml", load_config(repo / "configs" /
+                                              "xray_homomorphic.yaml"),
+         "uint8", x8, {"unsharp_quant": 1}),
+        ("xray_wavelet_denoise yaml", load_config(
+            repo / "configs" / "xray_wavelet_denoise.yaml"), "float32", x,
+         clahe_k),
+        ("angio_vessel_enhance yaml", load_config(
+            repo / "configs" / "angio_vessel_enhance.yaml"), "uint8", ang, {}),
+    )
+    _require(WV.default_levels((SIZE, SIZE), 4) == 4,
+             "db2 at 512^2 should decompose 4 levels")
+    for name, c, dtype, inp, want in chains14:
+        fn, _ = drive(c, name, ((dtype, inp),), want)
+        out = fn(inp)
+        _require(torch.equal(out, plain_chain(c, inp)),
+                 f"{name}: output differs from the plain chain on the card")
+        cpu = compile_pipeline(c, batched=True, device="cpu")(inp[:4].cpu())
+        n, total = close(out[:4].cpu(), cpu, f"{name} card vs CPU plain chain")
+        single = compile_pipeline(c)(inp[-1])
+        n1, total1 = close(single[None], out[-1:], f"{name} single vs batched")
+        print(f"{name}: == plain chain on the card; card vs CPU plain chain "
+              f"[4,{SIZE},{SIZE}] {n} of {total} pixels differ by 1 level; "
+              f"single vs batched row {n1} of {total1}")
+
+    # the other ops of those modules, once each on the card against the CPU
+    # (b4 512^2; cycle_spin b2): bounds as stated, hessian off frangi's
+    # knife edge (a pixel there may be ~0 on one side and 1 on the other)
+    xb = x[:4]
+    op_checks = (
+        ("butterworth", lambda t: FQ.butterworth(t, 0.02, npad=16), xb, 2e-5),
+        ("sato", lambda t: RG.sato(t), xb, 2e-6),
+        ("meijering", lambda t: RG.meijering(t), xb, 2e-6),
+        ("hessian", lambda t: RG.hessian(t, sigmas=(1.0, 3.0)), xb, 1e-5),
+        ("cycle_spin", lambda t: WV.cycle_spin(t, max_shifts=3, wavelet="db2"),
+         x[:2], 2e-6),
+    )
+    for name, op, inp, tol in op_checks:
+        card_out = op(inp)
+        cpu_out = op(inp.cpu())
+        d = (card_out.cpu() - cpu_out).abs()
+        off = d > tol
+        if name == "hessian":
+            a, b = card_out.cpu()[off], cpu_out[off]
+            _require(bool((((a == 1.0) & (b.abs() <= 2e-6))
+                           | ((b == 1.0) & (a.abs() <= 2e-6))).all()),
+                     "hessian: card and CPU differ off the knife edge")
+            knife = int(off.sum())
+            dmax = d[~off].max().item()
+        else:
+            _require(not bool(off.any()), f"{name}: card vs CPU max abs "
+                     f"{d.max().item():.3g} > {tol}")
+            knife, dmax = 0, d.max().item()
+        _require(bool(torch.isfinite(card_out).all()), f"{name} not finite")
+        print(f"op {name} {list(inp.shape)}: card vs CPU max abs {dmax:.3g} "
+              f"(bound {tol})" + (f", {knife} knife-edge pixels" if knife
+                                  else ""))
+
     # the volume chains through compile_volume_pipeline: the stages in plain
     # PyTorch on the card are the reference, as for the slices
     def plain_volume(cfg, vol, quantize=True):
@@ -1337,7 +1437,7 @@ def main() -> int:
     tmm = time_pipeline(mm_cfg, batch=xm16, **once)
     tfm = time_pipeline(flagship_config(), batch=xm, **once)
     tnew = [(name, dtype, c, inp, time_pipeline(c, batch=inp, **once))
-            for name, c, dtype, inp, _ in new_chains]
+            for name, c, dtype, inp, _ in (*new_chains, *chains14)]
     vonce = {"iters": 10, "warmup": 2, "repeats": 1, "device": dev}
     tw6 = time_volume(w6_cfg, vol=w6vol, quantize=False, **vonce)
     tctv = time_volume(ctv_cfg, vol=ctv, **vonce)
@@ -1393,6 +1493,15 @@ def main() -> int:
               f"{prof['busy_share']:.1%}), {len(prof['by_kernel'])} device "
               f"ops, {prof['device_launches_per_call']:g} device launches "
               f"per call | top ms: {top} | by host op: {ops} | {card}")
+    # the chains of the frequency, wavelet and ridge ops, one line each
+    for name, dtype, _, _, t in tnew[-len(chains14):]:
+        prof = dict(profiles)[name]
+        print(f"chain {name} {dtype} b{t['batch_size']} {t['shape'][0]}^2: "
+              f"{t['slices_per_sec']:.1f} slices/s, {t['ms_per_batch']:.4f} "
+              f"ms/batch | device {prof['device_ms_per_call']:.4f} ms of "
+              f"{prof['ms_per_call']:.4f} ms/call, "
+              f"{prof['device_launches_per_call']:g} launches per call, busy "
+              f"{prof['busy_share']:.1%} | {card}")
 
     # the fused tail's A/B on the flagship at b32 512^2: MIES_TPU_FUSE_TAIL
     # off, on, on, off in one run, each by time_pipeline; then one call with

@@ -22,7 +22,11 @@ torch.distributed, and the opt-in fused bilateral -> unsharp tail
 (``equalize_hist``, ``equalize``), median_blur, guided_blur and
 morphology, and with them ``configs/histeq_baseline.yaml``,
 ``configs/ct_soft_tissue.yaml``, ``configs/ct_guided_denoise.yaml`` and
-``configs/mammo_microcalc_tophat.yaml``. ROADMAP.md lists what follows.
+``configs/mammo_microcalc_tophat.yaml``; the frequency, wavelet and ridge
+ops, and with them ``configs/xray_homomorphic.yaml``,
+``configs/xray_wavelet_denoise.yaml`` and
+``configs/angio_vessel_enhance.yaml``: every shipped config loads.
+ROADMAP.md lists what follows.
 
     import torch, mies_tpu_torch
     cfg = mies_tpu_torch.load_config("configs/ct_lowdose_nlm.yaml")
@@ -35,7 +39,18 @@ the kernels launch) and raises where there is no card; ``device="cpu"``
 runs the plain PyTorch versions.
 """
 
-from mies_tpu_torch.pipeline.compiler import compile_pipeline
-from mies_tpu_torch.pipeline.config import PipelineConfig, StageConfig, load_config
+import torch
+
+# float32 stays float32 on the card: no TF32 in cuBLAS or cuDNN (the
+# reference's ops run at full f32 precision; cuFFT has no TF32 mode)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from mies_tpu_torch.pipeline.compiler import compile_pipeline  # noqa: E402
+from mies_tpu_torch.pipeline.config import (  # noqa: E402
+    PipelineConfig,
+    StageConfig,
+    load_config,
+)
 
 __all__ = ["PipelineConfig", "StageConfig", "load_config", "compile_pipeline"]

@@ -44,8 +44,16 @@ def _pad_axis(x: torch.Tensor, r: int, axis: int, mode: str) -> torch.Tensor:
     np_mode = _PAD_MODE[mode]
     if np_mode == "constant":
         return F.pad(x, (0, 0) * (-1 - axis) + (r, r))
-    idx = np.pad(np.arange(x.shape[axis]), r, mode=np_mode)
-    return x.index_select(axis, torch.as_tensor(idx, device=x.device))
+    return x.index_select(axis, _pad_index(x.shape[axis], r, np_mode, x.device))
+
+
+@functools.lru_cache(maxsize=256)
+def _pad_index(n: int, r: int, np_mode: str, device: torch.device) -> torch.Tensor:
+    """The np.pad source index of each row of an axis of n padded by r, on
+    ``device`` (kept: one blocking host-to-device copy per shape, not one
+    per pass)."""
+    idx = np.pad(np.arange(n), r, mode=np_mode)
+    return torch.as_tensor(idx, device=device)
 
 
 def _pad2d(img: torch.Tensor, ry: int, rx: int, mode: str) -> torch.Tensor:

@@ -50,7 +50,16 @@ from mies_tpu_torch.pipeline.config import PipelineConfig
 # ops whose output pixel reads the whole image or its tile grid
 _GLOBAL_OPS = frozenset({
     "clahe", "denoise_tv", "musica", "equalize_hist", "equalize",
-    "normalize", "rescale_intensity"})
+    "normalize", "rescale_intensity",
+    # thresholds are whole-subband statistics, and the decimated grids do
+    # not tile along rows
+    "denoise_wavelet",
+    # each scale normalized by its image-wide max
+    "meijering",
+    # the FFT: every output pixel reads every input pixel
+    "butterworth", "homomorphic",
+    # circular rolls wrap rows across the image
+    "cycle_spin"})
 _POINTWISE = frozenset({
     "adjust_gamma", "adjust_log", "adjust_sigmoid", "invert", "window_hu",
     "adjust_brightness", "adjust_contrast", "solarize", "posterize"})
@@ -69,6 +78,10 @@ _DEFAULT_MODE = {
     # nl-means has no mode param: it pads numpy 'reflect' == scipy 'mirror'
     "denoise_nl_means": "mirror",
     "lee_filter": "reflect",
+    "frangi": "reflect",
+    "vessel_enhance": "reflect",
+    "sato": "reflect",
+    "hessian": "reflect",
 }
 
 
@@ -188,6 +201,21 @@ def stage_receptive_field(op: str, params: dict) -> int:
         # 1 px/iteration; the band form refreshes the halo each iteration,
         # so this is only the TOTAL extent diagnostic
         return int(params.get("niter", 10))
+    if op in ("frangi", "vessel_enhance", "sato", "hessian"):
+        if op == "hessian":
+            # skimage's fixed gamma=15 default: no global statistic
+            params = {**params, "gamma": params.get("gamma", 15.0)}
+        if op != "sato" and params.get("gamma") is None:
+            raise ValueError(
+                f"op {op!r} with gamma=None normalizes by the per-scale "
+                "GLOBAL max Frobenius norm and cannot be spatially "
+                "sharded; pass an explicit gamma"
+            )
+        # per-scale Gaussian-derivative passes read int(4*sigma + 0.5)
+        return max(
+            int(4.0 * float(s) + 0.5)
+            for s in params.get("sigmas", (1.0, 2.0, 4.0))
+        )
     if op in ("erode", "dilate", "morph_gradient"):
         return params.get("kernel_size", 3) // 2
     if op in ("morph_open", "morph_close", "top_hat", "black_hat"):

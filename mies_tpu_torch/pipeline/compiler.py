@@ -36,7 +36,13 @@ Batched chains on the card:
     (K3) -> uint8;
   configs/histeq_baseline.yaml and BASELINE w1 (equalize_hist ->
     adjust_gamma), configs/mammo_microcalc_tophat.yaml and BASELINE w7
-    (median_blur -> top_hat -> rescale_intensity): plain torch only.
+    (median_blur -> top_hat -> rescale_intensity): plain torch only;
+  configs/xray_homomorphic.yaml: uint8 ingest -> homomorphic (plain torch,
+    cuFFT) -> unsharp + quantize (K4);
+  configs/xray_wavelet_denoise.yaml: denoise_wavelet (plain torch) ->
+    clahe opencv (K1, K2) -> uint8;
+  configs/angio_vessel_enhance.yaml: uint8 ingest -> median_blur ->
+    vessel_enhance -> rescale_intensity: plain torch only.
 The fraction convention runs K1 and K2 (clip01), kornia plain torch.
 
 Volume chains (``compile_volume_pipeline``, [Z, H, W] -> [Z, H, W]):
@@ -75,12 +81,15 @@ from mies_tpu_torch.kernels.unsharp_gauss import (
     unsharp_quant_supported,
 )
 from mies_tpu_torch.ops import filters as F
+from mies_tpu_torch.ops import frequency as FQ
 from mies_tpu_torch.ops import histogram as H
 from mies_tpu_torch.ops import intensity as I
 from mies_tpu_torch.ops import morphology as M
 from mies_tpu_torch.ops import pyramid as P
 from mies_tpu_torch.ops import restoration as R
+from mies_tpu_torch.ops import ridges as RG
 from mies_tpu_torch.ops import volume3d as V
+from mies_tpu_torch.ops import wavelet as WV
 from mies_tpu_torch.pipeline.config import PipelineConfig, validate
 
 # Every op a config can name in the port. Signature: fn(img, **params),
@@ -117,6 +126,18 @@ OP_REGISTRY: dict[str, Callable] = {
     "anisotropic_diffusion": R.anisotropic_diffusion,
     "lee_filter": F.lee_filter,
     "musica": P.musica,
+    # frequency domain (torch.fft: cuFFT on the card)
+    "butterworth": FQ.butterworth,
+    "homomorphic": FQ.homomorphic,
+    # wavelet shrinkage; cycle_spin flattens its shift grid into the batch
+    "denoise_wavelet": WV.denoise_wavelet,
+    "cycle_spin": WV.cycle_spin,
+    # ridge / vesselness (Frangi 1998, Sato 1998, Meijering 2004)
+    "frangi": RG.frangi,
+    "vessel_enhance": RG.vessel_enhance,
+    "sato": RG.sato,
+    "meijering": RG.meijering,
+    "hessian": RG.hessian,
     # morphology (cv2-compatible flat structuring elements)
     "erode": M.erode,
     "dilate": M.dilate,

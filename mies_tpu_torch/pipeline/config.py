@@ -214,7 +214,106 @@ def _hu_preset_ok(v) -> bool:
     return v is None or (isinstance(v, str) and v in HU_PRESETS)
 
 
+_BUTTERWORTH_RULES = {
+    "cutoff_frequency_ratio": (
+        lambda v: _is_num(v) and 0.0 < v <= 0.5,
+        "a number in (0, 0.5] (fraction of the sampling rate)",
+    ),
+    "high_pass": (lambda v: isinstance(v, bool), "a bool"),
+    "order": (_pos, "a number > 0"),
+    "squared_butterworth": (lambda v: isinstance(v, bool), "a bool"),
+    "npad": (lambda v: _is_int(v) and v >= 0, "an int >= 0"),
+}
+_HOMOMORPHIC_RULES = {
+    "cutoff_frequency_ratio": (
+        lambda v: _is_num(v) and 0.0 < v <= 0.5,
+        "a number in (0, 0.5] (fraction of the sampling rate)",
+    ),
+    "order": (_pos, "a number > 0"),
+    "low_gain": (_pos, "a number > 0"),
+    "high_gain": (_pos, "a number > 0"),
+    "eps": (_pos, "a number > 0"),
+    "npad": (lambda v: _is_int(v) and v >= 0, "an int >= 0"),
+}
+
+
+def _sigmas_ok(v) -> bool:
+    return (isinstance(v, (tuple, list)) and len(v) >= 1
+            and all(_pos(x) for x in v))
+
+
+_SIGMAS = (_sigmas_ok, "a non-empty list of numbers > 0")
+_BLACK_RIDGES = (lambda v: isinstance(v, bool), "a bool")
+_GAMMA_OR_NONE = (lambda v: v is None or _pos(v),
+                  "a number > 0 (or omitted: per-scale half-max norm)")
+_WAVELET_RULES = {
+    "sigma": (lambda v: v is None or _pos(v),
+              "a number > 0 (or omitted: MAD estimate in-graph)"),
+    "wavelet": (
+        lambda v: isinstance(v, str),
+        "a wavelet name (haar/db1..db4/sym4)",
+    ),
+    "mode": (lambda v: v in ("soft", "hard"), "'soft' or 'hard'"),
+    "wavelet_levels": (
+        lambda v: v is None or _pos_int(v),
+        "an int >= 1 (or omitted: skimage default max-3)",
+    ),
+    "method": (
+        lambda v: v in ("BayesShrink", "VisuShrink"),
+        "'BayesShrink' or 'VisuShrink'",
+    ),
+}
+
 _VALUE_RULES: dict[str, dict[str, tuple]] = {
+    "butterworth": _BUTTERWORTH_RULES,
+    "homomorphic": _HOMOMORPHIC_RULES,
+    "frangi": {
+        "sigmas": _SIGMAS,
+        "alpha": (_pos, "a number > 0"),
+        "beta": (_pos, "a number > 0"),
+        "gamma": _GAMMA_OR_NONE,
+        "black_ridges": _BLACK_RIDGES,
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    "hessian": {
+        "sigmas": _SIGMAS,
+        "alpha": (_pos, "a number > 0"),
+        "beta": (_pos, "a number > 0"),
+        "gamma": (_pos, "a number > 0 (skimage default 15)"),
+        "black_ridges": _BLACK_RIDGES,
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    "vessel_enhance": {
+        "sigmas": _SIGMAS,
+        "alpha": (_pos, "a number > 0"),
+        "beta": (_pos, "a number > 0"),
+        "gamma": _GAMMA_OR_NONE,
+        "black_ridges": _BLACK_RIDGES,
+        "amount": (_nonneg, "a number >= 0"),
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    "sato": {
+        "sigmas": _SIGMAS,
+        "black_ridges": _BLACK_RIDGES,
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    "meijering": {
+        "sigmas": _SIGMAS,
+        "alpha": (lambda v: v is None or _pos(v),
+                  "a number > 0 (or omitted: 1/(ndim + 1))"),
+        "black_ridges": _BLACK_RIDGES,
+        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    },
+    "denoise_wavelet": _WAVELET_RULES,
+    "cycle_spin": {
+        "max_shifts": (
+            lambda v: isinstance(v, int) and not isinstance(v, bool)
+            and v >= 0,
+            "an int >= 0",
+        ),
+        "shift_steps": (_pos_int, "an int >= 1"),
+        **_WAVELET_RULES,
+    },
     "adjust_gamma": {
         "gamma": (_pos, "a number > 0"),
         "gain": (_pos, "a number > 0"),
