@@ -91,7 +91,30 @@ Phases, one printed line each (or a few):
                and K8s's,
                ms beside the device time and busy share of the chains they
                lie on; one line each for the homomorphic, wavelet and
-               angiography chains: slices/s, device ms, launches, busy.
+               angiography chains: slices/s, device ms, launches, busy;
+  6. files   — load -> enhance -> save through the file entry points
+               (mies_tpu_torch.pipeline.runner) and the command line,
+               without Pillow: the native DICOM decoders build (g++);
+               BASELINE w5, a seeded 512^3 int16 volume written to .nc
+               and streamed .nc -> .nc by enhance_volume_stream through
+               presets.flagship_volume_config at slab 16, twice (end-to-
+               end z-slices/s, the stream's own peak device memory under
+               256 MiB, K1 to the LUTs, K2, K3, K4 once per slab and no
+               other kernel), once more under the profiler (device time
+               by kind, the busy share), the chain alone by time_pipeline
+               (int16 b16 512^2), the slab read and the output write
+               alone; the output equal to compile_pipeline(batched=True)
+               per slab and to enhance_volume, its first slab within 1
+               level on < 1e-3 of pixels of the CPU plain chain; a
+               64-slice int16 CT series (rescale slope and intercept,
+               files in shuffled order) streamed directory -> DICOM
+               directory in position order, enhance_batch of its 64 files
+               with configs/ct_soft_tissue.yaml (every output equal to
+               compile_pipeline, a manifest of 64 done, a resumed run that
+               processes none), enhance_image on one file; `python -m
+               mies_tpu_torch enhance-volume --stream` and `--mode 3d -c
+               configs/ct_volume_3d.yaml` (K8) in subprocesses, exit 0,
+               each output equal to the in-process call's.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -293,6 +316,274 @@ def _ct_volume(z: int, h: int, w: int, seed: int,
     hu = 0.25 * (hu + hu.roll(1, 1) + hu.roll(1, 2) + hu.roll((1, 1), (1, 2)))
     hu = hu + 25.0 * torch.randn(hu.shape, generator=gen, device=dev)
     return torch.clamp(torch.round(hu), -1024, 3071).to(torch.int16)
+
+
+def _levels_off(a: np.ndarray, b: np.ndarray) -> tuple[int, int]:
+    """(max level difference, pixels that differ) of two uint8 arrays."""
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), int(np.count_nonzero(d))
+
+
+def _files_phase(dev: torch.device, card: str, repo: Path) -> None:
+    """Phase 6: load -> enhance -> save through the file entry points and the
+    command line. BASELINE w5 (a 512^3 int16 .nc streamed to .nc through
+    the flagship volume chain, slab 16, twice), a 64-slice DICOM series
+    (directory -> DICOM directory, enhance_batch with resume,
+    enhance_image) and two `python -m mies_tpu_torch enhance-volume`
+    subprocesses."""
+    from mies_tpu_torch import native
+    from mies_tpu_torch.io.dicom import read_dicom_header, write_dicom
+    from mies_tpu_torch.io.volume import (
+        load_volume,
+        open_volume_slabs,
+        open_volume_writer,
+        save_volume,
+    )
+    from mies_tpu_torch.kernels import _build
+    from mies_tpu_torch.pipeline.compiler import (
+        compile_pipeline,
+        compile_volume_pipeline,
+    )
+    from mies_tpu_torch.pipeline.config import load_config
+    from mies_tpu_torch.pipeline.manifest import RunManifest
+    from mies_tpu_torch.pipeline.presets import flagship_volume_config
+    from mies_tpu_torch.pipeline.runner import (
+        enhance_batch,
+        enhance_image,
+        enhance_volume,
+        enhance_volume_stream,
+        time_pipeline,
+    )
+
+    t0 = time.perf_counter()
+    _require(native.available(),
+             f"the native decoders did not build: {native._build_error}")
+    print(f"files: native decoders available ({time.perf_counter() - t0:.2f} s "
+          f"to build or load {native._SO.relative_to(repo)})")
+    cfg5 = flagship_volume_config()
+    want5 = {"tile_luts", "clahe_apply_lut", "bilateral", "unsharp_quant"}
+    z5, slab = 512, 16
+    nslabs = z5 // slab
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # -- w5: 512^3 int16 .nc -> .nc, slab 16 --------------------------
+        vol = np.random.default_rng(0).integers(-1000, 2000, (z5, SIZE, SIZE),
+                                                dtype=np.int16)
+        t0 = time.perf_counter()
+        save_volume(tmp / "w5.nc", vol, var_name="hu")
+        write_in_s = time.perf_counter() - t0
+        # the host's own parts, alone: the slab read, the output write
+        from scipy.io import netcdf_file  # noqa: F401  (imported before timing)
+
+        t0 = time.perf_counter()
+        _, slabs = open_volume_slabs(tmp / "w5.nc", slab_size=slab)
+        for _ in slabs:
+            pass
+        read_s = time.perf_counter() - t0
+        zeros = np.zeros((slab, SIZE, SIZE), np.uint8)
+        t0 = time.perf_counter()
+        w = open_volume_writer(tmp / "zeros.nc", (z5, SIZE, SIZE), np.uint8)
+        for _ in range(nslabs):
+            w.append(zeros)
+        w.close()
+        write_s = time.perf_counter() - t0
+        (tmp / "zeros.nc").unlink()
+        runs = []
+        for i in range(2):
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            meta = enhance_volume_stream(tmp / "w5.nc", cfg5,
+                                         tmp / f"w5_out{i}.nc",
+                                         slab_size=slab, device=dev)
+            torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            runs.append({"s": dt, "z_slices_per_s": z5 / dt,
+                         "peak_mib": peak / 2**20, "launches": launches})
+            _require(tuple(meta.shape) == (z5, SIZE, SIZE),
+                     f"w5 meta shape {meta.shape}")
+            _require(launches == {k: nslabs if k in want5 else 0
+                                  for k in launches},
+                     f"w5 launches {launches}, want {sorted(want5)} "
+                     f"{nslabs} times each (once per slab) and no other")
+            _require(peak < 256 * 2**20,
+                     f"w5 stream's own peak device memory {peak / 2**20:.1f} "
+                     f"MiB is not under 256 MiB")
+        # the same stream under the profiler (CUDA activity): device time
+        # by kind over the stream's wall time inside the profiled window
+        # (the profiler's start and stop excluded): the busy share
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            enhance_volume_stream(tmp / "w5.nc", cfg5, tmp / "w5_prof.nc",
+                                  slab_size=slab, device=dev)
+            torch.cuda.synchronize(dev)
+            prof_s = time.perf_counter() - t0
+        by_kind: dict[str, float] = {}
+        for evt in prof.key_averages():
+            if (evt.device_type != torch.autograd.DeviceType.CUDA
+                    or evt.self_device_time_total <= 0):
+                continue
+            k = evt.key.lower()
+            kind = ("copy HtoD" if "htod" in k else "copy DtoH" if "dtoh" in k
+                    else "plain torch" if "at::" in k or "memset" in k
+                    else "hand kernels")
+            by_kind[kind] = by_kind.get(kind, 0.0) + evt.self_device_time_total / 1e3
+        device_ms = sum(by_kind.values())
+        _require(device_ms > 0, "the profiler saw no device time in the w5 stream")
+        # the chain alone on the card: time_pipeline on int16 b16 512^2
+        x16 = torch.from_numpy(vol[:slab]).to(dev)
+        dev5 = time_pipeline(cfg5, batch=x16, device=dev)
+        # outputs: both runs equal, equal to compile_pipeline(batched=True)
+        # over the same slabs and to enhance_volume in memory; the first
+        # slab within 1 level on < 1e-3 of pixels of the CPU plain chain
+        out0, _ = load_volume(tmp / "w5_out0.nc")
+        out1, _ = load_volume(tmp / "w5_out1.nc")
+        outp, _ = load_volume(tmp / "w5_prof.nc")
+        _require(out0.dtype == np.uint8 and out0.shape == vol.shape,
+                 f"w5 output {out0.dtype} {out0.shape}")
+        _require(np.array_equal(out0, out1) and np.array_equal(out0, outp),
+                 "w5 runs differ")
+        fn5 = compile_pipeline(cfg5, batched=True, device=dev)
+        for k in range(0, z5, slab):
+            got = fn5(torch.from_numpy(vol[k:k + slab]).to(dev)).cpu().numpy()
+            _require(np.array_equal(got, out0[k:k + slab]),
+                     f"w5 slab at z {k} differs from compile_pipeline")
+        mem = enhance_volume(vol, cfg5, slab_size=slab, device=dev)
+        _require(np.array_equal(mem, out0), "w5: enhance_volume differs from the stream")
+        cpu16 = compile_pipeline(cfg5, batched=True, device="cpu")(
+            torch.from_numpy(vol[:slab])).numpy()
+        off_max, off_n = _levels_off(out0[:slab], cpu16)
+        _require(off_max <= 1 and off_n < 1e-3 * cpu16.size,
+                 f"w5 first slab vs the CPU plain chain: {off_n} pixels off, "
+                 f"max {off_max}")
+        print(f"files w5 (512^3 int16 .nc -> .nc, slab {slab}): end to end "
+              + ", ".join(f"{r['z_slices_per_s']:.1f} z-slices/s ({r['s']:.3f} s)"
+                          for r in runs)
+              + f" | device-only chain {dev5['slices_per_sec']:.1f} z-slices/s "
+              f"({dev5['ms_per_batch']:.4f} ms per slab of {slab}) | the "
+              f"stream's own peak device memory "
+              + ", ".join(f"{r['peak_mib']:.1f}" for r in runs)
+              + f" MiB (< 256) | launches per slab "
+              f"{ {k: v // nslabs for k, v in runs[0]['launches'].items() if v} } "
+              f"| profiled run {prof_s:.3f} s, device {device_ms:.2f} ms "
+              f"(busy {device_ms / (prof_s * 1e3):.2%}): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_kind.items()))
+              + f" ms | host alone: read {read_s:.3f} s, write {write_s:.3f} s; "
+              f"writing the input {write_in_s:.3f} s | equal to compile_pipeline "
+              f"per slab and enhance_volume; slab 0 vs the CPU plain chain "
+              f"{off_n} pixels off (max {off_max}) | {card}")
+        del vol, out0, out1, outp, mem
+
+        # -- a 64-slice DICOM CT series -----------------------------------
+        ct = _ct_volume(64, SIZE, SIZE, 5, dev).cpu().numpy()
+        series = tmp / "series"
+        series.mkdir()
+        order = np.random.default_rng(1).permutation(64)
+        for z in range(64):  # file names in shuffled order
+            write_dicom(series / f"im{order[z]:03d}.dcm",
+                        (ct[z].astype(np.int32) + 1024).astype(np.int16),
+                        instance_number=z + 1, slice_location=1.25 * z,
+                        image_position=(0.0, 0.0, 1.25 * z),
+                        pixel_spacing=(0.7, 0.7), rescale_slope=1.0,
+                        rescale_intercept=-1024.0, window=(40.0, 400.0))
+        fn_v = compile_pipeline(cfg5, batched=True, device=dev)
+        want_v = fn_v(torch.from_numpy(ct).to(dev)).cpu().numpy()
+        t0 = time.perf_counter()
+        enhance_volume_stream(series, cfg5, tmp / "series_out", slab_size=slab,
+                              device=dev)
+        series_s = time.perf_counter() - t0
+        back, _ = load_volume(tmp / "series_out")
+        _require(np.array_equal(back, want_v.astype(np.int16)),
+                 "DICOM series stream: slices out of order or not equal to "
+                 "compile_pipeline on the ordered volume")
+        ct_cfg = load_config(repo / "configs" / "ct_soft_tissue.yaml")
+        paths = sorted(series.glob("*.dcm"))
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        m = enhance_batch(paths, ct_cfg, tmp / "batch_out", progress=False,
+                          device=dev)
+        torch.cuda.synchronize(dev)
+        batch_s = time.perf_counter() - t0
+        batch_launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        _require(m.done_count == 64 and not m.failures,
+                 f"enhance_batch: {m.done_count} done, {m.failures}")
+        outs = sorted((tmp / "batch_out").glob("*.dcm"))
+        _require(len(outs) == 64, f"enhance_batch wrote {len(outs)} files")
+        lines = (tmp / "batch_out" / "manifest.jsonl").read_text().splitlines()
+        m2 = enhance_batch(paths, ct_cfg, tmp / "batch_out", progress=False,
+                           device=dev)
+        _require(m2.done_count == 64 and (tmp / "batch_out" / "manifest.jsonl")
+                 .read_text().splitlines() == lines,
+                 "the resumed enhance_batch processed files again")
+        _require(RunManifest(tmp / "batch_out" / "manifest.jsonl",
+                             ct_cfg.cache_key()).done_count == 64,
+                 "manifest does not record 64 done")
+        fn_ct = compile_pipeline(ct_cfg, batched=True, device=dev)
+        from mies_tpu_torch.io.image import load_image
+
+        raw = np.stack([load_image(p, dtype="raw") for p in paths])
+        want_ct = fn_ct(torch.from_numpy(raw).to(dev)).cpu().numpy()
+        got_ct = np.stack([load_image(tmp / "batch_out" / p.name, dtype="raw")
+                           for p in paths])
+        _require(np.array_equal(got_ct, want_ct),
+                 "enhance_batch outputs differ from compile_pipeline")
+        one = enhance_image(paths[7], ct_cfg, tmp / "one.dcm", device=dev)
+        _require(np.array_equal(one, want_ct[7]),
+                 "enhance_image differs from the batch")
+        hdr = read_dicom_header(paths[0])
+        print(f"files DICOM: 64-slice series (files shuffled) -> DICOM "
+              f"directory in {series_s:.3f} s, slices in position order, "
+              f"equal to compile_pipeline | enhance_batch ct_soft_tissue "
+              f"64 files in {batch_s:.3f} s ({64 / batch_s:.1f} files/s), "
+              f"launches {batch_launches}, manifest 64 done, resumed run "
+              f"processed 0 | enhance_image equal | window in the header "
+              f"{hdr.get('window_center')}/{hdr.get('window_width')} | {card}")
+
+        # -- the command line, in subprocesses ----------------------------
+        save_volume(tmp / "v64.nc", ct)
+        cfg5.save(tmp / "w5.json")
+        env = {**os.environ, "PYTHONPATH": str(repo)}
+        cmds = {
+            "stream": ["enhance-volume", str(tmp / "v64.nc"), "-c",
+                       str(tmp / "w5.json"), "-o", str(tmp / "cli_stream.nc"),
+                       "--stream", "-q"],
+            "3d": ["enhance-volume", str(tmp / "v64.nc"), "-c",
+                   str(repo / "configs" / "ct_volume_3d.yaml"), "-o",
+                   str(tmp / "cli_3d.nc"), "--mode", "3d"],
+        }
+        cli_s = {}
+        for name, args in cmds.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "mies_tpu_torch", *args],
+                                  capture_output=True, text=True, env=env,
+                                  cwd=repo, timeout=300)
+            cli_s[name] = time.perf_counter() - t0
+            _require(proc.returncode == 0,
+                     f"CLI {name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        enhance_volume_stream(tmp / "v64.nc", cfg5, tmp / "in_stream.nc",
+                              slab_size=slab, device=dev)
+        _require((tmp / "cli_stream.nc").read_bytes()
+                 == (tmp / "in_stream.nc").read_bytes(),
+                 "CLI --stream output differs from enhance_volume_stream")
+        _build.reset_launches()
+        want3 = compile_volume_pipeline(
+            load_config(repo / "configs" / "ct_volume_3d.yaml"), device=dev)(
+            torch.from_numpy(ct).to(dev)).cpu().numpy()
+        _require(_build.LAUNCHES["clahe3d_apply"] == 1, "K8 did not run")
+        got3, _ = load_volume(tmp / "cli_3d.nc")
+        _require(np.array_equal(got3, want3),
+                 "CLI --mode 3d output differs from compile_volume_pipeline")
+        print(f"files CLI: python -m mies_tpu_torch enhance-volume --stream "
+              f"(64 slices) exit 0 in {cli_s['stream']:.1f} s, output equal to "
+              f"enhance_volume_stream; --mode 3d ct_volume_3d.yaml exit 0 in "
+              f"{cli_s['3d']:.1f} s, equal to compile_volume_pipeline (K8 once) "
+              f"| {card}")
 
 
 def main() -> int:
@@ -1603,6 +1894,9 @@ def main() -> int:
           f"{dev_ms['clahe3d skimage volume']:.4f}, "
           f"{dict(profiles)['clahe3d skimage volume']['device_launches_per_call']:g} "
           f"({busy['clahe3d skimage volume']:.1%}) | {card}")
+
+    # -- 6. files: load -> enhance -> save (w5, DICOM, the CLI) ----------
+    _files_phase(dev, card, repo)
 
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (

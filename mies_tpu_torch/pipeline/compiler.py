@@ -306,7 +306,9 @@ def resolve_device(device) -> torch.device:
 
 def _to_device(x, dev: torch.device) -> torch.Tensor:
     if isinstance(x, np.ndarray):
-        x = torch.from_numpy(x)
+        # a decoded image may be a read-only view (Pillow, a memmap), which
+        # torch.from_numpy wraps only with a warning: copy it first
+        x = torch.from_numpy(x if x.flags.writeable else np.array(x))
     return x.to(dev)
 
 

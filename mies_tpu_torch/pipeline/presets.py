@@ -19,6 +19,16 @@ def flagship_config(name: str = "flagship-clahe-denoise-sharpen") -> PipelineCon
     )
 
 
+def flagship_volume_config(name: str = "flagship-volume") -> PipelineConfig:
+    """The streamed-volume variant (BASELINE w5): HU windowing + the
+    flagship chain."""
+    return PipelineConfig.make(
+        [("window_hu", {"center": 40.0, "width": 400.0})]
+        + list(flagship_config().stages),
+        name=name,
+    )
+
+
 def latency_config(name: str = "latency-clahe-denoise") -> PipelineConfig:
     """BASELINE metric 2: the batch-1 CLAHE + denoise latency chain."""
     return PipelineConfig.make(

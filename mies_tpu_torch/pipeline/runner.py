@@ -1,5 +1,33 @@
-"""Throughput, latency and device-time harnesses on the card (CUDA events,
+"""File entry points (load -> enhance -> save) and the throughput,
+latency and device-time harnesses on the card (CUDA events,
 ``torch.profiler``).
+
+The entry points have the reference's signatures and return values
+(``mies_tpu/pipeline/runner.py``) plus ``device``: they run on the card
+("cuda", the default; no card -> RuntimeError) unless the caller passes
+``device="cpu"`` (the plain chain):
+
+  enhance_image          one 2-D file -> uint8 (and optionally a file)
+  enhance_batch          many files -> an output directory; resumable
+                         through the run manifest, per-item fault
+                         isolation, bucketed by (shape, dtype)
+  enhance_volume         an in-memory [Z, H, W] volume, slab by slab
+  enhance_volume_stream  disk to disk with O(slab) host memory (BASELINE
+                         w5: a 512^3 int16 .nc through
+                         ``presets.flagship_volume_config``)
+
+On the card each of them feeds the chain through ``_DevicePipe``: a ring
+of ``max_in_flight`` pinned host staging buffers per (shape, dtype),
+allocated once; a host-to-device copy stream, the chain on the current
+stream and a device-to-host stream, ordered by CUDA events, so the copy
+of slab k+1 and the write-back of slab k-1 overlap the chain on slab k,
+and the host reads and decodes the next slab meanwhile. A slab's output
+is synchronized only when it is drained to the writer; a staging buffer
+is reused only after its copy's event completed. Since every op's
+statistics are per image, nothing pads: a short last slab or batch runs
+as it is.
+
+The timing harness:
 
     python -m mies_tpu_torch.pipeline.runner configs/xray_adapthist_skimage.yaml
 
@@ -18,16 +46,380 @@ where there is no card, these raise instead of timing the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import sys
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
 
+from mies_tpu_torch.io.image import load_image, save_image
 from mies_tpu_torch.pipeline.compiler import (
     compile_pipeline,
     compile_volume_pipeline,
+    resolve_device,
 )
 from mies_tpu_torch.pipeline.config import PipelineConfig, load_config
+from mies_tpu_torch.pipeline.manifest import RunManifest
+
+# stages whose output slice shape differs from their input's: the
+# streamed output's header is sized from the input before any slab runs
+SHAPE_CHANGERS = frozenset({"resize", "center_crop", "rot90"})
+
+
+def _refuse_mesh(mesh, name: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{name}: mesh= is not ported yet. The port's "
+            f"parallel.shard_pipeline takes a rank's own shard, not the "
+            f"whole batch; data-parallel file runs are ROADMAP.md "
+            f"queue 1 item 7 (with parallel/volume_shard.py)"
+        )
+
+
+def _progress(it: Iterable, total: int, unit: str, enabled: bool) -> Iterable:
+    """``tqdm`` over ``it`` when progress is asked for and tqdm is
+    installed; without tqdm, one plain line per item on stderr."""
+    if not enabled:
+        return it
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return _plain_progress(it, total, unit)
+    return tqdm(it, total=total, unit=unit)
+
+
+def _plain_progress(it: Iterable, total: int, unit: str) -> Iterator:
+    for i, item in enumerate(it, 1):
+        yield item
+        print(f"{unit} {i}/{total}", file=sys.stderr, flush=True)
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+class _Slot:
+    """One staging place of the ring: a host input buffer (pinned on the
+    card), a host output buffer, and the events of its last copy in and
+    its last copy out."""
+
+    def __init__(self, cap: int, item_shape: tuple, dtype: np.dtype,
+                 cuda: bool) -> None:
+        self.host_in = torch.empty((cap, *item_shape), dtype=_torch_dtype(dtype),
+                                   pin_memory=cuda)
+        self.host_in_np = self.host_in.numpy()
+        self.host_out: torch.Tensor | None = None
+        self.h2d = torch.cuda.Event() if cuda else None
+        self.d2h = torch.cuda.Event() if cuda else None
+        self.busy = False
+
+
+class _DevicePipe:
+    """Feed host arrays through the batched chain ``fn`` with at most
+    ``depth`` batches in flight, handing each output, in submission
+    order, to ``consume(tag, uint8 array)``. The array handed over is a
+    view of a staging buffer, valid only during the call.
+
+    On the card: ``depth`` pinned input and output buffers per (item
+    shape, dtype), allocated once; each input is copied into its slot's
+    pinned buffer, sent with ``non_blocking`` on the copy stream, the
+    chain waits on that copy's event, its output comes back with
+    ``non_blocking`` on the write-back stream into the slot's pinned
+    output, whose event is synchronized only when the slot is drained.
+    On the CPU the chain runs at once on the staged tensor.
+    """
+
+    def __init__(self, fn: Callable, dev: torch.device, depth: int,
+                 consume: Callable[[object, np.ndarray], None]) -> None:
+        if depth < 1:
+            raise ValueError(f"max_in_flight must be >= 1, got {depth}")
+        self.fn, self.dev, self.depth, self.consume = fn, dev, depth, consume
+        self.cuda = dev.type == "cuda"
+        self.rings: dict[tuple, tuple[list[_Slot], list[int]]] = {}
+        self.queue: deque = deque()  # (slot, n, tag), oldest first
+        if self.cuda:
+            self.compute = torch.cuda.current_stream(dev)
+            self.h2d_stream = torch.cuda.Stream(dev)
+            self.d2h_stream = torch.cuda.Stream(dev)
+
+    def _slot(self, cap: int, item_shape: tuple, dtype: np.dtype) -> _Slot:
+        key = (item_shape, dtype.str)
+        if key not in self.rings:
+            self.rings[key] = ([], [0])
+        ring, nxt = self.rings[key]
+        if len(ring) < self.depth:
+            ring.append(_Slot(cap, item_shape, dtype, self.cuda))
+            return ring[-1]
+        slot = ring[nxt[0] % self.depth]
+        nxt[0] += 1
+        while slot.busy:  # its last output is still queued: drain to it
+            self._drain_one()
+        return slot
+
+    def submit(self, items: np.ndarray | Sequence[np.ndarray], tag,
+               cap: int) -> None:
+        """Stage ``items`` (an array [n, ...] or n arrays of one shape and
+        dtype, n <= cap) and launch the chain on them."""
+        first = items[0]
+        n = len(items)
+        if n > cap:
+            raise ValueError(f"{n} items exceed the staging capacity {cap}")
+        while len(self.queue) >= self.depth:
+            self._drain_one()
+        # staged in native byte order (np.copyto swaps a big-endian input)
+        slot = self._slot(cap, tuple(first.shape),
+                          np.dtype(first.dtype).newbyteorder("="))
+        if slot.h2d is not None:
+            slot.h2d.synchronize()  # its last copy in has left the buffer
+        if isinstance(items, np.ndarray):
+            np.copyto(slot.host_in_np[:n], items)
+        else:
+            for i, a in enumerate(items):
+                np.copyto(slot.host_in_np[i], a)
+        host = slot.host_in[:n]
+        if not self.cuda:
+            out = self.fn(host)
+            slot.host_out = out
+        else:
+            with torch.cuda.stream(self.h2d_stream):
+                x = torch.empty(host.shape, dtype=host.dtype, device=self.dev)
+                x.copy_(host, non_blocking=True)
+                slot.h2d.record(self.h2d_stream)
+            with torch.cuda.stream(self.compute):
+                self.compute.wait_event(slot.h2d)
+                x.record_stream(self.compute)
+                y = self.fn(x)
+                ready = torch.cuda.Event()
+                ready.record(self.compute)
+            del x
+            if (slot.host_out is None or slot.host_out.dtype != y.dtype
+                    or tuple(slot.host_out.shape[1:]) != tuple(y.shape[1:])
+                    or slot.host_out.shape[0] < n):
+                slot.host_out = torch.empty((cap, *y.shape[1:]),
+                                            dtype=y.dtype, pin_memory=True)
+            with torch.cuda.stream(self.d2h_stream):
+                self.d2h_stream.wait_event(ready)
+                slot.host_out[:n].copy_(y, non_blocking=True)
+                y.record_stream(self.d2h_stream)
+                slot.d2h.record(self.d2h_stream)
+        slot.busy = True
+        self.queue.append((slot, n, tag))
+
+    def _drain_one(self) -> None:
+        slot, n, tag = self.queue.popleft()
+        if slot.d2h is not None:
+            slot.d2h.synchronize()
+        slot.busy = False
+        self.consume(tag, slot.host_out[:n].numpy())
+
+    def flush(self) -> None:
+        while self.queue:
+            self._drain_one()
+
+
+def enhance_image(
+    input_path: str | Path,
+    cfg: PipelineConfig,
+    output_path: str | Path | None = None,
+    device="cuda",
+) -> np.ndarray:
+    """Enhance one 2-D image file; returns (and optionally saves) uint8.
+
+    Multi-channel inputs follow the config's ``io.channels`` policy
+    ('gray' | 'per-channel'); per-channel outputs are [C, H, W]. The raw
+    integer pixels go to ``device`` and are normalized there by the
+    chain's ingest.
+    """
+    dev = resolve_device(device)
+    img = load_image(input_path, dtype="raw",
+                     channels=cfg.io_dict().get("channels"))
+    fn = compile_pipeline(cfg, device=dev)
+    out = fn(img).cpu().numpy()
+    if output_path is not None:
+        save_image(output_path, out)
+    return out
+
+
+def enhance_batch(
+    input_paths: Sequence[str | Path],
+    cfg: PipelineConfig,
+    output_dir: str | Path,
+    batch_size: int = 32,
+    resume: bool = True,
+    progress: bool = True,
+    mesh=None,
+    device="cuda",
+) -> RunManifest:
+    """Enhance many images; resumable, per-item fault isolation.
+
+    Files are decoded a batch ahead (a one-thread prefetcher over an
+    8-thread decode pool) while the card runs the batch before; each
+    batch is bucketed by (shape, dtype), so mixed sizes run as separate
+    groups. The manifest records each completed output under the
+    config's ``cache_key()`` (equal to the reference's, so a run the JAX
+    package began resumes here), and a re-run processes only the
+    remainder. Outputs keep their input's file name.
+    """
+    _refuse_mesh(mesh, "enhance_batch")
+    dev = resolve_device(device)
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    manifest = RunManifest(output_dir / "manifest.jsonl", cfg.cache_key())
+
+    paths = [Path(p) for p in input_paths]
+    todo = manifest.pending([str(p) for p in paths]) if resume else [str(p) for p in paths]
+    todo_paths = [Path(p) for p in todo]
+    if not todo_paths:
+        return manifest
+
+    fn = compile_pipeline(cfg, batched=True, device=dev)
+    channels = cfg.io_dict().get("channels")
+
+    def try_load(p):
+        try:
+            # raw integer pixels: normalized on the card by the chain's
+            # ingest (a quarter of float32's host-to-device bytes)
+            return load_image(p, dtype="raw", channels=channels)
+        except Exception as e:  # corrupt input: recorded, the run goes on
+            return e
+
+    def load_chunk(chunk):
+        imgs, ok_paths = [], []
+        for p, res in zip(chunk, decode_pool.map(try_load, chunk)):
+            if isinstance(res, Exception):
+                manifest.mark_failed(str(p), f"load: {res}")
+            else:
+                imgs.append(res)
+                ok_paths.append(p)
+        return imgs, ok_paths
+
+    def finish(ok_paths, out):
+        for i, p in enumerate(ok_paths):
+            dst = output_dir / p.name
+            try:
+                save_image(dst, out[i])
+                manifest.mark_done(str(p), output=str(dst))
+            except Exception as e:  # one unwritable output fails one item
+                manifest.mark_failed(str(p), f"save: {e}")
+
+    # three batches in flight: decode, the card and the saves overlap
+    pipe = _DevicePipe(fn, dev, 3, finish)
+    chunks = [todo_paths[s : s + batch_size]
+              for s in range(0, len(todo_paths), batch_size)]
+    with ThreadPoolExecutor(max_workers=8) as decode_pool, \
+            ThreadPoolExecutor(max_workers=1) as prefetcher:
+        next_fut = prefetcher.submit(load_chunk, chunks[0])
+        for ci in _progress(range(len(chunks)), len(chunks), "batch", progress):
+            imgs, ok_paths = next_fut.result()
+            if ci + 1 < len(chunks):
+                next_fut = prefetcher.submit(load_chunk, chunks[ci + 1])
+            groups: dict[tuple, tuple[list, list]] = {}
+            for arr, p in zip(imgs, ok_paths):
+                g = groups.setdefault((arr.shape, arr.dtype.str), ([], []))
+                g[0].append(arr)
+                g[1].append(p)
+            for gimgs, gpaths in groups.values():
+                pipe.submit(gimgs, gpaths, cap=batch_size)
+        pipe.flush()
+    return manifest
+
+
+def enhance_volume(
+    volume: np.ndarray,
+    cfg: PipelineConfig,
+    slab_size: int = 16,
+    max_in_flight: int = 4,
+    progress: bool = False,
+    mesh=None,
+    device="cuda",
+) -> np.ndarray:
+    """Run a [Z, H, W] volume through the batched chain slab by slab,
+    at most ``max_in_flight`` slabs on the card at once; returns the
+    uint8 [Z, ...] result."""
+    _refuse_mesh(mesh, "enhance_volume")
+    dev = resolve_device(device)
+    fn = compile_pipeline(cfg, batched=True, device=dev)
+    outs: list[np.ndarray] = []
+    pipe = _DevicePipe(fn, dev, max_in_flight,
+                       lambda _, out: outs.append(out.copy()))
+    starts = range(0, volume.shape[0], slab_size)
+    for k in _progress(starts, len(starts), "slab", progress):
+        pipe.submit(volume[k : k + slab_size], None, cap=slab_size)
+    pipe.flush()
+    return np.concatenate(outs, axis=0)
+
+
+def _prefetched(it: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
+    """Read the next item of ``it`` on a worker thread while the caller
+    works on the current one (disk read and decode of slab k+1 overlap
+    the staging and the write of slab k)."""
+    with ThreadPoolExecutor(max_workers=1) as reader:
+        fut = reader.submit(next, it, None)
+        while True:
+            item = fut.result()
+            if item is None:
+                return
+            fut = reader.submit(next, it, None)
+            yield item
+
+
+def enhance_volume_stream(
+    source: str | Path,
+    cfg: PipelineConfig,
+    output: str | Path,
+    slab_size: int = 16,
+    max_in_flight: int = 4,
+    var_name: str | None = None,
+    progress: bool = False,
+    mesh=None,
+    device="cuda",
+):
+    """Disk-to-disk volume enhancement with O(slab) host memory.
+
+    Reads [slab, H, W] chunks lazily (classic .nc via mmap, .npy memmap,
+    HDF5 per chunk, or a DICOM series: ``io.volume.open_volume_slabs``),
+    one slab ahead on a reader thread, keeps ``max_in_flight`` slabs on
+    the card, and appends each finished uint8 slab to ``output``
+    (streaming NetCDF-3, .npy memmap, or a DICOM directory). The whole
+    volume is never resident on the host. Returns the input VolumeMeta.
+    """
+    from mies_tpu_torch.io.volume import open_volume_slabs, open_volume_writer
+
+    _refuse_mesh(mesh, "enhance_volume_stream")
+    dev = resolve_device(device)
+    # the output header is written with the INPUT's (Z, H, W) before any
+    # slab computes: stages that change the slice shape would corrupt it
+    bad = [s.op for s in cfg.stages if s.op in SHAPE_CHANGERS]
+    if bad:
+        raise ValueError(
+            f"enhance_volume_stream cannot run shape-changing stages "
+            f"{bad}: the streamed output header is sized from the input; "
+            f"use enhance_volume (in-memory) for this chain"
+        )
+    fn = compile_pipeline(cfg, batched=True, device=dev)
+    meta, slabs = open_volume_slabs(source, slab_size=slab_size,
+                                    var_name=var_name)
+    writer = open_volume_writer(output, meta.shape, np.uint8)
+    try:
+        pipe = _DevicePipe(fn, dev, max_in_flight,
+                           lambda _, out: writer.append(out))
+        nslabs = -(-meta.shape[0] // slab_size)
+        for slab in _progress(_prefetched(slabs), nslabs, "slab", progress):
+            pipe.submit(slab, None, cap=slab_size)
+        pipe.flush()
+    except BaseException:
+        # release the output file; its "volume incomplete" refusal would
+        # hide the error that stopped the stream
+        with contextlib.suppress(ValueError):
+            writer.close()
+        raise
+    writer.close()
+    return meta
 
 
 def _cuda_device(device) -> torch.device:

@@ -157,21 +157,61 @@ def test_timing_refuses_the_cpu():
             runner_main([str(REPO / "configs" / "xray_adapthist_skimage.yaml")])
 
 
-def test_port_imports_neither_jax_nor_mies_tpu():
+def test_port_imports_neither_jax_nor_mies_tpu(tmp_path):
+    """The port, its file I/O (every codec), the native decoders, the CLI
+    and the file entry points load no jax, jaxlib, triton or mies_tpu module;
+    a DICOM/.nc-only run (one small DICOM of each compressed syntax
+    decoded, a DICOM enhanced, a .nc streamed) loads no PIL either, so
+    the card's path cannot need Pillow."""
     code = (
         "import sys, torch\n"
+        "import numpy as np\n"
         "import mies_tpu_torch\n"
-        "from mies_tpu_torch.pipeline.presets import flagship_config\n"
+        "import mies_tpu_torch.io, mies_tpu_torch.native, mies_tpu_torch.cli\n"
+        "import mies_tpu_torch.io.jpegll, mies_tpu_torch.io.jpegdct\n"
+        "import mies_tpu_torch.io.jpegls, mies_tpu_torch.io.jpeg2k\n"
+        "import mies_tpu_torch.io.htj2k, mies_tpu_torch.io.htj2k_tables\n"
+        "import mies_tpu_torch.io.hdf5, mies_tpu_torch.io.netcdf3\n"
+        "from mies_tpu_torch.io import dicom as D\n"
+        "from mies_tpu_torch.io.volume import save_volume, load_volume\n"
+        "from mies_tpu_torch.pipeline.presets import (flagship_config,\n"
+        "                                             flagship_volume_config)\n"
         "from mies_tpu_torch.pipeline import runner\n"
+        "from mies_tpu_torch.pipeline.runner import (enhance_image,\n"
+        "    enhance_batch, enhance_volume, enhance_volume_stream)\n"
         "fn = mies_tpu_torch.compile_pipeline(flagship_config(), batched=True,\n"
         "                                     device='cpu')\n"
         "assert fn(torch.rand(2, 64, 64)).dtype == torch.uint8\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'mies_tpu'))\n"
+        "tmp = sys.argv[1]\n"
+        "rng = np.random.default_rng(0)\n"
+        "u8 = rng.integers(0, 256, (24, 32), dtype=np.uint8)\n"
+        "u16 = rng.integers(0, 4096, (24, 32), dtype=np.uint16)\n"
+        "for i, (ts, px) in enumerate([\n"
+        "        (D.RLE_LOSSLESS, u16), (D.JPEG_LOSSLESS_SV1, u16),\n"
+        "        (D.JPEG_LOSSLESS_P14, u16), (D.JPEG_BASELINE, u8),\n"
+        "        (D.JPEG_EXTENDED, u16), (D.JPEG_LS_LOSSLESS, u16),\n"
+        "        (D.JPEG_LS_NEAR, u8), (D.JPEG_2000_LOSSLESS, u16),\n"
+        "        (D.HTJ2K_LOSSLESS, u16), (D.HTJ2K_LOSSLESS_RPCL, u16),\n"
+        "        (D.DEFLATED_EXPLICIT_VR_LE, u16)]):\n"
+        "    path = f'{tmp}/s{i}.dcm'\n"
+        "    D.write_dicom(path, px, transfer_syntax=ts)\n"
+        "    got = D.read_dicom(path).pixels\n"
+        "    assert got.shape == px.shape, ts\n"
+        "ct = rng.integers(-1000, 2000, (12, 32, 24), dtype=np.int16)\n"
+        "D.write_dicom(f'{tmp}/ct.dcm', ct[0])\n"
+        "cfg = flagship_volume_config()\n"
+        "assert enhance_image(f'{tmp}/ct.dcm', cfg, device='cpu').dtype == np.uint8\n"
+        "save_volume(f'{tmp}/in.nc', ct)\n"
+        "enhance_volume_stream(f'{tmp}/in.nc', cfg, f'{tmp}/out.nc', slab_size=5,\n"
+        "                      device='cpu')\n"
+        "assert load_volume(f'{tmp}/out.nc')[0].shape == ct.shape\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'triton', 'mies_tpu', 'PIL'))\n"
         "print(bad)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, env=env, cwd=REPO, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          capture_output=True, text=True, env=env, cwd=REPO,
+                          timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
