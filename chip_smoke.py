@@ -114,7 +114,24 @@ Phases, one printed line each (or a few):
                processes none), enhance_image on one file; `python -m
                mies_tpu_torch enhance-volume --stream` and `--mode 3d -c
                configs/ct_volume_3d.yaml` (K8) in subprocesses, exit 0,
-               each output equal to the in-process call's.
+               each output equal to the in-process call's;
+  7. volume ops — the volume registry at full width: the 3-D low-dose
+               CT chain (int16 [256, 512, 512] phantom: window_hu ->
+               median_blur3d -> denoise_tv3d -> clahe3d opencv (K1, the
+               LUT build, K8) -> unsharp_mask3d -> uint8) through
+               compile_volume_pipeline, K1 and K8 once a call and no other
+               kernel, equal to the chain with the plain clahe3d on the
+               card and within 1 level on < 1e-3 of voxels of the CPU
+               plain chain at [32, 512, 512], z-slices/s (time_volume),
+               device ms by op, launches and busy share (profile_volume),
+               peak device memory; every other volume op once at
+               [256, 512, 512] on the windowed phantom (device ms by CUDA
+               events, peak memory under 40 GiB, finite, card vs CPU on a
+               [16, 64, 96] and a [12, 67, 93] crop within the CPU tests'
+               bounds); `python -m mies_tpu_torch enhance-volume --mode 3d
+               --isotropic 1.0` on a 64-slice DICOM series at (2.5, 0.7,
+               0.7) mm in a subprocess, exit 0, its [160, 358, 358] output
+               equal to the in-process call's, TF32 off.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -584,6 +601,276 @@ def _files_phase(dev: torch.device, card: str, repo: Path) -> None:
               f"enhance_volume_stream; --mode 3d ct_volume_3d.yaml exit 0 in "
               f"{cli_s['3d']:.1f} s, equal to compile_volume_pipeline (K8 once) "
               f"| {card}")
+
+
+# Phase 7's op-by-op list: every op of the volume registry that is not in
+# the CT volume config (clahe3d, gaussian_blur3d, window_hu), at its
+# defaults on the windowed [256, 512, 512] phantom but where a required or
+# a scale parameter is given; and the card-vs-CPU bound of each, the CPU
+# tests' (tests/test_torch_volume_*.py): 0 where they hold the op bit-equal,
+# the libm, reduction-order and FFT gaps elsewhere. hessian3d at gamma 15 is
+# frangi's knife edge (checked as phase 4 checks hessian).
+VOLUME_OPS = (
+    ("adjust_gamma", {"gamma": 0.8}, 1e-6),
+    ("adjust_log", {}, 1e-6),
+    ("adjust_sigmoid", {}, 1e-6),
+    ("invert", {}, 0.0),
+    ("normalize", {}, 0.0),
+    ("rescale_intensity", {}, 0.0),
+    ("equalize_hist", {}, 0.0),
+    ("normalize_meanstd", {}, 0.0),
+    ("denormalize_meanstd", {}, 0.0),
+    ("guided_blur3d", {}, 0.0),
+    ("median_blur3d", {}, 0.0),
+    ("unsharp_mask3d", {}, 0.0),
+    ("erode3d", {}, 0.0),
+    ("dilate3d", {}, 0.0),
+    ("morph_open3d", {}, 0.0),
+    ("morph_close3d", {}, 0.0),
+    ("morph_gradient3d", {}, 0.0),
+    ("top_hat3d", {"kernel_size": 5}, 0.0),
+    ("black_hat3d", {"kernel_size": 5}, 0.0),
+    ("resample3d", {"depth": 320, "height": 358, "width": 358}, 1e-6),
+    ("difference_of_gaussians3d", {}, 0.0),
+    ("denoise_nl_means3d", {}, 2e-6),
+    ("denoise_tv3d", {}, 2e-6),
+    ("wiener3d", {}, 2e-5),
+    ("anisotropic_diffusion3d", {"kappa": 0.1}, 1e-6),
+    ("srad3d", {}, 1e-6),
+    ("frangi3d", {}, 2e-6),
+    ("vessel_enhance3d", {}, 2e-6),
+    ("sato3d", {}, 5e-6),
+    ("meijering3d", {}, 5e-6),
+    ("hessian3d", {}, 1e-5),
+    ("butterworth3d", {}, 2e-5),
+    ("homomorphic3d", {}, 2e-5),
+    ("denoise_wavelet3d", {}, 2e-6),
+)
+CT3D_STAGES = (
+    ("window_hu", {"center": 40.0, "width": 400.0}),
+    ("median_blur3d", {"kernel_size": 3}),
+    ("denoise_tv3d", {"weight": 0.03, "max_num_iter": 60}),
+    ("clahe3d", {"clip_limit": 2.0, "grid_size": (4, 8, 8),
+                 "convention": "opencv"}),
+    ("unsharp_mask3d", {"radius": 1.0, "amount": 0.5}),
+)
+
+
+def _volume_ops_phase(dev: torch.device, card: str, repo: Path) -> dict:
+    """Phase 7: the volume registry at full width. (a) The 3-D low-dose CT
+    chain on the int16 [256, 512, 512] phantom through
+    compile_volume_pipeline: K1 and K8 once a call and no other kernel,
+    equal to the same chain with the plain clahe3d on the card, within 1
+    level on < 1e-3 of voxels of the CPU plain chain at [32, 512, 512],
+    z-slices/s (time_volume), device time by op and the busy share
+    (profile_volume), peak device memory. (b) Every other volume op once at
+    [256, 512, 512] on the windowed phantom: device ms (CUDA events), peak
+    memory (each under 40 GiB), finite, and its card output on a
+    [16, 64, 96] and a [12, 67, 93] crop against the CPU's. (c) `python -m
+    mies_tpu_torch enhance-volume --mode 3d --isotropic 1.0` on a 64-slice
+    DICOM series, 2.5 mm apart with 0.7 mm pixels, exit 0 and equal to the
+    in-process call. Returns chain (a)'s launch counts."""
+    from mies_tpu_torch.io.dicom import write_dicom
+    from mies_tpu_torch.io.volume import load_volume
+    from mies_tpu_torch.kernels import _build
+    from mies_tpu_torch.ops import restoration as R
+    from mies_tpu_torch.ops import volume3d as V
+    from mies_tpu_torch.pipeline.compiler import (
+        _quantize_u8,
+        _volume_registry,
+        compile_volume_pipeline,
+    )
+    from mies_tpu_torch.pipeline.config import PipelineConfig
+    from mies_tpu_torch.pipeline.runner import profile_volume, time_volume
+
+    gib = 2**30
+    hu = _ct_volume(256, SIZE, SIZE, 11, dev)
+
+    def close(out, ref, what):
+        d = (out.int() - ref.int()).abs()
+        n = int((d > 0).sum().item())
+        _require(d.max().item() <= 1 and n < 1e-3 * d.numel(),
+                 f"{what}: {n} voxels differ (max {d.max().item()} levels)")
+        return n, d.numel()
+
+    def peak_of(fn):
+        """(result, the call's own peak device memory in bytes)."""
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, torch.cuda.max_memory_allocated(dev) - base
+
+    # -- (a) the 3-D low-dose CT chain -----------------------------------
+    cfg = PipelineConfig.make(list(CT3D_STAGES), name="ct-lowdose-3d")
+    fn = compile_volume_pipeline(cfg, device=dev)
+    fn(hu)  # the first call allocates; count and measure the second
+    _build.reset_launches()
+    out, peak = peak_of(lambda: fn(hu))
+    launches = dict(_build.LAUNCHES)
+    want = {k: int(k in ("tile_hists", "clahe3d_apply")) for k in launches}
+    _require(launches == want, f"CT 3-D chain launches {launches}, want {want}")
+    _require(out.shape == hu.shape and out.dtype == torch.uint8,
+             f"CT 3-D chain output {tuple(out.shape)} {out.dtype}")
+    _require(peak < 40 * gib, f"CT 3-D chain peak {peak / gib:.2f} GiB")
+    reg = {**_volume_registry(), "clahe3d": V.clahe3d}
+
+    def plain(vol):
+        y = vol
+        for s in cfg.stages:
+            y = reg[s.op](y, **s.kwargs())
+        return _quantize_u8(y)
+
+    _build.reset_launches()
+    ref = plain(hu)
+    torch.cuda.synchronize(dev)
+    _require(not any(_build.LAUNCHES.values()),
+             f"the plain CT 3-D chain launched {dict(_build.LAUNCHES)}")
+    n_plain, total = close(out, ref, "CT 3-D chain vs the plain chain on the card")
+    crop = hu[112:144].contiguous()
+    t0 = time.perf_counter()
+    cpu = compile_volume_pipeline(cfg, device="cpu")(crop.cpu())
+    cpu_s = time.perf_counter() - t0
+    n_cpu, total_cpu = close(fn(crop).cpu(), cpu, "CT 3-D chain card vs CPU")
+    tv = time_volume(cfg, iters=3, warmup=1, repeats=2, device=dev, vol=hu)
+    prof = profile_volume(cfg, iters=2, device=dev, vol=hu)
+    # where the time goes: each stage alone (CUDA events), TV's steps
+    card_reg = _volume_registry()
+    stage_ms, y, steps = [], hu, None
+    for s in cfg.stages:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if s.op == "denoise_tv3d":
+            y, steps = R.tv_chambolle3d(y, **{"eps": 2e-4, **s.kwargs()})
+        else:
+            y = card_reg[s.op](y, **s.kwargs())
+        end.record()
+        end.synchronize()
+        stage_ms.append((s.op, start.elapsed_time(end)))
+    _require(torch.equal(_quantize_u8(y), out), "the stages in a row differ "
+             "from the chain")
+    hand = {k: v for k, v in prof["by_kernel"].items()
+            if "clahe3d_apply" in k or "tile_hists" in k}
+    top = list(prof["by_op"].items())[:6]
+    print(f"volume CT 3-D chain (int16 [256,{SIZE},{SIZE}]: window_hu -> "
+          f"median_blur3d k3 -> denoise_tv3d w0.03 <= 60 -> clahe3d opencv "
+          f"(4,8,8) -> unsharp_mask3d r1 a0.5 -> uint8): "
+          f"{tv['z_slices_per_sec']:.1f} z-slices/s ({tv['ms_per_volume']:.2f} "
+          f"ms a volume) | device {prof['device_ms_per_call']:.2f} ms, "
+          f"{prof['device_launches_per_call']:g} launches, busy "
+          f"{prof['busy_share']:.1%} | by op: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in top)
+          + " | stages alone: " + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms)
+          + f" ms (TV {steps} steps) | hand kernels: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in hand.items())
+          + f" | launches {({k: v for k, v in launches.items() if v})} | peak "
+          f"{peak / gib:.2f} GiB | vs the plain chain on the card {n_plain} of "
+          f"{total} voxels differ | [32,{SIZE},{SIZE}] vs the CPU plain chain "
+          f"({cpu_s:.1f} s there) {n_cpu} of {total_cpu} voxels differ | {card}")
+    del out, ref, cpu
+
+    # -- (b) every volume op once at full width --------------------------
+    x = _volume_registry()["window_hu"](hu, center=40.0, width=400.0)
+    reg = _volume_registry()
+    crops = ((slice(120, 136), slice(224, 288), slice(208, 304)),
+             (slice(90, 102), slice(300, 367), slice(101, 194)))
+    rows = []
+    for op, kw, tol in VOLUME_OPS:
+        f = reg[op]
+        out, peak = peak_of(lambda: f(x, **kw))
+        _require(bool(torch.isfinite(out).all()), f"{op}: not finite")
+        _require(peak < 40 * gib, f"{op}: peak {peak / gib:.2f} GiB")
+        del out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        f(x, **kw)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        if ms < 100.0:  # a short op: the mean of 5 more calls
+            start.record()
+            for _ in range(5):
+                f(x, **kw)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / 5
+        errs, knife = [], 0
+        for c in crops:
+            ckw = ({"depth": 20, "height": 80, "width": 120}
+                   if op == "resample3d" else kw)
+            xc = x[c].contiguous()
+            got, want = f(xc, **ckw).cpu(), f(xc.cpu(), **ckw)
+            d = (got - want).abs()
+            off = d > tol
+            if op == "hessian3d":  # 1.0 on one side, ~0 on the other
+                a, b = got[off], want[off]
+                _require(bool((((a == 1.0) & (b.abs() <= 2e-6))
+                               | ((b == 1.0) & (a.abs() <= 2e-6))).all()),
+                         "hessian3d: card and CPU differ off the knife edge")
+                knife += int(off.sum())
+                d = d[~off]
+            else:
+                _require(not bool(off.any()), f"{op} {list(xc.shape)}: card "
+                         f"vs CPU max abs {d.max().item():.3g} > {tol}")
+            errs.append(d.max().item() if d.numel() else 0.0)
+        rows.append((op, ms, peak, max(errs), knife))
+    rows.sort(key=lambda r: -r[1])
+    print(f"volume ops at [256,{SIZE},{SIZE}] (windowed CT phantom; device "
+          f"ms by CUDA events, own peak memory GiB, card vs CPU max abs on "
+          f"[16,64,96] and [12,67,93] crops): " + "; ".join(
+              f"{op} {ms:.2f} ms {peak / gib:.2f} GiB {err:.2g}"
+              + (f" ({kn} knife-edge voxels)" if kn else "")
+              for op, ms, peak, err, kn in rows) + f" | {card}")
+    del x
+
+    # -- (c) --isotropic through the command line ------------------------
+    ct = _ct_volume(64, SIZE, SIZE, 12, dev).cpu().numpy()
+    iso_cfg = PipelineConfig.make(
+        [("window_hu", {"center": 40.0, "width": 400.0}),
+         ("median_blur3d", {}), ("unsharp_mask3d", {"amount": 0.5})],
+        name="ct-iso")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        series = tmp / "series"
+        series.mkdir()
+        for k in range(64):
+            write_dicom(series / f"im{k:03d}.dcm", ct[k], instance_number=k + 1,
+                        slice_location=2.5 * k,
+                        image_position=(0.0, 0.0, 2.5 * k),
+                        pixel_spacing=(0.7, 0.7))
+        iso_cfg.save(tmp / "iso.json")
+        env = {**os.environ, "PYTHONPATH": str(repo)}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mies_tpu_torch", "enhance-volume",
+             str(series), "-c", str(tmp / "iso.json"), "-o",
+             str(tmp / "iso.nc"), "--mode", "3d", "--isotropic", "1.0"],
+            capture_output=True, text=True, env=env, cwd=repo, timeout=300)
+        cli_s = time.perf_counter() - t0
+        _require(proc.returncode == 0,
+                 f"CLI --isotropic exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        vol, meta = load_volume(series)
+        dims = [max(1, round(n * s / 1.0)) for n, s in zip(vol.shape,
+                                                           meta.spacing)]
+        want3 = compile_volume_pipeline(PipelineConfig.make(
+            [("resample3d", dict(zip(("depth", "height", "width"), dims))),
+             *iso_cfg.stages]), device=dev)(vol).cpu().numpy()
+        got3, _ = load_volume(tmp / "iso.nc")
+        _require(list(got3.shape) == dims == [160, 358, 358],
+                 f"CLI --isotropic output {got3.shape}, want {dims}")
+        _require(np.array_equal(got3, want3),
+                 "CLI --isotropic output differs from the in-process call")
+    print(f"volume CLI: python -m mies_tpu_torch enhance-volume --mode 3d "
+          f"--isotropic 1.0 on 64 x {SIZE}^2 slices at (2.5, 0.7, 0.7) mm exit 0 "
+          f"in {cli_s:.1f} s, output {dims} equal to the in-process "
+          f"resample3d -> chain | TF32 off: "
+          f"{not torch.backends.cuda.matmul.allow_tf32} | {card}")
+    _require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    return launches
 
 
 def main() -> int:
@@ -1898,11 +2185,16 @@ def main() -> int:
     # -- 6. files: load -> enhance -> save (w5, DICOM, the CLI) ----------
     _files_phase(dev, card, repo)
 
+    # -- 7. volume ops: the volume registry at full width ----------------
+    p7_launches = _volume_ops_phase(dev, card, repo)
+    # K1 and K8 launch on the CT volume config's path and on chain (a)'s
+    vol_launches = {k: ctv_launches[k] + p7_launches[k] for k in ctv_launches}
+
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (
         ("tile_luts", "K1L", launches, "mies_tpu_torch/csrc/clahe.cu",
          "mies_tpu/kernels/clahe.py:923"),
-        ("tile_hists", "K1", ctv_launches, "mies_tpu_torch/csrc/clahe.cu",
+        ("tile_hists", "K1", vol_launches, "mies_tpu_torch/csrc/clahe.cu",
          "mies_tpu/kernels/clahe.py:923"),
         ("tile_hists_bins", "K1b", sk_launches, "mies_tpu_torch/csrc/clahe.cu",
          "mies_tpu/kernels/clahe.py:923"),
@@ -1940,11 +2232,11 @@ def main() -> int:
         ("unsharp_gauss", "K7", w3_launches,
          "mies_tpu_torch/csrc/unsharp_gauss.cu",
          "mies_tpu/kernels/unsharp_gauss.py:58"),
-        ("clahe3d_apply", "K8", ctv_launches, "mies_tpu_torch/csrc/clahe3d.cu",
+        ("clahe3d_apply", "K8", vol_launches, "mies_tpu_torch/csrc/clahe3d.cu",
          "mies_tpu/kernels/clahe.py:348"),
         ("clahe3d_apply", "K8c", fr3_launches, "mies_tpu_torch/csrc/clahe3d.cu",
          "mies_tpu/kernels/clahe.py:348"),
-        ("clahe3d_apply", "K8v", ctv_launches, "mies_tpu_torch/csrc/clahe3d.cu",
+        ("clahe3d_apply", "K8v", vol_launches, "mies_tpu_torch/csrc/clahe3d.cu",
          "mies_tpu/kernels/clahe.py:348"),
         ("clahe3d_apply", "K8cv", fr3_launches,
          "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/kernels/clahe.py:348"),

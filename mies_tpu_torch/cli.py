@@ -7,6 +7,7 @@ whose modules are ported:
   python -m mies_tpu_torch enhance -c config.yaml imgs/*.dcm -o outdir/   (batch, resumable)
   python -m mies_tpu_torch enhance-volume -c config.yaml vol.nc -o out.nc [--stream]
   python -m mies_tpu_torch enhance-volume -c configs/ct_volume_3d.yaml vol.nc -o out.nc --mode 3d
+  python -m mies_tpu_torch enhance-volume -c chain3d.yaml dicom_dir/ -o out.nc --mode 3d --isotropic 1.0
   python -m mies_tpu_torch ops
   python -m mies_tpu_torch bench -c config.yaml --batch 32 --size 512
 
@@ -30,7 +31,6 @@ NOT_PORTED = {
     "--run-report": "queue 1 item 5 (eval: metrics and the report)",
     "--stage-costs": "queue 1 item 7 (utils/profiling)",
     "--metrics": "queue 1 item 5 (eval: metrics)",
-    "--isotropic": "queue 1 item 3 (the volume path: resample3d)",
     "--data-parallel": "queue 1 item 7 (data-parallel file runs, "
                        "with parallel/volume_shard.py)",
     "evaluate": "queue 1 item 5 (eval)",
@@ -160,7 +160,7 @@ def cmd_enhance_volume(args, device) -> int:
     from mies_tpu_torch.io.volume import load_volume, save_volume
     from mies_tpu_torch.pipeline import runner
 
-    flag = _refused_flags(args, ("--isotropic", "--metrics", "--data-parallel"))
+    flag = _refused_flags(args, ("--metrics", "--data-parallel"))
     if flag:
         return _refuse(flag)
     cfg = _load_cfg(args.config)
@@ -175,6 +175,11 @@ def cmd_enhance_volume(args, device) -> int:
         if args.mode == "3d":
             raise SystemExit("--stream is slice-mode only (--mode 3d needs "
                              "the whole volume in memory)")
+        if args.isotropic is not None:
+            raise SystemExit(
+                "--isotropic needs --mode 3d (whole-volume resample); "
+                "it cannot run under --stream's slab-at-a-time model"
+            )
         meta = runner.enhance_volume_stream(
             args.input, cfg, args.output, slab_size=args.slab,
             var_name=args.var, progress=not args.quiet, device=device,
@@ -183,6 +188,8 @@ def cmd_enhance_volume(args, device) -> int:
                           "output": args.output, "streamed": True}))
         return 0
     vol, meta = load_volume(args.input, var_name=args.var)
+    if args.isotropic is not None:
+        cfg = _isotropic_config(cfg, args, vol.shape, meta.spacing)
     if args.mode == "3d":
         from mies_tpu_torch.pipeline.compiler import compile_volume_pipeline
 
@@ -195,6 +202,32 @@ def cmd_enhance_volume(args, device) -> int:
     print(json.dumps({"input": meta.source, "shape": list(out.shape),
                       "output": args.output}))
     return 0
+
+
+def _isotropic_config(cfg, args, shape, spacing):
+    """The chain with a ``resample3d`` stage prepended that takes the
+    volume to ``--isotropic`` mm voxels from the series' (dz, dy, dx)
+    spacing: each axis ``max(1, round(n * s / mm))`` samples. Refused
+    outside ``--mode 3d`` and without a spacing (only a DICOM series
+    carries one)."""
+    from mies_tpu_torch.pipeline.config import PipelineConfig
+
+    if args.mode != "3d":
+        raise SystemExit("--isotropic needs --mode 3d (it resamples the "
+                         "whole [Z, H, W] grid)")
+    if spacing is None:
+        raise SystemExit(
+            "--isotropic needs voxel spacing, which only DICOM series "
+            "inputs carry (PixelSpacing + slice positions); use an "
+            "explicit resample3d stage for other formats"
+        )
+    tgt = float(args.isotropic)
+    d, h, w = (max(1, round(n * s / tgt)) for n, s in zip(shape, spacing))
+    return PipelineConfig.make(
+        [("resample3d", {"depth": d, "height": h, "width": w}), *cfg.stages],
+        name=f"{cfg.name}-iso{tgt:g}mm", io=cfg.io_dict(),
+        eval=cfg.eval_dict(),
+    )
 
 
 def _ops_listing() -> dict:
@@ -278,7 +311,8 @@ def main(argv=None, device="cuda") -> int:
                    help="disk-to-disk slab streaming (O(slab) host memory; "
                         "output .nc/.npy/DICOM dir)")
     p.add_argument("--isotropic", type=float, metavar="MM",
-                   help="not ported yet (refused)")
+                   help="resample to MM-mm isotropic voxels first "
+                        "(--mode 3d, DICOM series inputs)")
     p.add_argument("--metrics", nargs="+", default=None,
                    help="not ported yet (refused)")
     p.add_argument("--data-parallel", action="store_true",

@@ -85,7 +85,6 @@ _JPEG_DCT = (JPEG_BASELINE, JPEG_EXTENDED)
 _JPEG_LS = (JPEG_LS_LOSSLESS, JPEG_LS_NEAR)
 _JPEG_2K = (JPEG_2000_LOSSLESS, JPEG_2000, HTJ2K_LOSSLESS,
             HTJ2K_LOSSLESS_RPCL, HTJ2K)
-_HTJ2K = (HTJ2K_LOSSLESS, HTJ2K_LOSSLESS_RPCL, HTJ2K)
 
 # Known-but-unsupported syntaxes, named in refusal messages so users
 # know exactly what to transcode (gdcmconv --raw / dcmdjpeg).

@@ -692,7 +692,16 @@ def _decode_packet(data, pos, res, p, layer, cod, ctx):
                     np_ = _parse_num_passes(rd)
                     while rd.bit():
                         cb.lblock += 1
-                    if cod.get("ht", False) and np_ > 1:
+                    if cod.get("ht", False) and cb.npasses > 0:
+                        # a later layer's HT passes: the cleanup came
+                        # before, so these are SigProp/MagRef, all in
+                        # the second codeword segment — one length
+                        # (B.10.7.2, bits = Lblock + floor(log2(k)))
+                        n2 = rd.bits(cb.lblock + np_.bit_length() - 1)
+                        cb.npasses += np_
+                        cb.ht_ref += n2
+                        contrib.append((cb, n2))
+                    elif cod.get("ht", False) and np_ > 1:
                         # T.814: the HT cleanup pass terminates its
                         # codeword segment; SigProp/MagRef share a
                         # second one — each signals its own length

@@ -24,6 +24,7 @@ import torch
 
 from mies_tpu_torch.kernels import _build
 from mies_tpu_torch.kernels import clahe as KC
+from mies_tpu_torch.ops import filters as F
 from mies_tpu_torch.ops import histogram as H
 from mies_tpu_torch.ops import volume3d as V
 
@@ -228,7 +229,7 @@ def clahe3d_volume(vol: torch.Tensor, clip_limit: float = 2.0,
     CPU tensor: ``ops.volume3d.clahe3d``."""
     if vol.device.type != "cuda":
         return V.clahe3d(vol, clip_limit, grid_size, convention, kernel_size)
-    V._check_volume(vol, "clahe3d")
+    F.check_volume(vol, "clahe3d")
     if convention not in V.CONVENTIONS_3D:
         raise ValueError(f"unknown CLAHE convention: {convention!r}")
     x = vol.to(torch.float32).contiguous()

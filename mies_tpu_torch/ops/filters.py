@@ -56,6 +56,12 @@ def _pad_index(n: int, r: int, np_mode: str, device: torch.device) -> torch.Tens
     return torch.as_tensor(idx, device=device)
 
 
+def check_volume(vol: torch.Tensor, what: str) -> None:
+    """Refuse anything but one [Z, H, W] volume, naming the op."""
+    if vol.dim() != 3:
+        raise ValueError(f"{what} expects [Z, H, W]; got {tuple(vol.shape)}")
+
+
 def _pad2d(img: torch.Tensor, ry: int, rx: int, mode: str) -> torch.Tensor:
     return _pad_axis(_pad_axis(img, ry, -2, mode), rx, -1, mode)
 

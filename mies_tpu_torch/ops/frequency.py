@@ -28,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from mies_tpu_torch.ops.filters import _pad_axis
+from mies_tpu_torch.ops.filters import _pad_axis, check_volume
 
 
 @functools.lru_cache(maxsize=64)
@@ -189,3 +189,35 @@ def homomorphic(
     wrap-around seam."""
     return _homomorphic_nd(img, cutoff_frequency_ratio, order, low_gain,
                            high_gain, eps, int(npad), 2)
+
+
+def butterworth3d(
+    vol: torch.Tensor,
+    cutoff_frequency_ratio: float = 0.005,
+    high_pass: bool = True,
+    order: float = 2.0,
+    squared_butterworth: bool = True,
+    npad: int = 0,
+) -> torch.Tensor:
+    """``butterworth`` on a [Z, H, W] volume: one 3-D frequency grid, so
+    the filter is z-consistent (no slice flicker)."""
+    check_volume(vol, "butterworth3d")
+    return _butterworth_nd(vol, cutoff_frequency_ratio, high_pass, order,
+                           squared_butterworth, int(npad), 3)
+
+
+def homomorphic3d(
+    vol: torch.Tensor,
+    cutoff_frequency_ratio: float = 0.02,
+    order: float = 2.0,
+    low_gain: float = 0.5,
+    high_gain: float = 1.5,
+    eps: float = 1.0 / 255.0,
+    npad: int = 8,
+) -> torch.Tensor:
+    """Homomorphic enhancement of a [Z, H, W] volume: one 3-D log-domain
+    Butterworth emphasis, so slow intensity drifts across slices flatten
+    with the in-plane ones."""
+    check_volume(vol, "homomorphic3d")
+    return _homomorphic_nd(vol, cutoff_frequency_ratio, order, low_gain,
+                           high_gain, eps, int(npad), 3)

@@ -29,6 +29,8 @@ multiply by the reciprocal.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -573,21 +575,30 @@ def _image_hists(idx: torch.Tensor, nbins: int) -> torch.Tensor:
 
 def equalize_hist(img: torch.Tensor, nbins: int = NBINS) -> torch.Tensor:
     """Global histogram equalization, skimage semantics, per image of
-    [..., H, W]: ``nbins`` bins over the image's own [min, max], the f32
+    [..., H, W]: ``nbins`` bins over the image's own [min, max], the
     cumulative count over its total, and the linear interpolation of that
-    CDF against the bin centres (float in [0, 1]). The f32 cumsum of
-    integer counts is exact below 2**24 pixels, as the reference's is."""
+    CDF against the bin centres (float in [0, 1])."""
+    return _equalize_hist(img, nbins, 2)
+
+
+def _equalize_hist(img: torch.Tensor, nbins: int, nd: int) -> torch.Tensor:
+    """``equalize_hist`` over the last ``nd`` axes of ``img``, one
+    histogram each. The counts and their cumulative sum are int64, exact
+    at any size; each partial sum is rounded to float32 once and divided
+    by the rounded total (the reference's float32 cumsum of float32
+    counts, which is the same while an image has < 2**24 pixels and
+    drifts beyond)."""
     if nbins < 2:
         raise ValueError(f"nbins must be >= 2, got {nbins}")
     x = img.to(torch.float32)
-    flat = x.reshape(-1, x.shape[-2] * x.shape[-1])
+    flat = x.reshape(-1, math.prod(x.shape[-nd:]))
     lo = torch.amin(flat, dim=1, keepdim=True)
     hi = torch.amax(flat, dim=1, keepdim=True)
     span = torch.maximum(hi - lo, _const(x, 1e-12))
     # bin index per pixel; pixels at `hi` land in the last bin
     idx = torch.clamp(((flat - lo) / span * nbins).to(torch.int64), 0,
                       nbins - 1)
-    cdf = torch.cumsum(_image_hists(idx, nbins).to(torch.float32), dim=1)
+    cdf = torch.cumsum(_image_hists(idx, nbins), dim=1).to(torch.float32)
     cdf = cdf / cdf[:, -1:]
     width = span / _const(x, nbins)
     c0 = lo + 0.5 * width

@@ -9,7 +9,8 @@ rescale_intensity``, the kornia/PIL enhance ops and the HU window
 Every op takes ``[..., H, W]``. The reference compiler maps its ops over
 the batch, so a statistic of the image (``normalize``'s and
 ``rescale_intensity``'s min and max) is taken per image, over the last two
-axes. Wherever the reference divides, the port divides by a tensor: torch
+axes; the volume forms (``ops.volume3d``) take it over the last three, the
+whole [Z, H, W] volume, as the reference's volume program does. Wherever the reference divides, the port divides by a tensor: torch
 runs ``python_scalar / tensor`` as a reciprocal times the scalar, and CUDA
 torch runs ``tensor / python_scalar`` as a multiply by the reciprocal.
 """
@@ -36,10 +37,13 @@ HU_PRESETS: dict[str, tuple[float, float]] = {
 }
 
 
-def _image_min_max(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Each image's own min and max, shaped to broadcast over it."""
-    return (torch.amin(img, dim=(-2, -1), keepdim=True),
-            torch.amax(img, dim=(-2, -1), keepdim=True))
+def _image_min_max(img: torch.Tensor,
+                   nd: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each image's own min and max over its last ``nd`` axes, shaped to
+    broadcast over it."""
+    dims = tuple(range(-nd, 0))
+    return (torch.amin(img, dim=dims, keepdim=True),
+            torch.amax(img, dim=dims, keepdim=True))
 
 
 def adjust_gamma(img: torch.Tensor, gamma: float = 1.0,
@@ -72,7 +76,11 @@ def invert(img: torch.Tensor) -> torch.Tensor:
 
 def normalize_minmax(img: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Affine rescale of each image's own range to [0, 1]."""
-    lo, hi = _image_min_max(img)
+    return _normalize_minmax(img, eps, 2)
+
+
+def _normalize_minmax(img: torch.Tensor, eps: float, nd: int) -> torch.Tensor:
+    lo, hi = _image_min_max(img, nd)
     return (img - lo) / torch.maximum(hi - lo, _const(img, eps))
 
 
@@ -84,8 +92,13 @@ def rescale_intensity(
     """skimage.exposure.rescale_intensity: clip to ``in_range`` (each
     image's own (min, max) when None), then the affine map to
     ``out_range``."""
+    return _rescale_intensity(img, in_range, out_range, 2)
+
+
+def _rescale_intensity(img: torch.Tensor, in_range, out_range,
+                       nd: int) -> torch.Tensor:
     if in_range is None:
-        imin, imax = _image_min_max(img)
+        imin, imax = _image_min_max(img, nd)
     else:
         imin, imax = _const(img, in_range[0]), _const(img, in_range[1])
     omin, omax = out_range

@@ -1,6 +1,7 @@
 """Multiscale Hessian ridge filters, plain PyTorch: Frangi vesselness
 (and ``vessel_enhance``, its in-place blend), Sato tubeness, Meijering
-neuriteness and the hybrid Hessian filter.
+neuriteness and the hybrid Hessian filter, on slices and (the ``*3d``
+forms) on [Z, H, W] volumes.
 
 Same semantics and f32 operation order as ``mies_tpu.ops.ridges`` (the
 papers' definitions with skimage-like APIs): per scale sigma the
@@ -18,6 +19,10 @@ The reference's ops take one image; these take [..., H, W], every leading
 dimension a batch dimension, and each statistic of the image is one
 image's: frangi's ``gamma=None`` half-max Frobenius norm and meijering's
 per-scale max. Meijering's default alpha is 1/(2 + 1), the slice's rank.
+The volume forms take one [Z, H, W] volume: six Gaussian-derivative
+Hessian components per scale, the reference's closed-form symmetric 3x3
+eigenvalues (Smith's trigonometric method), and each statistic (frangi3d's
+half-max norm, meijering3d's max) over the whole volume.
 Where the reference divides by a constant, the divisor is a 0-d tensor on
 the input's device (CUDA torch multiplies by the reciprocal of a Python
 scalar).
@@ -28,7 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mies_tpu_torch.ops.filters import _conv1d_shifted
+from mies_tpu_torch.ops.filters import _conv1d_shifted, check_volume
+from mies_tpu_torch.ops.histogram import _const
 
 
 def gaussian_derivative_kernel1d(
@@ -93,8 +99,8 @@ def _eig2(hrr, hrc, hcc) -> tuple[torch.Tensor, torch.Tensor]:
     return mu + root, mu - root
 
 
-def _image_max(v: torch.Tensor) -> torch.Tensor:
-    return v.amax(dim=(-2, -1), keepdim=True)
+def _image_max(v: torch.Tensor, nd: int = 2) -> torch.Tensor:
+    return v.amax(dim=tuple(range(-nd, 0)), keepdim=True)
 
 
 def frangi(
@@ -178,22 +184,25 @@ def sato(
 
 
 def _meijering_core(x: torch.Tensor, sigmas: tuple, alpha: float,
-                    mode: str) -> torch.Tensor:
-    """The 2-D Meijering body on a pre-flipped slice batch: per scale, the
-    modified eigenvalues l'_i = l_i + alpha * sum_{j != i} l_j, the
-    largest-|.| one per pixel, max(-l', 0) normalized by each slice's max;
-    max over scales."""
+                    mode: str, nd: int = 2) -> torch.Tensor:
+    """The Meijering body on pre-flipped images of ``nd`` axes (2: a slice
+    batch, 3: one volume): per scale, the modified eigenvalues l'_i = l_i +
+    alpha * sum_{j != i} l_j, the largest-|.| one per pixel, max(-l', 0)
+    normalized by each image's max; max over scales."""
     a = float(np.float32(alpha))
     result = None
     for sigma in sigmas:
-        eigs = _eig2(*_hessian2d(x, sigma, mode))
-        total = sum(eigs)  # 0 + l1 + l2, the reference's sum
+        if nd == 2:
+            eigs = _eig2(*_hessian2d(x, sigma, mode))
+        else:
+            eigs = _eigvalsh3_descending(*_hessian3d(x, sigma, mode))
+        total = sum(eigs)  # 0 + l1 + l2 (+ l3), the reference's sum
         mods = [e + a * (total - e) for e in eigs]
         sel = mods[0]
         for m in mods[1:]:
             sel = torch.where(m.abs() > sel.abs(), m, sel)
         v = torch.clamp_min(-sel, 0.0)
-        vmax = _image_max(v)
+        vmax = _image_max(v, nd)
         v = torch.where(vmax > 0, v / torch.clamp_min(vmax, 1e-30), v)
         result = v if result is None else torch.maximum(result, v)
     return result
@@ -235,4 +244,183 @@ def hessian(
             "15); gamma=None is frangi's global-statistic convention"
         )
     f = frangi(img, sigmas, alpha, beta, gamma, black_ridges, mode)
+    return torch.where(f <= 0.0, 1.0, f)
+
+
+# ---------------------------------------------------------------------------
+# Volumes
+# ---------------------------------------------------------------------------
+
+
+def _hessian3d(x: torch.Tensor, sigma: float, mode: str) -> tuple:
+    """The sigma^2-normalized Hessian of a [Z, H, W] volume: (h_zz, h_zy,
+    h_zx, h_yy, h_yx, h_xx)."""
+    s2 = float(np.float32(float(sigma) ** 2))
+    orders = ((2, 0, 0), (1, 1, 0), (1, 0, 1), (0, 2, 0), (0, 1, 1),
+              (0, 0, 2))
+    return tuple(s2 * gaussian_derivative(x, sigma, o, mode) for o in orders)
+
+
+def _eigvalsh3_descending(azz, azy, azx, ayy, ayx, axx) -> tuple:
+    """Closed-form eigenvalues of the symmetric 3x3 field (Smith's
+    trigonometric method), by signed value descending (e1 >= e2 >= e3):
+    q = trace / 3, p = sqrt(max(p2, 1e-30) / 6), r = det(B) / 2 clipped
+    to [-1, 1], phi = acos(r) / 3; a numerically isotropic point (p2 <
+    1e-24) gets the triple root q. The divisions are true divisions (0-d
+    tensor divisors), as the reference's eager op divides."""
+    c3, c6 = _const(azz, 3.0), _const(azz, 6.0)
+    q = (azz + ayy + axx) / c3
+    p1 = azy * azy + azx * azx + ayx * ayx
+    dz, dy, dx = azz - q, ayy - q, axx - q
+    p2 = dz * dz + dy * dy + dx * dx + 2.0 * p1
+    p = torch.sqrt(torch.clamp_min(p2, 1e-30) / c6)
+    inv_p = 1.0 / p
+    bzz, byy, bxx = dz * inv_p, dy * inv_p, dx * inv_p
+    bzy, bzx, byx = azy * inv_p, azx * inv_p, ayx * inv_p
+    detb = (
+        bzz * (byy * bxx - byx * byx)
+        - bzy * (bzy * bxx - byx * bzx)
+        + bzx * (bzy * byx - byy * bzx)
+    )
+    r = torch.clamp(detb / 2.0, -1.0, 1.0)
+    phi = torch.acos(r) / c3
+    two_p = 2.0 * p
+    e1 = q + two_p * torch.cos(phi)
+    e3 = q + two_p * torch.cos(phi + float(np.float32(2.0 * np.pi / 3.0)))
+    e2 = 3.0 * q - e1 - e3
+    iso = p2 < 1e-24
+    return (torch.where(iso, q, e1), torch.where(iso, q, e2),
+            torch.where(iso, q, e3))
+
+
+def _eigvalsh3_by_magnitude(*h) -> tuple:
+    """The eigenvalues sorted by |lambda| ascending (the Frangi order):
+    ``_eigvalsh3_descending`` and a 3-comparator magnitude sort."""
+    e1, e2, e3 = _eigvalsh3_descending(*h)
+
+    def swap(a, b):
+        sw = a.abs() > b.abs()
+        return torch.where(sw, b, a), torch.where(sw, a, b)
+
+    l1, l2 = swap(e1, e2)
+    l2, l3 = swap(l2, e3)
+    l1, l2 = swap(l1, l2)
+    return l1, l2, l3
+
+
+def frangi3d(
+    vol: torch.Tensor,
+    sigmas: tuple = (1.0, 2.0, 4.0),
+    alpha: float = 0.5,
+    beta: float = 0.5,
+    gamma: float | None = None,
+    black_ridges: bool = True,
+    mode: str = "reflect",
+) -> torch.Tensor:
+    """Frangi-1998 vesselness of a [Z, H, W] volume: per scale, eigenvalues
+    |l1| <= |l2| <= |l3| of the sigma^2-normalized Hessian, then
+
+        V = (1 - exp(-Ra^2 / 2a^2)) exp(-Rb^2 / 2b^2) (1 - exp(-S^2 / 2g^2))
+
+    with Ra^2 = l2^2 / l3^2, Rb^2 = l1^2 / |l2 l3|, S^2 = sum l^2; zero
+    where l2 > 0 or l3 > 0 (``black_ridges`` flips the volume first); max
+    over scales. ``gamma=None``: half the volume's max Frobenius norm at
+    each scale."""
+    check_volume(vol, "frangi3d")
+    x = vol.to(torch.float32)
+    if black_ridges:
+        x = -x
+    two_a2 = x.new_full((), 2.0 * float(alpha) ** 2)  # true divisors
+    two_b2 = x.new_full((), 2.0 * float(beta) ** 2)
+    result = None
+    for sigma in sigmas:
+        l1, l2, l3 = _eigvalsh3_by_magnitude(*_hessian3d(x, sigma, mode))
+        ra_sq = torch.square(l2) / torch.clamp_min(torch.square(l3), 1e-30)
+        rb_sq = torch.square(l1) / torch.clamp_min((l2 * l3).abs(), 1e-30)
+        s_sq = torch.square(l1) + torch.square(l2) + torch.square(l3)
+        if gamma is None:
+            smax = torch.sqrt(s_sq.amax())
+            g = torch.where(smax > 0, 0.5 * smax, 1.0)
+        else:
+            g = x.new_full((), gamma)
+        v = ((1.0 - torch.exp(-ra_sq / two_a2))
+             * torch.exp(-rb_sq / two_b2)
+             * (1.0 - torch.exp(-s_sq / (2.0 * g * g))))
+        v = torch.where((l2 > 0) | (l3 > 0), 0.0, v)
+        result = v if result is None else torch.maximum(result, v)
+    return result
+
+
+def vessel_enhance3d(
+    vol: torch.Tensor,
+    sigmas: tuple = (1.0, 2.0, 4.0),
+    alpha: float = 0.5,
+    beta: float = 0.5,
+    gamma: float | None = None,
+    black_ridges: bool = True,
+    amount: float = 1.0,
+    mode: str = "reflect",
+) -> torch.Tensor:
+    """Volumetric vessel enhancement in place: ``vol + amount *
+    frangi3d(vol)``, clipped to [0, 1]."""
+    v = frangi3d(vol, sigmas, alpha, beta, gamma, black_ridges, mode)
+    return torch.clamp(vol + float(amount) * v, 0.0, 1.0)
+
+
+def sato3d(
+    vol: torch.Tensor,
+    sigmas: tuple = (1.0, 2.0, 4.0),
+    black_ridges: bool = True,
+    mode: str = "reflect",
+) -> torch.Tensor:
+    """Sato-1998 tubeness of a [Z, H, W] volume: per scale, with e1 >= e2
+    >= e3 the Hessian's eigenvalues, sqrt(e2 e3) where e2 < 0 and e3 < 0,
+    else 0; max over scales. No statistic of the volume."""
+    check_volume(vol, "sato3d")
+    x = vol.to(torch.float32)
+    if black_ridges:
+        x = -x
+    result = None
+    for sigma in sigmas:
+        _, e2, e3 = _eigvalsh3_descending(*_hessian3d(x, sigma, mode))
+        tube = (e2 < 0) & (e3 < 0)
+        v = torch.where(tube, torch.sqrt(torch.clamp_min(e2 * e3, 0.0)), 0.0)
+        result = v if result is None else torch.maximum(result, v)
+    return result
+
+
+def meijering3d(
+    vol: torch.Tensor,
+    sigmas: tuple = (1.0, 2.0, 4.0),
+    alpha: float | None = None,
+    black_ridges: bool = True,
+    mode: str = "reflect",
+) -> torch.Tensor:
+    """Meijering-2004 neuriteness of a [Z, H, W] volume (default alpha
+    1/4): each scale's response normalized by the volume's own max."""
+    check_volume(vol, "meijering3d")
+    x = vol.to(torch.float32)
+    if black_ridges:
+        x = -x
+    if alpha is None:
+        alpha = 1.0 / (3 + 1)
+    return _meijering_core(x, sigmas, float(alpha), mode, 3)
+
+
+def hessian3d(
+    vol: torch.Tensor,
+    sigmas: tuple = (1.0, 3.0, 5.0, 7.0, 9.0),
+    alpha: float = 0.5,
+    beta: float = 0.5,
+    gamma: float = 15.0,
+    black_ridges: bool = True,
+    mode: str = "reflect",
+) -> torch.Tensor:
+    """Volumetric hybrid Hessian filter: the frangi3d response with values
+    <= 0 mapped to 1 and the fixed default gamma 15."""
+    if gamma is None:
+        raise ValueError(
+            "hessian3d requires an explicit gamma (skimage default 15)"
+        )
+    f = frangi3d(vol, sigmas, alpha, beta, gamma, black_ridges, mode)
     return torch.where(f <= 0.0, 1.0, f)

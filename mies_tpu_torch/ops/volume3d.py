@@ -1,4 +1,6 @@
-"""Volumetric (3-D) ops, plain PyTorch: 3-D CLAHE and the 3-D Gaussian.
+"""Volumetric (3-D) ops, plain PyTorch: 3-D CLAHE, the 3-D filters and
+morphology, the trilinear resample, and the whole-volume forms of the
+statistics-taking 2-D ops.
 
 Same algorithms and f32 operation order as ``mies_tpu.ops.volume3d``:
 
@@ -13,9 +15,27 @@ Same algorithms and f32 operation order as ``mies_tpu.ops.volume3d``:
   volume, numpy 'reflect' pad on both sides of every axis, the iterative
   clip, floored maps, the 8-corner ``arange(k) / k`` blend, floor.
 * ``gaussian_blur3d``: three scipy passes, z then y then x, each with its
-  own border pad, taps in ascending order.
+  own border pad, taps in ascending order; ``unsharp_mask3d`` and
+  ``difference_of_gaussians3d`` on it.
+* ``guided_blur3d``: the self-guided dataflow on separable cubic box
+  means (k taps of float32(1 / k) per axis).
+* ``median_blur3d``: the middle wire of the k^3 Batcher network, cut to
+  the comparators it depends on (126 at k 3), on strided views of the
+  padded volume; min and max are exact, so it equals the full network.
+* ``erode3d`` ... ``black_hat3d``: a cubic min or max as one sliding pass
+  per axis ('ignore': a +-inf border the reduction never picks).
+* ``resample3d``: three products with the host-built align-corners linear
+  interpolation matrices (float32; TF32 is off, ``mies_tpu_torch``).
+* ``equalize_hist_volume``, ``normalize_volume``,
+  ``rescale_intensity_volume``: the 2-D ops with the statistic (the
+  histogram, the min and max) taken over the whole volume, as the
+  reference's volume program takes it; the 2-D registry forms take each
+  slice's.
 
-Functions take one [Z, H, W] volume and run on the tensor's own device.
+The volumetric restorations, ridge, frequency and wavelet ops live beside
+their 2-D forms (``ops.restoration``, ``.ridges``, ``.frequency``,
+``.wavelet``). Functions take one [Z, H, W] volume and run on the tensor's
+own device.
 They are also the plain versions of the kernels of ``kernels.clahe3d``:
 K8 (``_apply_luts_trilinear_gather`` + the epilogue) and K8s
 (``_apply_maps_3d``).
@@ -23,19 +43,17 @@ K8 (``_apply_luts_trilinear_gather`` + the epilogue) and K8s
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from mies_tpu_torch.ops import filters as F
 from mies_tpu_torch.ops import histogram as H
+from mies_tpu_torch.ops import intensity as I
 
 NBINS = H.NBINS
 CONVENTIONS_3D = ("opencv", "fraction", "skimage")
-
-
-def _check_volume(vol: torch.Tensor, what: str) -> None:
-    if vol.dim() != 3:
-        raise ValueError(f"{what} expects [Z, H, W]; got {tuple(vol.shape)}")
 
 
 def tile_shape_3d(shape, grid) -> tuple[int, int, int]:
@@ -271,7 +289,7 @@ def clahe3d(
     grid_size. convention="skimage": equalize_adapthist semantics on any
     shape; ``kernel_size`` defaults to (Z // gz, H // gy, W // gx), at
     least 1 per axis. Returns float32 [Z, H, W]."""
-    _check_volume(vol, "clahe3d")
+    F.check_volume(vol, "clahe3d")
     if convention not in CONVENTIONS_3D:
         raise ValueError(f"unknown CLAHE convention: {convention!r}")
     grid = tuple(int(g) for g in grid_size)
@@ -288,12 +306,247 @@ def gaussian_blur3d(
     """Separable 3-D Gaussian over [Z, H, W]: scipy's taps (radius
     int(truncate * sigma + 0.5)) along z, then y, then x, each pass with
     its own border pad and its taps summed in ascending order."""
-    _check_volume(vol, "gaussian_blur3d")
+    F.check_volume(vol, "gaussian_blur3d")
     if sigma <= 0:
         return vol
     radius = int(truncate * float(sigma) + 0.5)
-    k = F.gaussian_kernel1d(float(sigma), radius)
-    x = vol.to(torch.float32)
+    return _pass3d(vol.to(torch.float32),
+                   F.gaussian_kernel1d(float(sigma), radius), mode)
+
+
+def _pass3d(x: torch.Tensor, taps: np.ndarray, mode: str) -> torch.Tensor:
+    """The separable correlation with ``taps`` along z, y, then x, each
+    pass with its own border pad (scipy's sequential correlate1d)."""
     for axis in (-3, -2, -1):
-        x = F._conv1d_shifted(x, k, axis, mode)
+        x = F._conv1d_shifted(x, taps, axis, mode)
     return x
+
+
+def guided_blur3d(
+    vol: torch.Tensor, kernel_size: int = 3, eps: float = 1e-2,
+    mode: str = "reflect",
+) -> torch.Tensor:
+    """Volumetric self-guided filter (He et al. 2010 on cubic windows): the
+    guided dataflow on separable 3-D box means."""
+    F.check_volume(vol, "guided_blur3d")
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+    taps = np.full((kernel_size,), 1.0 / kernel_size, np.float32)
+
+    def box(v):
+        return v if kernel_size == 1 else _pass3d(v, taps, mode)
+
+    return F.guided_dataflow(lambda u, v: (box(u), box(v)),
+                             vol.to(torch.float32), eps)
+
+
+def median_blur3d(vol: torch.Tensor, kernel_size: int = 3,
+                  mode: str = "nearest") -> torch.Tensor:
+    """3-D median over a cubic footprint (scipy.ndimage.median_filter,
+    size k): the middle wire of the k^3 sorting network, the comparators
+    run one after another on strided views (no [k^3, Z, H, W] stack)."""
+    F.check_volume(vol, "median_blur3d")
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+    k, r = kernel_size, kernel_size // 2
+    x = vol.to(torch.float32)
+    if r == 0:
+        return x
+    z, h, w = x.shape
+    p = x
+    for axis in (-3, -2, -1):
+        p = F._pad_axis(p, r, axis, mode)
+    vals = [p[dz:dz + z, dy:dy + h, dx:dx + w]
+            for dz in range(k) for dy in range(k) for dx in range(k)]
+    for i, j, keep_min, keep_max in F._median_network(len(vals)):
+        a, b = vals[i], vals[j]
+        if keep_min:
+            vals[i] = torch.minimum(a, b)
+        if keep_max:
+            vals[j] = torch.maximum(a, b)
+    return vals[len(vals) // 2]
+
+
+def unsharp_mask3d(
+    vol: torch.Tensor, radius: float = 1.0, amount: float = 1.0,
+    mode: str = "nearest", clip: bool = True,
+) -> torch.Tensor:
+    """3-D unsharp masking: ``vol + amount * (vol - gaussian3d(vol))``,
+    clipped to [0, 1]."""
+    blurred = gaussian_blur3d(vol, sigma=radius, mode=mode)
+    x = vol.to(torch.float32)
+    out = x + amount * (x - blurred)
+    if clip:
+        out = torch.clamp(out, 0.0, 1.0)
+    return out
+
+
+def _extremum3d(vol: torch.Tensor, kernel_size: int, mode: str,
+                maximum: bool) -> torch.Tensor:
+    """Cubic min or max: one sliding pass per axis, z then y then x.
+    'ignore' pads the constant the reduction never picks (+inf for a
+    min, -inf for a max: scipy's grey morphology, mode='constant')."""
+    F.check_volume(vol, "3-D morphology")
+    k = int(kernel_size)
+    if k % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+    r = k // 2
+    x = vol.to(torch.float32)
+    if r == 0:
+        return x
+    for axis in (-3, -2, -1):
+        if mode == "ignore":
+            fill = float("-inf") if maximum else float("inf")
+            xp = torch.nn.functional.pad(x, (0, 0) * (-1 - axis) + (r, r),
+                                         value=fill)
+        else:
+            xp = F._pad_axis(x, r, axis, mode)
+        win = xp.unfold(axis, k, 1)
+        x = win.amax(-1) if maximum else win.amin(-1)
+    return x
+
+
+def erode3d(vol: torch.Tensor, kernel_size: int = 3,
+            mode: str = "ignore") -> torch.Tensor:
+    """Volumetric grayscale erosion over a cubic footprint
+    (scipy.ndimage.grey_erosion, size (k, k, k))."""
+    return _extremum3d(vol, kernel_size, mode, maximum=False)
+
+
+def dilate3d(vol: torch.Tensor, kernel_size: int = 3,
+             mode: str = "ignore") -> torch.Tensor:
+    """Volumetric grayscale dilation (scipy.ndimage.grey_dilation)."""
+    return _extremum3d(vol, kernel_size, mode, maximum=True)
+
+
+def morph_open3d(vol: torch.Tensor, kernel_size: int = 3,
+                 mode: str = "ignore") -> torch.Tensor:
+    """3-D opening: dilate3d(erode3d(vol))."""
+    return dilate3d(erode3d(vol, kernel_size, mode), kernel_size, mode)
+
+
+def morph_close3d(vol: torch.Tensor, kernel_size: int = 3,
+                  mode: str = "ignore") -> torch.Tensor:
+    """3-D closing: erode3d(dilate3d(vol))."""
+    return erode3d(dilate3d(vol, kernel_size, mode), kernel_size, mode)
+
+
+def morph_gradient3d(vol: torch.Tensor, kernel_size: int = 3,
+                     mode: str = "ignore") -> torch.Tensor:
+    """3-D morphological gradient: dilate3d - erode3d."""
+    return (dilate3d(vol, kernel_size, mode)
+            - erode3d(vol, kernel_size, mode))
+
+
+def top_hat3d(vol: torch.Tensor, kernel_size: int = 3,
+              mode: str = "ignore") -> torch.Tensor:
+    """3-D white top-hat: vol - open3d(vol)."""
+    return vol.to(torch.float32) - morph_open3d(vol, kernel_size, mode)
+
+
+def black_hat3d(vol: torch.Tensor, kernel_size: int = 3,
+                mode: str = "ignore") -> torch.Tensor:
+    """3-D black top-hat: close3d(vol) - vol."""
+    return morph_close3d(vol, kernel_size, mode) - vol.to(torch.float32)
+
+
+def _linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] float32 linear-interpolation matrix, align-corners:
+    output sample i reads input coordinate i (n_in - 1) / (n_out - 1) (the
+    centre for a single-sample axis); the reference's host matrix."""
+    w = np.zeros((n_out, n_in), np.float32)
+    if n_out == 1:
+        c = 0.5 * (n_in - 1)
+        lo = int(np.floor(c))
+        f = c - lo
+        w[0, lo] = 1.0 - f
+        if f > 0:
+            w[0, lo + 1] = f
+        return w
+    coords = np.arange(n_out, dtype=np.float64) * (n_in - 1) / (n_out - 1)
+    lo = np.clip(np.floor(coords).astype(int), 0, max(n_in - 2, 0))
+    f = (coords - lo).astype(np.float32)
+    rows = np.arange(n_out)
+    w[rows, lo] = 1.0 - f
+    if n_in > 1:
+        w[rows, lo + 1] += f
+    return w
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """``_linear_resize_matrix`` on ``device`` (one host-to-device copy per
+    shape pair, not one per call)."""
+    return torch.as_tensor(_linear_resize_matrix(n_in, n_out), device=device)
+
+
+def resample3d(vol: torch.Tensor, depth: int, height: int,
+               width: int) -> torch.Tensor:
+    """Trilinear resample of a [Z, H, W] volume to [depth, height, width]
+    (align-corners coordinates; scipy.ndimage.map_coordinates(order=1) on
+    that grid): three float32 products with the host-built interpolation
+    matrices, z then y then x, an axis of unchanged length skipped. Raw HU
+    (int16) is cast to float32 first: resample, then window."""
+    F.check_volume(vol, "resample3d")
+    for name, v in (("depth", depth), ("height", height), ("width", width)):
+        if int(v) < 1:
+            raise ValueError(f"{name} must be >= 1")
+    z, h, w = vol.shape
+    x = vol.to(torch.float32)
+    dev = x.device
+    if z != depth:
+        x = (_resize_matrix(z, int(depth), dev) @ x.reshape(z, h * w)
+             ).reshape(int(depth), h, w)
+    if h != height:
+        x = torch.matmul(_resize_matrix(h, int(height), dev), x)
+    if w != width:
+        x = torch.matmul(x, _resize_matrix(w, int(width), dev).T)
+    return x
+
+
+def difference_of_gaussians3d(
+    vol: torch.Tensor, low_sigma: float = 1.0,
+    high_sigma: float | None = None, truncate: float = 4.0,
+    mode: str = "nearest",
+) -> torch.Tensor:
+    """Volumetric band-pass: ``gaussian3d(low) - gaussian3d(high)``,
+    ``high_sigma`` 1.6 * ``low_sigma`` when omitted."""
+    if high_sigma is None:
+        high_sigma = float(low_sigma) * 1.6
+    if high_sigma < low_sigma:
+        raise ValueError(
+            f"high_sigma ({high_sigma}) must be >= low_sigma ({low_sigma})"
+        )
+    x = vol.to(torch.float32)
+    return (gaussian_blur3d(x, float(low_sigma), truncate, mode)
+            - gaussian_blur3d(x, float(high_sigma), truncate, mode))
+
+
+# ---------------------------------------------------------------------------
+# The whole volume's statistics (the volume registry's forms of the 2-D ops)
+# ---------------------------------------------------------------------------
+
+
+def equalize_hist_volume(vol: torch.Tensor, nbins: int = NBINS) -> torch.Tensor:
+    """Global histogram equalization with ONE histogram of the whole
+    volume (skimage's equalize_hist on an n-d array); int64 counts, so
+    exact past 2**24 voxels."""
+    F.check_volume(vol, "equalize_hist (volume)")
+    return H._equalize_hist(vol, nbins, 3)
+
+
+def normalize_volume(vol: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Affine rescale of the whole volume's range to [0, 1]."""
+    F.check_volume(vol, "normalize (volume)")
+    return I._normalize_minmax(vol, eps, 3)
+
+
+def rescale_intensity_volume(
+    vol: torch.Tensor,
+    in_range: tuple[float, float] | None = None,
+    out_range: tuple[float, float] = (0.0, 1.0),
+) -> torch.Tensor:
+    """skimage.exposure.rescale_intensity with the whole volume's (min,
+    max) when ``in_range`` is None."""
+    F.check_volume(vol, "rescale_intensity (volume)")
+    return I._rescale_intensity(vol, in_range, out_range, 3)

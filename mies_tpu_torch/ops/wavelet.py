@@ -30,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mies_tpu_torch.ops.filters import _pad_axis
+from mies_tpu_torch.ops.filters import _pad_axis, check_volume
 
 # scaling (reconstruction lowpass) filters, PyWavelets coefficient tables;
 # dec/rec hi/lo derive from these by the standard QMF relations
@@ -406,3 +406,20 @@ def cycle_spin(
         for i, (dy, dx) in enumerate(shifts)
     ])
     return unrolled.mean(dim=0).reshape(img.shape)
+
+
+def denoise_wavelet3d(
+    vol: torch.Tensor,
+    sigma: float | None = None,
+    wavelet: str = "db1",
+    mode: str = "soft",
+    wavelet_levels: int | None = None,
+    method: str = "BayesShrink",
+) -> torch.Tensor:
+    """Volumetric wavelet shrinkage of a [Z, H, W] volume: the separable
+    3-D DWT couples all three axes (8 subbands a level), the noise
+    estimate is the volume's finest 'ddd' subband's and BayesShrink's
+    thresholds are per 3-D subband."""
+    check_volume(vol, "denoise_wavelet3d")
+    return _denoise_wavelet_core(vol, sigma, wavelet, mode, wavelet_levels,
+                                 method, 3)

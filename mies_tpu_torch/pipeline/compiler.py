@@ -49,7 +49,10 @@ Volume chains (``compile_volume_pipeline``, [Z, H, W] -> [Z, H, W]):
   configs/ct_volume_3d.yaml: int16 HU -> window_hu (plain torch)
     -> clahe3d opencv (K1 over the slices, LUT build, K8)
     -> gaussian_blur3d (plain torch) -> uint8;
-  clahe3d fraction runs K1 and K8 (clip01), skimage K1 bins, K6a, K8s.
+  clahe3d fraction runs K1 and K8 (clip01), skimage K1 bins, K6a, K8s;
+  the reference's other 34 volume ops (the 3-D filters, morphology,
+  resample3d, restorations, ridges, frequency and wavelet ops, and the
+  intensity ops with the whole volume's statistics) are plain torch.
 """
 
 from __future__ import annotations
@@ -82,6 +85,7 @@ from mies_tpu_torch.kernels.unsharp_gauss import (
 )
 from mies_tpu_torch.ops import filters as F
 from mies_tpu_torch.ops import frequency as FQ
+from mies_tpu_torch.ops import geometry as GEO
 from mies_tpu_torch.ops import histogram as H
 from mies_tpu_torch.ops import intensity as I
 from mies_tpu_torch.ops import morphology as M
@@ -146,15 +150,53 @@ OP_REGISTRY: dict[str, Callable] = {
     "morph_gradient": M.morph_gradient,
     "top_hat": M.top_hat,
     "black_hat": M.black_hat,
-    # volumetric
+    # restoration by deconvolution (torch.fft: cuFFT on the card)
+    "wiener": R.wiener,
+    # geometry (pointwise)
+    "normalize_meanstd": GEO.normalize_meanstd,
+    "denormalize_meanstd": GEO.denormalize_meanstd,
+    # volumetric [Z, H, W] stages: validated here, run by
+    # compile_volume_pipeline (2-D chains refuse them by name)
     "clahe3d": V.clahe3d,
     "gaussian_blur3d": V.gaussian_blur3d,
+    "guided_blur3d": V.guided_blur3d,
+    "median_blur3d": V.median_blur3d,
+    "unsharp_mask3d": V.unsharp_mask3d,
+    "erode3d": V.erode3d,
+    "dilate3d": V.dilate3d,
+    "morph_open3d": V.morph_open3d,
+    "morph_close3d": V.morph_close3d,
+    "morph_gradient3d": V.morph_gradient3d,
+    "top_hat3d": V.top_hat3d,
+    "black_hat3d": V.black_hat3d,
+    "resample3d": V.resample3d,
+    "difference_of_gaussians3d": V.difference_of_gaussians3d,
+    "denoise_nl_means3d": R.denoise_nl_means3d,
+    "denoise_tv3d": R.denoise_tv3d,
+    "wiener3d": R.wiener3d,
+    "anisotropic_diffusion3d": R.anisotropic_diffusion3d,
+    "srad3d": R.srad3d,
+    "frangi3d": RG.frangi3d,
+    "vessel_enhance3d": RG.vessel_enhance3d,
+    "sato3d": RG.sato3d,
+    "meijering3d": RG.meijering3d,
+    "hessian3d": RG.hessian3d,
+    "butterworth3d": FQ.butterworth3d,
+    "homomorphic3d": FQ.homomorphic3d,
+    "denoise_wavelet3d": WV.denoise_wavelet3d,
 }
 
-# The registry's ops that take a whole [Z, H, W] volume: a 2-D chain
-# refuses them at build time (the reference's other volume-only ops are not
-# ported, so validate refuses them first).
-VOLUME_ONLY_OPS = frozenset({"clahe3d", "gaussian_blur3d"})
+# The ops that take only a whole [Z, H, W] volume (the reference's set): a
+# 2-D chain refuses them at build time, by name.
+VOLUME_ONLY_OPS = frozenset(
+    {"clahe3d", "gaussian_blur3d", "guided_blur3d", "median_blur3d",
+     "unsharp_mask3d", "erode3d", "dilate3d", "morph_open3d",
+     "morph_close3d", "morph_gradient3d", "top_hat3d", "black_hat3d",
+     "resample3d", "denoise_nl_means3d", "denoise_tv3d", "frangi3d",
+     "vessel_enhance3d", "denoise_wavelet3d", "sato3d", "meijering3d",
+     "difference_of_gaussians3d", "butterworth3d", "homomorphic3d",
+     "wiener3d", "anisotropic_diffusion3d", "srad3d", "hessian3d"}
+)
 
 # Ops with a batched kernel path: fn([B, H, W], **params).
 _BATCHED_OPS: dict[str, Callable] = {
@@ -409,14 +451,20 @@ def compile_pipeline(
 
 
 def _volume_registry() -> dict[str, Callable]:
-    """Ops the volume pipeline runs on a whole [Z, H, W] volume (the
-    reference's volume registry as far as it is ported; ROADMAP.md lists
-    the rest)."""
+    """Ops the volume pipeline runs on a whole [Z, H, W] volume: the
+    reference's 37. A statistic (equalize_hist's histogram, normalize's and
+    rescale_intensity's range) is the WHOLE volume's, as in the reference's
+    volume program; the 2-D registry's forms would take each slice's."""
     return {
+        **{name: OP_REGISTRY[name] for name in VOLUME_ONLY_OPS},
         "clahe3d": clahe3d_volume,
-        "gaussian_blur3d": V.gaussian_blur3d,
+        "equalize_hist": V.equalize_hist_volume,
+        "normalize": V.normalize_volume,
+        "rescale_intensity": V.rescale_intensity_volume,
         # pointwise, shape-polymorphic
-        "window_hu": I.window_hu,
+        **{name: OP_REGISTRY[name] for name in (
+            "window_hu", "adjust_gamma", "adjust_log", "adjust_sigmoid",
+            "invert", "normalize_meanstd", "denormalize_meanstd")},
     }
 
 
@@ -426,7 +474,7 @@ def compile_volume_pipeline(
     """Config -> [Z, H, W] -> [Z, H, W] whole-volume program on ``device``.
 
     The volume is one 3-D array, so volumetric stages (clahe3d,
-    gaussian_blur3d) see the z axis. As in the reference there is no
+    gaussian_blur3d, ...) see the z axis; resample3d changes its shape. As in the reference there is no
     ingest step: an int16 volume goes straight to window_hu. quantize=True
     ends in uint8. ``device="cuda"`` (the default) launches the kernels
     and raises RuntimeError where there is no card; ``device="cpu"`` runs

@@ -243,6 +243,20 @@ def _sigmas_ok(v) -> bool:
 
 
 _SIGMAS = (_sigmas_ok, "a non-empty list of numbers > 0")
+_MODE = (_mode_ok, f"one of {_PAD_MODES}")
+_DOG_RULES = {
+    "low_sigma": (_pos, "a number > 0"),
+    "high_sigma": (lambda v: v is None or _pos(v),
+                   "a number > 0 (or omitted: 1.6 * low_sigma)"),
+    "truncate": (_pos, "a number > 0"),
+    "mode": _MODE,
+}
+_WIENER_RULES = {
+    "psf_sigma": (_pos, "a number > 0"),
+    "psf_size": (_odd_kernel, "an odd int >= 1"),
+    "balance": (_pos, "a number > 0"),
+    "clip": (lambda v: isinstance(v, bool), "a bool"),
+}
 _BLACK_RIDGES = (lambda v: isinstance(v, bool), "a bool")
 _GAMMA_OR_NONE = (lambda v: v is None or _pos(v),
                   "a number > 0 (or omitted: per-scale half-max norm)")
@@ -264,46 +278,126 @@ _WAVELET_RULES = {
     ),
 }
 
+_FRANGI_RULES = {
+    "sigmas": _SIGMAS,
+    "alpha": (_pos, "a number > 0"),
+    "beta": (_pos, "a number > 0"),
+    "gamma": _GAMMA_OR_NONE,
+    "black_ridges": _BLACK_RIDGES,
+    "mode": _MODE,
+}
+_VESSEL_RULES = {**_FRANGI_RULES, "amount": (_nonneg, "a number >= 0")}
+_HESSIAN_RULES = {
+    **_FRANGI_RULES,
+    "gamma": (_pos, "a number > 0 (skimage default 15)"),
+}
+_SATO_RULES = {"sigmas": _SIGMAS, "black_ridges": _BLACK_RIDGES,
+               "mode": _MODE}
+_MEIJERING_RULES = {
+    "sigmas": _SIGMAS,
+    "alpha": (lambda v: v is None or _pos(v),
+              "a number > 0 (or omitted: 1/(ndim + 1))"),
+    "black_ridges": _BLACK_RIDGES,
+    "mode": _MODE,
+}
+_NLM_RULES = {
+    "patch_size": (_pos_int, "an int >= 1"),
+    "patch_distance": (_pos_int, "an int >= 1"),
+    "h": (_pos, "a number > 0"),
+    "sigma": (_nonneg, "a number >= 0"),
+}
+_TV_RULES = {
+    "weight": (_pos, "a number > 0"),
+    "eps": (_nonneg, "a number >= 0"),
+    "max_num_iter": (_pos_int, "an int >= 1"),
+}
+_SRAD_RULES = {
+    "niter": (_pos_int, "an int >= 1"),
+    "dt": (lambda v: _is_num(v) and 0.0 < v <= 0.25,
+           "a number in (0, 0.25] (step size)"),
+    "q0": (_pos, "a number > 0 (speckle scale at t=0)"),
+    "rho": (_nonneg, "a number >= 0 (q0 decay rate)"),
+    "eps": (_pos, "a number > 0"),
+}
+_PM_RULES = {
+    "niter": (_pos_int, "an int >= 1"),
+    "kappa": (_pos, "a number > 0 (gradient scale, intensity units)"),
+    "gamma": (_pos, "a number > 0 (step size; stability <= 1/4)"),
+    "option": (lambda v: v in (1, 2),
+               "1 (exponential conduction) or 2 (inverse quadratic)"),
+}
+_GUIDED_RULES = {
+    "kernel_size": (_odd_kernel, "an odd int >= 1"),
+    "eps": (_pos, "a number > 0"),
+    "mode": _MODE,
+}
+_MEDIAN_RULES = {"kernel_size": (_odd_kernel, "an odd int >= 1"),
+                 "mode": _MODE}
+_UNSHARP_RULES = {
+    "radius": (_pos, "a number > 0"),
+    "amount": (_nonneg, "a number >= 0"),
+    "mode": _MODE,
+}
+_MORPH3D_RULES = {
+    "kernel_size": (_odd_kernel, "an odd int >= 1"),
+    "mode": (
+        lambda v: v == "ignore" or _mode_ok(v),
+        f"'ignore' or one of {_PAD_MODES}",
+    ),
+}
+
 _VALUE_RULES: dict[str, dict[str, tuple]] = {
     "butterworth": _BUTTERWORTH_RULES,
+    "butterworth3d": _BUTTERWORTH_RULES,
     "homomorphic": _HOMOMORPHIC_RULES,
-    "frangi": {
-        "sigmas": _SIGMAS,
-        "alpha": (_pos, "a number > 0"),
-        "beta": (_pos, "a number > 0"),
-        "gamma": _GAMMA_OR_NONE,
-        "black_ridges": _BLACK_RIDGES,
-        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    "homomorphic3d": _HOMOMORPHIC_RULES,
+    "frangi3d": _FRANGI_RULES,
+    "vessel_enhance3d": _VESSEL_RULES,
+    "hessian3d": _HESSIAN_RULES,
+    "sato3d": _SATO_RULES,
+    "meijering3d": _MEIJERING_RULES,
+    "denoise_wavelet3d": _WAVELET_RULES,
+    "difference_of_gaussians3d": _DOG_RULES,
+    "wiener": _WIENER_RULES,
+    "wiener3d": _WIENER_RULES,
+    "normalize_meanstd": {
+        "mean": (_is_num, "a number"),
+        "std": (lambda v: _is_num(v) and v != 0, "a nonzero number"),
     },
-    "hessian": {
-        "sigmas": _SIGMAS,
-        "alpha": (_pos, "a number > 0"),
-        "beta": (_pos, "a number > 0"),
-        "gamma": (_pos, "a number > 0 (skimage default 15)"),
-        "black_ridges": _BLACK_RIDGES,
-        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    "denormalize_meanstd": {
+        "mean": (_is_num, "a number"),
+        "std": (_is_num, "a number"),
     },
-    "vessel_enhance": {
-        "sigmas": _SIGMAS,
-        "alpha": (_pos, "a number > 0"),
-        "beta": (_pos, "a number > 0"),
-        "gamma": _GAMMA_OR_NONE,
-        "black_ridges": _BLACK_RIDGES,
-        "amount": (_nonneg, "a number >= 0"),
-        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    "guided_blur3d": _GUIDED_RULES,
+    "median_blur3d": _MEDIAN_RULES,
+    "unsharp_mask3d": _UNSHARP_RULES,
+    **{_m: _MORPH3D_RULES for _m in (
+        "erode3d", "dilate3d", "morph_open3d", "morph_close3d",
+        "morph_gradient3d", "top_hat3d", "black_hat3d")},
+    "resample3d": {
+        "depth": (_pos_int, "an int >= 1"),
+        "height": (_pos_int, "an int >= 1"),
+        "width": (_pos_int, "an int >= 1"),
     },
-    "sato": {
-        "sigmas": _SIGMAS,
-        "black_ridges": _BLACK_RIDGES,
-        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
+    "denoise_nl_means3d": _NLM_RULES,
+    "denoise_tv3d": _TV_RULES,
+    "srad3d": _SRAD_RULES,
+    "anisotropic_diffusion3d": {
+        **_PM_RULES,
+        "gamma": (_pos, "a number > 0 (step size; stability <= 1/6)"),
+        "voxelspacing": (
+            lambda v: v is None or (
+                isinstance(v, (tuple, list)) and len(v) == 3
+                and all(_pos(x) for x in v)
+            ),
+            "3 positive numbers (dz, dy, dx) or omitted",
+        ),
     },
-    "meijering": {
-        "sigmas": _SIGMAS,
-        "alpha": (lambda v: v is None or _pos(v),
-                  "a number > 0 (or omitted: 1/(ndim + 1))"),
-        "black_ridges": _BLACK_RIDGES,
-        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
-    },
+    "frangi": _FRANGI_RULES,
+    "hessian": _HESSIAN_RULES,
+    "vessel_enhance": _VESSEL_RULES,
+    "sato": _SATO_RULES,
+    "meijering": _MEIJERING_RULES,
     "denoise_wavelet": _WAVELET_RULES,
     "cycle_spin": {
         "max_shifts": (
@@ -377,26 +471,15 @@ _VALUE_RULES: dict[str, dict[str, tuple]] = {
         "truncate": (_pos, "a number > 0"),
         "mode": (_mode_ok, f"one of {_PAD_MODES}"),
     },
-    "unsharp_mask": {
-        "radius": (_pos, "a number > 0"),
-        "amount": (_nonneg, "a number >= 0"),
-        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
-    },
-    "median_blur": {
-        "kernel_size": (_odd_kernel, "an odd int >= 1"),
-        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
-    },
+    "unsharp_mask": _UNSHARP_RULES,
+    "median_blur": _MEDIAN_RULES,
     "bilateral_blur": {
         "kernel_size": (_odd_kernel, "an odd int >= 1"),
         "sigma_color": (_pos, "a number > 0"),
         "sigma_space": (_pos, "a number > 0"),
         "mode": (_mode_ok, f"one of {_PAD_MODES}"),
     },
-    "guided_blur": {
-        "kernel_size": (_odd_kernel, "an odd int >= 1"),
-        "eps": (_pos, "a number > 0"),
-        "mode": (_mode_ok, f"one of {_PAD_MODES}"),
-    },
+    "guided_blur": _GUIDED_RULES,
     **{
         _m: {
             "kernel_size": (_odd_kernel, "an odd int >= 1"),
@@ -425,25 +508,9 @@ _VALUE_RULES: dict[str, dict[str, tuple]] = {
             ".HU_PRESETS)",
         ),
     },
-    "denoise_nl_means": {
-        "patch_size": (_pos_int, "an int >= 1"),
-        "patch_distance": (_pos_int, "an int >= 1"),
-        "h": (_pos, "a number > 0"),
-        "sigma": (_nonneg, "a number >= 0"),
-    },
-    "denoise_tv": {
-        "weight": (_pos, "a number > 0"),
-        "eps": (_nonneg, "a number >= 0"),
-        "max_num_iter": (_pos_int, "an int >= 1"),
-    },
-    "srad": {
-        "niter": (_pos_int, "an int >= 1"),
-        "dt": (lambda v: _is_num(v) and 0.0 < v <= 0.25,
-               "a number in (0, 0.25] (step size)"),
-        "q0": (_pos, "a number > 0 (speckle scale at t=0)"),
-        "rho": (_nonneg, "a number >= 0 (q0 decay rate)"),
-        "eps": (_pos, "a number > 0"),
-    },
+    "denoise_nl_means": _NLM_RULES,
+    "denoise_tv": _TV_RULES,
+    "srad": _SRAD_RULES,
     "lee_filter": {
         "kernel_size": (lambda v: _odd_kernel(v) and v >= 3,
                         "an odd int >= 3"),
@@ -452,13 +519,7 @@ _VALUE_RULES: dict[str, dict[str, tuple]] = {
                   "mean local variance)"),
         "mode": (_mode_ok, f"one of {_PAD_MODES}"),
     },
-    "anisotropic_diffusion": {
-        "niter": (_pos_int, "an int >= 1"),
-        "kappa": (_pos, "a number > 0 (gradient scale, intensity units)"),
-        "gamma": (_pos, "a number > 0 (step size; stability <= 1/4)"),
-        "option": (lambda v: v in (1, 2),
-                   "1 (exponential conduction) or 2 (inverse quadratic)"),
-    },
+    "anisotropic_diffusion": _PM_RULES,
     "musica": {
         "levels": (_pos_int, "an int >= 1"),
         "p": (lambda v: _is_num(v) and 0.0 < v <= 1.0,

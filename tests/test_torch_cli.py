@@ -29,7 +29,7 @@ from mies_tpu_torch.io.image import load_image
 from mies_tpu_torch.io.volume import load_volume, save_volume
 from mies_tpu_torch.pipeline import runner
 from mies_tpu_torch.pipeline.compiler import OP_REGISTRY, compile_volume_pipeline
-from mies_tpu_torch.pipeline.config import load_config
+from mies_tpu_torch.pipeline.config import PipelineConfig, load_config
 
 REPO = Path(__file__).resolve().parent.parent
 SHARPEN = """name: gauss-sharpen
@@ -148,7 +148,6 @@ REFUSED = [
     ("enhance", ["--stage-costs"], "item 7"),
     ("enhance", ["--data-parallel"], "item 7"),
     ("enhance-volume", ["--metrics", "psnr"], "item 5"),
-    ("enhance-volume", ["--isotropic", "1.0"], "item 3"),
     ("enhance-volume", ["--data-parallel"], "item 7"),
 ]
 
@@ -163,6 +162,85 @@ def test_unported_flags_exit_2_naming_the_roadmap_item(tmp_path, sharpen, cmd,
     err = capsys.readouterr().err
     assert f"{flag[0]} is not ported" in err
     assert f"ROADMAP.md queue 1 {item}" in err
+
+
+ISO_CHAIN = """name: iso
+pipeline:
+  - {op: window_hu, center: 40.0, width: 256.0}
+  - {op: median_blur3d, kernel_size: 3}
+"""
+
+
+def _dicom_series(path: Path, z=6, h=24, w=20) -> np.ndarray:
+    """An int16 CT series, slices 2.5 mm apart (image positions), pixels
+    0.8 x 0.6 mm, files in reverse order; returns the HU volume."""
+    rng = np.random.default_rng(3)
+    zz, yy, xx = np.mgrid[0:z, 0:h, 0:w]
+    hu = (40 + 60 * np.sin(yy / 4.0) * np.cos(xx / 3.0) + 20 * zz
+          + rng.normal(0, 10, (z, h, w))).astype(np.int16)
+    path.mkdir(parents=True)
+    for k in range(z):
+        write_dicom(path / f"s{z - k:02d}.dcm", hu[k], instance_number=k + 1,
+                    slice_location=2.5 * k, image_position=(0.0, 0.0, 2.5 * k),
+                    pixel_spacing=(0.8, 0.6))
+    return hu
+
+
+def test_isotropic_resamples_the_series_as_the_jax_cli(tmp_path, jax_main,
+                                                        capsys):
+    """--isotropic 1.0 on a (2.5, 0.8, 0.6) mm series prepends resample3d
+    to [round(6 * 2.5), round(24 * 0.8), round(20 * 0.6)] = [15, 19, 12]:
+    the reference's shape, its output within 1 level on < 1e-3 of voxels,
+    and equal to the port's volume program on the resampled config."""
+    hu = _dicom_series(tmp_path / "series")
+    cfg_path = tmp_path / "iso.yaml"
+    cfg_path.write_text(ISO_CHAIN)
+    args = ["enhance-volume", str(tmp_path / "series"), "-c", str(cfg_path),
+            "--mode", "3d", "--isotropic", "1.0", "-o"]
+    assert cli.main([*args, str(tmp_path / "port.nc")], device="cpu") == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["shape"] == [15, 19, 12]
+    assert jax_main([*args, str(tmp_path / "jax.nc")]) == 0
+    got, _ = load_volume(tmp_path / "port.nc")
+    ref, _ = load_volume(tmp_path / "jax.nc")
+    _within_bound(got, ref)
+    want = compile_volume_pipeline(PipelineConfig.make(
+        [("resample3d", {"depth": 15, "height": 19, "width": 12}),
+         *load_config(cfg_path).stages]), device="cpu")(hu).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--mode", "3d", "--stream"], "slice-mode only"),
+    (["--stream"], "--isotropic needs --mode 3d"),
+    ([], "--isotropic needs --mode 3d"),
+    (["--mode", "3d", "--npy"], "--isotropic needs voxel spacing"),
+], ids=["stream-3d", "stream", "slices", "no-spacing"])
+def test_isotropic_refusals(tmp_path, extra, match):
+    _dicom_series(tmp_path / "series")
+    cfg_path = tmp_path / "iso.yaml"
+    cfg_path.write_text(ISO_CHAIN)
+    src = str(tmp_path / "series")
+    if "--npy" in extra:  # a format without a spacing
+        extra = extra[:-1]
+        save_volume(tmp_path / "in.npy", np.zeros((4, 8, 8), np.int16))
+        src = str(tmp_path / "in.npy")
+    with pytest.raises(SystemExit, match=match):
+        cli.main(["enhance-volume", src, "-c", str(cfg_path), "-o",
+                  str(tmp_path / "o.nc"), "--isotropic", "1.0", *extra],
+                 device="cpu")
+
+
+def test_isotropic_with_metrics_is_refused_naming_item_5(tmp_path, capsys):
+    _dicom_series(tmp_path / "series")
+    cfg_path = tmp_path / "iso.yaml"
+    cfg_path.write_text(ISO_CHAIN)
+    assert cli.main(["enhance-volume", str(tmp_path / "series"), "-c",
+                     str(cfg_path), "-o", str(tmp_path / "o.nc"), "--mode",
+                     "3d", "--isotropic", "1.0", "--metrics", "psnr"],
+                    device="cpu") == 2
+    err = capsys.readouterr().err
+    assert "--metrics is not ported" in err and "queue 1 item 5" in err
 
 
 @pytest.mark.parametrize("sub,item", [("evaluate", "item 5"),
@@ -184,7 +262,7 @@ def test_batch_mode_needs_an_output_dir(tmp_path, sharpen, capsys):
 def test_ops_lists_the_ports_registry(capsys):
     assert cli.main(["ops"], device="cpu") == 0
     got = json.loads(capsys.readouterr().out)
-    assert sorted(got) == sorted(OP_REGISTRY) and len(got) == 44
+    assert sorted(got) == sorted(OP_REGISTRY) and len(got) == 72
     ref = json.loads(json.dumps(jcli._ops_listing(), default=str))
     got = json.loads(json.dumps(got, default=str))
     for op, params in got.items():  # same parameters and defaults
@@ -232,4 +310,4 @@ def test_python_m_runs_the_cli(tmp_path):
     proc = subprocess.run([sys.executable, "-m", "mies_tpu_torch", "ops"],
                           capture_output=True, text=True, env=env, cwd=REPO,
                           timeout=120)
-    assert proc.returncode == 0 and len(json.loads(proc.stdout)) == 44
+    assert proc.returncode == 0 and len(json.loads(proc.stdout)) == 72

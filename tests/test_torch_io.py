@@ -460,3 +460,78 @@ def test_native_stream_paths_equal_python(monkeypatch, codec):
         out_py = tdct.decode_jpeg_dct(blob)
         monkeypatch.setenv("MIES_TPU_JPEG_NATIVE", "1")
         _same_arrays(tdct.decode_jpeg_dct(blob), out_py)
+
+
+# ---------------------------------------------------------------------------
+# The port's own repairs of the codec copies (faults the reference shares)
+# ---------------------------------------------------------------------------
+
+
+def _two_layer_ht_stream(frame: np.ndarray) -> tuple[bytes, bytes]:
+    """(two-layer stream, one-layer stream) of one uint8 frame of at most
+    64x64 at 0 DWT levels: one code-block, one packet a layer. Layer 1
+    carries its HT cleanup pass, layer 2 its SigProp and MagRef passes in
+    the second codeword segment, each packet header written as B.10
+    signals it (an included code-block's later contribution: one
+    inclusion bit, its pass count, one length of Lblock + floor(log2 2)
+    bits). The one-layer stream is the port's encoder's 3-pass form."""
+    one = tj2k.encode_jpeg2k(frame, levels=0, ht=True, ht_passes=3)
+    mb = 2 + 8 - 1  # guard bits + the LL band's exponent (depth 8) - 1
+    cu, ref, zbp = tht.encode_ht_block_3pass(
+        frame.astype(np.int64) - 128, mb)
+    lblock = 3
+
+    def length(wr, n, nbits):
+        nonlocal lblock
+        extra = max(0, n.bit_length() - nbits)
+        for _ in range(extra):
+            wr.bit(1)
+        wr.bit(0)
+        lblock += extra
+        wr.bits(n, nbits + extra)
+
+    wr = tj2k._HdrWriter()
+    wr.bit(1)  # packet not empty
+    tj2k._TagTreeEnc(1, 1, np.zeros((1, 1))).encode(0, 0, 1, wr)  # layer 0
+    tj2k._TagTreeEnc(1, 1, np.full((1, 1), zbp - 1)).encode_value(0, 0, wr)
+    wr.bit(0)  # one pass: the cleanup
+    length(wr, len(cu), lblock)
+    pkt1 = wr.flush() + cu
+    wr.bit(1)  # packet not empty
+    wr.bit(1)  # the code-block is included again
+    wr.bits(0b10, 2)  # two passes: SigProp, MagRef
+    length(wr, len(ref), lblock + 1)
+    pkt2 = wr.flush() + ref
+    sot = one.index(b"\xff\x90")
+    head = bytearray(one[:sot])
+    cod = head.index(b"\xff\x52")
+    head[cod + 6:cod + 8] = struct.pack(">H", 2)  # SGcod: two layers
+    body = pkt1 + pkt2
+    two = (bytes(head) + b"\xff\x90" + struct.pack(">HHIBB", 10, 0,
+                                                   12 + 2 + len(body), 0, 1)
+           + b"\xff\x93" + body + b"\xff\xd9")
+    return two, one
+
+
+def test_two_layer_ht_stream_decodes():
+    """The HT two-length branch read two lengths for every HT contribution
+    of more than one pass; a later layer's SigProp/MagRef contribution
+    signals one. It now decodes, equal to the one-layer stream and the
+    frame (lossless)."""
+    frame = FRAMES["u8"][:40, :56].copy()
+    two, one = _two_layer_ht_stream(frame)
+    np.testing.assert_array_equal(tj2k.decode_jpeg2k(one), frame)
+    np.testing.assert_array_equal(tj2k.decode_jpeg2k(two), frame)
+
+
+def test_htj2k_write_dispatch_has_no_dead_tuple(tmp_path):
+    """The unused ``_HTJ2K`` tuple is gone; the HT syntaxes dispatch through
+    ``_JPEG_2K`` and round-trip."""
+    assert not hasattr(tdicom, "_HTJ2K")
+    assert {tdicom.HTJ2K_LOSSLESS, tdicom.HTJ2K_LOSSLESS_RPCL,
+            tdicom.HTJ2K} <= set(tdicom._JPEG_2K)
+    px = FRAMES["u16"]
+    for ts in (tdicom.HTJ2K_LOSSLESS, tdicom.HTJ2K_LOSSLESS_RPCL):
+        tdicom.write_dicom(tmp_path / "ht.dcm", px, transfer_syntax=ts)
+        np.testing.assert_array_equal(
+            tdicom.read_dicom(tmp_path / "ht.dcm").pixels, px)

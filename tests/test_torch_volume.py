@@ -697,3 +697,62 @@ def test_ct_volume_yaml_on_card(cuda_device):
     ref = TC.compile_volume_pipeline(cfg, device="cpu")(hu.cpu())
     d = (out.cpu().int() - ref.int()).abs()
     assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+
+
+# --- the whole volume registry on the card (chip_smoke.py phase 7 small) ----
+
+CT3D = [("window_hu", {"center": 40.0, "width": 400.0}),
+        ("median_blur3d", {"kernel_size": 3}),
+        ("denoise_tv3d", {"weight": 0.03, "max_num_iter": 60}),
+        ("clahe3d", {"clip_limit": 2.0, "grid_size": (4, 8, 8),
+                     "convention": "opencv"}),
+        ("unsharp_mask3d", {"radius": 1.0, "amount": 0.5})]
+
+
+@pytest.mark.cuda
+def test_ct3d_chain_on_card_equals_the_cpu_plain_chain(cuda_device):
+    """K1 and K8 once a call and no other kernel; TV's root and sums round
+    alike on both devices, so the uint8 output equals the CPU's."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    hu = (40 + 25 * torch.randn((16, 128, 128), generator=g,
+                                device=cuda_device)).round().to(torch.int16)
+    cfg = PipelineConfig.make(CT3D)
+    _build.reset_launches()
+    out = TC.compile_volume_pipeline(cfg)(hu)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "tile_hists": 1, "clahe3d_apply": 1}
+    ref = TC.compile_volume_pipeline(cfg, device="cpu")(hu.cpu())
+    assert torch.equal(out.cpu(), ref)
+
+
+# card vs CPU bounds: 0 for min/max, box, Gaussian and IEEE pointwise ops;
+# libm, summation order and cuFFT elsewhere (the CPU tests' bounds)
+CARD_OPS = [
+    ("equalize_hist", {}, 0.0), ("normalize", {}, 0.0),
+    ("rescale_intensity", {}, 0.0), ("adjust_log", {}, 1e-6),
+    ("normalize_meanstd", {}, 0.0), ("guided_blur3d", {}, 0.0),
+    ("median_blur3d", {}, 0.0), ("unsharp_mask3d", {}, 0.0),
+    ("top_hat3d", {"kernel_size": 5}, 0.0), ("morph_gradient3d", {}, 0.0),
+    ("resample3d", {"depth": 20, "height": 80, "width": 120}, 1e-6),
+    ("difference_of_gaussians3d", {}, 0.0),
+    ("denoise_nl_means3d", {"patch_size": 3, "patch_distance": 3}, 2e-6),
+    ("denoise_tv3d", {}, 2e-6), ("wiener3d", {}, 2e-5),
+    ("anisotropic_diffusion3d", {"kappa": 0.1}, 1e-6), ("srad3d", {}, 1e-6),
+    ("frangi3d", {"sigmas": (1.0, 2.0)}, 2e-6),
+    ("sato3d", {"sigmas": (1.0, 2.0)}, 5e-6),
+    ("meijering3d", {"sigmas": (1.0, 2.0)}, 5e-6),
+    ("butterworth3d", {}, 2e-5), ("homomorphic3d", {}, 2e-5),
+    ("denoise_wavelet3d", {}, 2e-6),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,kw,tol", CARD_OPS, ids=[o for o, _, _ in CARD_OPS])
+def test_volume_op_on_card_matches_the_cpu(cuda_device, op, kw, tol):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    vol = torch.rand((12, 67, 93), generator=g, device=cuda_device)
+    fn = TC._volume_registry()[op]
+    got, want = fn(vol, **kw).cpu(), fn(vol.cpu(), **kw)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= tol
