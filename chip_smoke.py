@@ -131,7 +131,21 @@ Phases, one printed line each (or a few):
                bounds); `python -m mies_tpu_torch enhance-volume --mode 3d
                --isotropic 1.0` on a 64-slice DICOM series at (2.5, 0.7,
                0.7) mm in a subprocess, exit 0, its [160, 358, 358] output
-               equal to the in-process call's, TF32 off.
+               equal to the in-process call's, TF32 off;
+  8. z-sharded volume — K8z (K8 at a band's z offset) on phase 7's
+               windowed [256, 512, 512] CT phantom at grid (4, 8, 8) in both
+               epilogues, split into 2 and 4 z bands: each band bit-equal
+               to the plain K8z, the bands concatenated bit-equal to K8,
+               each launch's device ms beside its bound;
+               configs/ct_volume_3d.yaml through volume_shard_apply on an
+               NCCL world of one at int16 [512, 512, 512] (K1 and K8z once
+               a call), bit-equal to compile_volume_pipeline, both timed
+               per volume (CUDA events) and profiled (device ms, launches,
+               busy share), peak memory of each; clahe3d fraction through
+               it (K8z clip01); `python -m mies_tpu_torch enhance-volume
+               --data-parallel` in --mode 3d and slice mode on a 512^3 .nc
+               and with --isotropic 1.0 on the 64-slice series, each
+               output file equal to the one written without the flag.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -871,6 +885,229 @@ def _volume_ops_phase(dev: torch.device, card: str, repo: Path) -> dict:
           f"{not torch.backends.cuda.matmul.allow_tf32} | {card}")
     _require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     return launches
+
+
+def _zshard_phase(dev: torch.device, card: str, repo: Path,
+                  record) -> tuple[dict, dict]:
+    """Phase 8: the z-sharded volume path. (a) K8z on the windowed int16
+    [256, 512, 512] CT phantom of phase 7 with its K1 LUTs at grid (4, 8,
+    8), in both epilogues: the volume split into n = 2 and 4 tile-aligned z
+    bands, each band's K8z bit-equal to the plain K8z, the bands
+    concatenated bit-equal to K8 on the whole volume; the device ms of each
+    band's launch and the bound (8 B a voxel at 3.35 TB/s). (b) The shipped
+    configs/ct_volume_3d.yaml through volume_shard_apply on an NCCL world
+    of one, int16 [512, 512, 512] (w5's size): K1 and K8z once a call and
+    no other kernel, bit-equal to compile_volume_pipeline, both event-timed
+    per volume, the device ms, launches and busy share (profiler) and the
+    peak device memory of each; a clahe3d fraction config through it at
+    [32, 512, 512] (K8z clip01). (c) `python -m mies_tpu_torch
+    enhance-volume --data-parallel` in subprocesses on a 512^3 .nc in
+    --mode 3d and in slice mode (w5's chain, slab 16), and on phase 7's
+    64-slice DICOM series with --isotropic 1.0: exit 0 and each output file
+    equal to the one written without the flag. Returns the launch counts
+    of (b)'s two runs."""
+    from mies_tpu_torch.io.dicom import write_dicom
+    from mies_tpu_torch.io.volume import save_volume
+    from mies_tpu_torch.kernels import _build
+    from mies_tpu_torch.kernels import clahe as KC
+    from mies_tpu_torch.kernels import clahe3d as K3D
+    from mies_tpu_torch.ops import intensity as I
+    from mies_tpu_torch.ops import volume3d as V
+    from mies_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        volume_shard_apply,
+    )
+    from mies_tpu_torch.pipeline.compiler import compile_volume_pipeline
+    from mies_tpu_torch.pipeline.config import PipelineConfig, load_config
+    from mies_tpu_torch.pipeline.presets import flagship_volume_config
+    from mies_tpu_torch.pipeline.runner import _profile
+
+    gib = 2**30
+    grid = (4, 8, 8)
+    # -- (a) K8z at every band of a 2- and a 4-way z split ------------------
+    ctw = I.window_hu(_ct_volume(256, SIZE, SIZE, 11, dev), 40.0,
+                      400.0).contiguous()
+    z_total = ctw.shape[0]
+    tz = z_total // grid[0]
+    hists = KC.tile_hists(ctw, grid[1:]).reshape(grid[0], tz, -1, 256).sum(
+        1, dtype=torch.int32).float()
+    tile_vox = tz * (SIZE // grid[1]) * (SIZE // grid[2])
+    nvox = ctw.numel()
+    band_ms = {}
+    for key, conv, clip, fin, ops in (("K8z", "opencv", 2.0, "u8norm", 51),
+                                      ("K8zc", "fraction", 0.01, "clip01",
+                                       49)):
+        luts = V.luts_3d(hists, clip, tile_vox, conv).reshape(*grid, 256)
+        whole = K3D.clahe3d_apply_lut(ctw, luts, grid, fin)
+        for n in (2, 4):
+            zb = z_total // n
+            bands = [ctw[i * zb:(i + 1) * zb].contiguous() for i in range(n)]
+            outs, errs = [], []
+            for i, band in enumerate(bands):
+                got = K3D.clahe3d_apply_lut_band(band, luts, grid, z_total,
+                                                 i * zb, fin)
+                want = K3D.clahe3d_apply_lut_band_plain(band, luts, grid,
+                                                        z_total, i * zb, fin)
+                errs.append((got - want).abs().max().item())
+                _require(torch.equal(got, want),
+                         f"{key} band {i} of {n} differs from the plain K8z "
+                         f"by up to {errs[-1]}")
+                outs.append(got)
+                band_ms[(key, n, i)] = _ms(
+                    lambda b=band, i=i: K3D.clahe3d_apply_lut_band(
+                        b, luts, grid, z_total, i * zb, fin))
+            _require(torch.equal(torch.cat(outs), whole),
+                     f"{key}: the {n} bands differ from K8 on the volume")
+            if n == 4:
+                # the record: the 4 bands' launches together, the whole
+                # volume's work (each voxel read and written once)
+                def all_bands(fn, bands=bands, zb=zb, luts=luts, fin=fin):
+                    for i, b in enumerate(bands):
+                        fn(b, luts, grid, z_total, i * zb, fin)
+                record(key, max(errs),
+                       lambda: all_bands(K3D.clahe3d_apply_lut_band),
+                       lambda: all_bands(K3D.clahe3d_apply_lut_band_plain),
+                       8 * nvox + 4 * luts.numel(), ops * nvox, plain_iters=2,
+                       at=f"[{z_total},{SIZE},{SIZE}] in 4 bands")
+        del whole
+    bound_ms = {n: _bound(8 * nvox / n, 0)[0] for n in (2, 4)}
+    print("K8z ms per band launch (CUDA events; the windowed int16 "
+          f"[{z_total},{SIZE},{SIZE}] CT phantom, grid {grid}; each band "
+          "bit-equal to the plain K8z, the bands concatenated bit-equal to "
+          "K8): " + "; ".join(
+              f"{key} n={n}: " + ", ".join(
+                  f"{band_ms[(key, n, i)]:.4f}" for i in range(n))
+              + f" (bound {bound_ms[n]:.4f} a band)"
+              for key in ("K8z", "K8zc") for n in (2, 4)) + f" | {card}")
+    del ctw, hists
+
+    # -- (b) ct_volume_3d.yaml z-sharded at world 1, 512^3 ---------------
+    ctv_cfg = load_config(repo / "configs" / "ct_volume_3d.yaml")
+    hu = _ct_volume(512, SIZE, SIZE, 21, dev)
+    fr_cfg = PipelineConfig.make(
+        [("clahe3d", {"clip_limit": 0.01, "grid_size": grid,
+                      "convention": "fraction"})], name="clahe3d-fraction")
+    fr_vol = torch.from_numpy(_xray_batch(BATCH, SIZE, SIZE, seed=8)).to(dev)
+    want_launches = {"tile_hists": 1, "clahe3d_apply_band": 1}
+
+    def peak_of(fn):
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, torch.cuda.max_memory_allocated(dev) - base
+
+    with tempfile.TemporaryDirectory() as store:
+        init_distributed(f"file://{store}/store", 1, 0, device="cuda")
+        try:
+            mesh = make_mesh(1, 1)
+            runs = {}
+            for name, cfg, vol in (("ct_volume_3d", ctv_cfg, hu),
+                                   ("clahe3d fraction", fr_cfg, fr_vol)):
+                fn = volume_shard_apply(cfg, mesh)
+                ref_fn = compile_volume_pipeline(cfg)
+                fn(vol)  # the first call allocates; count the second
+                _build.reset_launches()
+                out, peak = peak_of(lambda: fn(vol))
+                counts = dict(_build.LAUNCHES)
+                expect = {k: want_launches.get(k, 0) for k in counts}
+                _require(counts == expect,
+                         f"z-sharded {name}: launches {counts}, want {expect}")
+                ref, peak_ref = peak_of(lambda: ref_fn(vol))
+                _require(out.dtype == torch.uint8 and torch.equal(out, ref),
+                         f"z-sharded {name} differs from compile_volume_pipeline")
+                del out, ref
+                runs[name] = (counts, peak, peak_ref,
+                              _profile(fn, vol, 5, dev),
+                              _profile(ref_fn, vol, 5, dev))
+        finally:
+            dist.destroy_process_group()
+    for name, (counts, peak, peak_ref, prof, prof_ref) in runs.items():
+        shp = list((hu if name == "ct_volume_3d" else fr_vol).shape)
+        print(f"z-sharded {name} {shp} (volume_shard_apply, NCCL, world 1): "
+              f"launches { {k: v for k, v in counts.items() if v} } | == "
+              f"compile_volume_pipeline | {prof['ms_per_call']:.4f} ms a "
+              f"volume (compile_volume_pipeline {prof_ref['ms_per_call']:.4f}"
+              f") | device {prof['device_ms_per_call']:.4f} ms "
+              f"({prof_ref['device_ms_per_call']:.4f}), "
+              f"{prof['device_launches_per_call']:g} launches "
+              f"({prof_ref['device_launches_per_call']:g}), busy "
+              f"{prof['busy_share']:.1%} ({prof_ref['busy_share']:.1%}) | peak "
+              f"{peak / gib:.2f} GiB ({peak_ref / gib:.2f}) | top ms: "
+              + "; ".join(f"{k[:40]} {v:.4f}" for k, v in
+                          list(prof["by_kernel"].items())[:6])
+              + f" | {card}")
+    ct_counts, fr_counts = runs["ct_volume_3d"][0], runs["clahe3d fraction"][0]
+    del runs, fr_vol
+
+    # -- (c) enhance-volume --data-parallel in subprocesses --------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        save_volume(tmp / "ct.nc", hu.cpu().numpy(), var_name="hu")
+        del hu
+        flagship_volume_config().save(tmp / "w5.json")
+        iso_cfg = PipelineConfig.make(
+            [("window_hu", {"center": 40.0, "width": 400.0}),
+             ("median_blur3d", {}), ("unsharp_mask3d", {"amount": 0.5})],
+            name="ct-iso")
+        iso_cfg.save(tmp / "iso.json")
+        series = tmp / "series"
+        series.mkdir()
+        ct = _ct_volume(64, SIZE, SIZE, 12, dev).cpu().numpy()
+        for k in range(64):
+            write_dicom(series / f"im{k:03d}.dcm", ct[k], instance_number=k + 1,
+                        slice_location=2.5 * k,
+                        image_position=(0.0, 0.0, 2.5 * k),
+                        pixel_spacing=(0.7, 0.7))
+        cases = {
+            "3d": [str(tmp / "ct.nc"), "-c",
+                   str(repo / "configs" / "ct_volume_3d.yaml"), "--mode", "3d"],
+            "slices": [str(tmp / "ct.nc"), "-c", str(tmp / "w5.json"),
+                       "--slab", "16"],
+            "isotropic": [str(series), "-c", str(tmp / "iso.json"), "--mode",
+                          "3d", "--isotropic", "1.0"],
+        }
+        env = {**os.environ, "PYTHONPATH": str(repo)}
+        for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                    "MASTER_PORT"):
+            env.pop(var, None)
+        procs = {}
+        for name, args in cases.items():
+            for flag in ("", "--data-parallel"):
+                cmd = [sys.executable, "-m", "mies_tpu_torch", "enhance-volume",
+                       *args, "-o", str(tmp / f"{name}{flag}.nc"), "-q",
+                       *([flag] if flag else [])]
+                procs[(name, flag)] = subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True, env=env, cwd=repo)
+        try:
+            for (name, flag), proc in procs.items():
+                out, err = proc.communicate(timeout=600)
+                _require(proc.returncode == 0,
+                         f"CLI {name} {flag} exited {proc.returncode}: "
+                         f"{err[-2000:]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        sizes = {}
+        for name in cases:
+            a = (tmp / f"{name}.nc").read_bytes()
+            b = (tmp / f"{name}--data-parallel.nc").read_bytes()
+            _require(a == b, f"CLI {name}: the --data-parallel output differs "
+                     f"from the one without it")
+            sizes[name] = len(a)
+    print(f"CLI enhance-volume --data-parallel (NCCL, world 1) in --mode 3d "
+          f"(ct_volume_3d.yaml, int16 512^3 .nc), slice mode (w5's chain, slab "
+          f"16) and --isotropic 1.0 (64 x {SIZE}^2 DICOM series at (2.5, 0.7, "
+          f"0.7) mm): 6 subprocesses exit 0 in {time.perf_counter() - t0:.1f} "
+          f"s, each output file equal to the one without the flag ("
+          + ", ".join(f"{k} {v} B" for k, v in sizes.items()) + f") | {card}")
+    return ct_counts, fr_counts
 
 
 def main() -> int:
@@ -2190,6 +2427,9 @@ def main() -> int:
     # K1 and K8 launch on the CT volume config's path and on chain (a)'s
     vol_launches = {k: ctv_launches[k] + p7_launches[k] for k in ctv_launches}
 
+    # -- 8. the z-sharded volume path -------------------------------------
+    zs_launches, zsf_launches = _zshard_phase(dev, card, repo, record)
+
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (
         ("tile_luts", "K1L", launches, "mies_tpu_torch/csrc/clahe.cu",
@@ -2254,6 +2494,10 @@ def main() -> int:
          "mies_tpu_torch/csrc/fused.cu", "mies_tpu/kernels/fused.py:43"),
         ("bilateral_unsharp", "K13m", fused_launches,
          "mies_tpu_torch/csrc/fused.cu", "mies_tpu/kernels/fused.py:43"),
+        ("clahe3d_apply_band", "K8z", zs_launches,
+         "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/parallel/volume_shard.py:99"),
+        ("clahe3d_apply_band", "K8zc", zsf_launches,
+         "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/parallel/volume_shard.py:99"),
     )
     names = {"K1b": "tile_hists_bins", "K2c": "clahe_apply_lut[clip01]",
              "K2": "clahe_apply_lut[u8norm]", "K8": "clahe3d_apply[u8norm]",
@@ -2266,7 +2510,9 @@ def main() -> int:
              "K6x": "skimage_apply[1x4096x4096]",
              "K8sn": "clahe3d_skimage_apply[nbins1000]",
              "K3r": "bilateral[8x1024x1024]",
-             "K4r": "unsharp_quant[8x1024x1024]"}
+             "K4r": "unsharp_quant[8x1024x1024]",
+             "K8z": "clahe3d_apply_band[u8norm]",
+             "K8zc": "clahe3d_apply_band[clip01]"}
     kernels = []
     for counter, k, counts, src, rep in sources:
         _require(counts[counter] >= 1, f"{k} never launched on its path")

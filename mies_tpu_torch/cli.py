@@ -8,13 +8,19 @@ whose modules are ported:
   python -m mies_tpu_torch enhance-volume -c config.yaml vol.nc -o out.nc [--stream]
   python -m mies_tpu_torch enhance-volume -c configs/ct_volume_3d.yaml vol.nc -o out.nc --mode 3d
   python -m mies_tpu_torch enhance-volume -c chain3d.yaml dicom_dir/ -o out.nc --mode 3d --isotropic 1.0
+  torchrun --nproc-per-node 4 -m mies_tpu_torch enhance-volume -c configs/ct_volume_3d.yaml vol.nc -o out.nc --mode 3d --data-parallel
   python -m mies_tpu_torch ops
   python -m mies_tpu_torch bench -c config.yaml --batch 32 --size 512
 
-Everything runs on the card; without one the commands raise. The
-reference's other subcommands and the flags whose modules are not
-ported yet are refused with exit code 2 and the ROADMAP.md item that
-brings them.
+Everything runs on the card; without one the commands raise.
+``enhance-volume --data-parallel`` runs one rank per card, launched by
+``torchrun`` (the process group joins from its ``env://`` variables;
+without them it is a world of one): rank 0 reads the input, sends each
+rank its z slab (``--mode 3d``: ``parallel.volume_shard_apply``) or its
+part of every slab (slice mode: ``runner.enhance_volume(mesh=)``),
+gathers the output and writes it. The reference's other subcommands and
+the flags whose modules are not ported yet are refused with exit code 2
+and the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -31,8 +37,8 @@ NOT_PORTED = {
     "--run-report": "queue 1 item 5 (eval: metrics and the report)",
     "--stage-costs": "queue 1 item 7 (utils/profiling)",
     "--metrics": "queue 1 item 5 (eval: metrics)",
-    "--data-parallel": "queue 1 item 7 (data-parallel file runs, "
-                       "with parallel/volume_shard.py)",
+    "--data-parallel": "queue 1 item 7 (data-parallel image batches and "
+                       "streamed volumes)",
     "evaluate": "queue 1 item 5 (eval)",
     "train-denoiser": "queue 1 item 6 (models)",
     "serve": "queue 1 item 7 (serve.py)",
@@ -160,9 +166,9 @@ def cmd_enhance_volume(args, device) -> int:
     from mies_tpu_torch.io.volume import load_volume, save_volume
     from mies_tpu_torch.pipeline import runner
 
-    flag = _refused_flags(args, ("--metrics", "--data-parallel"))
-    if flag:
-        return _refuse(flag)
+    flag = _refused_flags(args, ("--metrics",))
+    if flag or (args.stream and args.data_parallel):
+        return _refuse(flag or "--data-parallel")
     cfg = _load_cfg(args.config)
     if args.window_from_file:
         vp = Path(args.input)
@@ -187,6 +193,8 @@ def cmd_enhance_volume(args, device) -> int:
         print(json.dumps({"input": meta.source, "shape": list(meta.shape),
                           "output": args.output, "streamed": True}))
         return 0
+    if args.data_parallel:
+        return _enhance_volume_data_parallel(args, cfg, device)
     vol, meta = load_volume(args.input, var_name=args.var)
     if args.isotropic is not None:
         cfg = _isotropic_config(cfg, args, vol.shape, meta.spacing)
@@ -204,7 +212,64 @@ def cmd_enhance_volume(args, device) -> int:
     return 0
 
 
-def _isotropic_config(cfg, args, shape, spacing):
+def _enhance_volume_data_parallel(args, cfg, device) -> int:
+    """``enhance-volume --data-parallel``: join the process group (from
+    torchrun's ``env://`` variables, else a world of one), read the volume
+    on rank 0, run it z-sharded (``--mode 3d``) or slab-sharded, and write
+    the output on rank 0. Refused, on every rank: a Z (``--mode 3d``) or an
+    ``--isotropic`` depth that does not divide by the ranks."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mies_tpu_torch.io.volume import load_volume, save_volume
+    from mies_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        volume_shard_apply,
+    )
+    from mies_tpu_torch.pipeline import runner
+
+    joined = not dist.is_initialized()
+    with tempfile.TemporaryDirectory() as store:
+        if joined and "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            init_distributed("env://", device=device)  # torchrun
+        elif joined:
+            init_distributed(f"file://{store}/store", 1, 0, device)
+        try:
+            n, rank = dist.get_world_size(), dist.get_rank()
+            vol, head = None, [None]
+            if rank == 0:
+                vol, meta = load_volume(args.input, var_name=args.var)
+                head = [(vol.shape, meta.spacing, meta.source)]
+            dist.broadcast_object_list(head, src=0)
+            shape, spacing, source = head[0]
+            if args.isotropic is not None:
+                cfg = _isotropic_config(cfg, args, shape, spacing, n)
+            if args.mode == "3d":
+                if shape[0] % n:
+                    raise SystemExit(
+                        f"--data-parallel with --mode 3d z-shards the volume: "
+                        f"Z={shape[0]} must divide by the {n} devices"
+                    )
+                mesh = make_mesh(data=1, space=n)
+                out = runner.run_sharded(vol, volume_shard_apply(cfg, mesh),
+                                         shape[0], mesh)
+            else:
+                out = runner.enhance_volume(vol, cfg, slab_size=args.slab,
+                                            progress=not args.quiet,
+                                            mesh=make_mesh())
+            if rank == 0:
+                save_volume(args.output, out)
+                print(json.dumps({"input": source, "shape": list(out.shape),
+                                  "output": args.output, "ranks": n}))
+        finally:
+            if joined:
+                dist.destroy_process_group()
+    return 0
+
+
+def _isotropic_config(cfg, args, shape, spacing, ranks: int | None = None):
     """The chain with a ``resample3d`` stage prepended that takes the
     volume to ``--isotropic`` mm voxels from the series' (dz, dy, dx)
     spacing: each axis ``max(1, round(n * s / mm))`` samples. Refused
@@ -223,6 +288,16 @@ def _isotropic_config(cfg, args, shape, spacing):
         )
     tgt = float(args.isotropic)
     d, h, w = (max(1, round(n * s / tgt)) for n, s in zip(shape, spacing))
+    if ranks is not None and d % ranks:
+        # the z-sharded resample3d needs the OUTPUT depth divisible by the
+        # ranks: never silently change the user's grid
+        lo, hi = (d // ranks) * ranks, (d // ranks + 1) * ranks
+        raise SystemExit(
+            f"--isotropic {tgt:g} under --data-parallel: target depth {d} "
+            f"is not divisible by the {ranks} devices; adjust --isotropic so "
+            f"the depth lands on a multiple of {ranks} (nearest: {lo} or "
+            f"{hi} slices), or run without --data-parallel"
+        )
     return PipelineConfig.make(
         [("resample3d", {"depth": d, "height": h, "width": w}), *cfg.stages],
         name=f"{cfg.name}-iso{tgt:g}mm", io=cfg.io_dict(),
@@ -316,7 +391,9 @@ def main(argv=None, device="cuda") -> int:
     p.add_argument("--metrics", nargs="+", default=None,
                    help="not ported yet (refused)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (refused)")
+                   help="one rank per card under torchrun: --mode 3d "
+                        "z-shards the volume, slice mode splits each slab "
+                        "(not with --stream: refused)")
     p.add_argument("-q", "--quiet", action="store_true")
     p.set_defaults(fn=cmd_enhance_volume)
 

@@ -28,6 +28,19 @@
 // per slice. u8norm divides by 255 through a table of the correctly
 // rounded quotients. Bound: 4 B read + 4 B written per voxel.
 //
+// K8z (mies_clahe3d_apply_band) is K8 at a z offset, as K5 is K2 at a row
+// offset: the apply of one tile-aligned z band [zb, H, W] of a z-sharded
+// volume (parallel/volume_shard.py clahe3d_band) against the FULL
+// all-gathered [gz, gy, gx, 256] LUT grid. It replaces the band apply of
+// mies_tpu/parallel/volume_shard.py (_trilinear_zband_selection, the TPU's
+// selection-by-matmul form of _trilinear_zband_gather). The band's first
+// slice is global slice z0; the z weights are taken at the global slice,
+// f = (z0 + z) * (1/tz) - 0.5, the unsharded K8's own expression, and the
+// cell edges are cell_start at global z cut to [z0, z0 + zb), so the bands
+// concatenate to K8's output bit for bit. Only the z cells that meet the
+// band launch (cz0 .. cz0 + ncz - 1, from the same f32 formula on the host).
+// K8 and K8z share the kernel (K8 passes z0 = 0 and every cell).
+//
 // K8s (mies_clahe3d_skimage_apply) replaces the skimage mode of
 // mies_tpu/kernels/clahe.py:_blocks8_kernel: skimage's blend of the 8
 // neighbouring region maps of the edge-padded map array at each voxel's
@@ -102,30 +115,31 @@ __device__ __forceinline__ float blend8(const float4& lo, const float4& hi,
   return div255[static_cast<int>(fminf(fmaxf(rintf(res), 0.0f), 255.0f))];
 }
 
-// Block (((strip * (gx + 1)) + cx + 1) * col_splits + csub, cy + 1, cz + 1)
-// owns the (slice, row) pairs [strip * rpb, (strip + 1) * rpb) of cell
-// (cz, cy, cx), in slice-major order, and column units [csub * kThreads,
-// ...) of it. A cell spans at most t + 1 positions of an axis (the f32
-// weights may move an edge by one): rpb, strips and col_splits come from
-// kernels/clahe3d.py apply_launch, which sizes them for that.
+// Block (((strip * (gx + 1)) + cx + 1) * col_splits + csub, cy + 1,
+// cz - cz0) owns the (slice, row) pairs [strip * rpb, (strip + 1) * rpb) of
+// cell (cz, cy, cx), in slice-major order, and column units [csub *
+// kThreads, ...) of it. x and out hold the global slices [z0, z0 + Z). A
+// cell spans at most t + 1 positions of an axis (the f32 weights may move
+// an edge by one): rpb, strips and col_splits come from kernels/clahe3d.py
+// apply_launch, which sizes them for that.
 template <bool kClip01>
 __global__ void __launch_bounds__(kThreads)
 clahe3d_apply_kernel(const float* __restrict__ x,
                      const float* __restrict__ luts, float* __restrict__ out,
                      int Z, int H, int W, int gz, int gy, int gx, int tz,
                      int th, int tw, float inv_tz, float inv_th, float inv_tw,
-                     int rpb, int col_splits, int vec_ok) {
+                     int z0, int cz0, int rpb, int col_splits, int vec_ok) {
   __shared__ float4 quad[2][kBins];
   __shared__ float div255[kBins];
   const int csub = blockIdx.x % col_splits;
   const int rest = blockIdx.x / col_splits;
   const int cx = rest % (gx + 1) - 1, strip = rest / (gx + 1);
   const int cy = static_cast<int>(blockIdx.y) - 1;
-  const int cz = static_cast<int>(blockIdx.z) - 1;
+  const int cz = cz0 + static_cast<int>(blockIdx.z);
 
-  // this block's slices, rows and columns, by the blend's formula
-  const int z_lo = cell_start(cz, tz, inv_tz, 0, Z);
-  const int z_hi = cell_start(cz + 1, tz, inv_tz, 0, Z);
+  // this block's global slices, rows and columns, by the blend's formula
+  const int z_lo = cell_start(cz, tz, inv_tz, z0, z0 + Z);
+  const int z_hi = cell_start(cz + 1, tz, inv_tz, z0, z0 + Z);
   const int y_lo = cell_start(cy, th, inv_th, 0, H);
   const int y_hi = cell_start(cy + 1, th, inv_th, 0, H);
   const int x_lo = cell_start(cx, tw, inv_tw, 0, W);
@@ -174,7 +188,7 @@ clahe3d_apply_kernel(const float* __restrict__ x,
   Weight wz = weight_of(z, inv_tz);
   for (;;) {
     const Weight wy = weight_of(y, inv_th);
-    const size_t at = (static_cast<size_t>(z) * H + y) * W + c;
+    const size_t at = (static_cast<size_t>(z - z0) * H + y) * W + c;
     if (vec) {
       const float4 p = *reinterpret_cast<const float4*>(x + at);
       const int l0 = level_of(p.x), l1 = level_of(p.y);
@@ -317,6 +331,35 @@ clahe3d_skimage_apply_kernel(const int* __restrict__ bins,
 
 }  // namespace
 
+namespace {
+
+cudaError_t launch_apply3d(const float* x, const float* luts, float* out,
+                           int Z, int H, int W, int gz, int gy, int gx,
+                           int tz, int th, int tw, float inv_tz, float inv_th,
+                           float inv_tw, int z0, int cz0, int ncz, int rpb,
+                           int strips, int col_splits, int vec_ok, int clip01,
+                           cudaStream_t stream) {
+  const long long blocks_x = static_cast<long long>(gx + 1) * col_splits *
+                             strips;
+  if (rpb < 1 || strips < 1 || col_splits < 1 || gy + 1 > kMaxGridYZ ||
+      ncz < 1 || ncz > kMaxGridYZ || blocks_x > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid(static_cast<unsigned>(blocks_x), gy + 1, ncz);
+  if (clip01) {
+    clahe3d_apply_kernel<true><<<grid, kThreads, 0, stream>>>(
+        x, luts, out, Z, H, W, gz, gy, gx, tz, th, tw, inv_tz, inv_th, inv_tw,
+        z0, cz0, rpb, col_splits, vec_ok);
+  } else {
+    clahe3d_apply_kernel<false><<<grid, kThreads, 0, stream>>>(
+        x, luts, out, Z, H, W, gz, gy, gx, tz, th, tw, inv_tz, inv_th, inv_tw,
+        z0, cz0, rpb, col_splits, vec_ok);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 // x, out: [Z, H, W] f32; luts: [gz, gy, gx, 256] f32 (integer-valued for
 // the u8norm epilogue, fractional for clip01). (tz, th, tw) is the tile;
 // inv_* are the host's correctly rounded f32 reciprocals of it. rpb,
@@ -329,23 +372,27 @@ extern "C" int mies_clahe3d_apply(const float* x, const float* luts,
                                   int rpb, int strips, int col_splits,
                                   int vec_ok, int clip01,
                                   cudaStream_t stream) {
-  const long long blocks_x = static_cast<long long>(gx + 1) * col_splits *
-                             strips;
-  if (rpb < 1 || strips < 1 || col_splits < 1 || gy + 1 > kMaxGridYZ ||
-      gz + 1 > kMaxGridYZ || blocks_x > 0x7fffffffLL) {
+  return static_cast<int>(launch_apply3d(
+      x, luts, out, Z, H, W, gz, gy, gx, tz, th, tw, inv_tz, inv_th, inv_tw,
+      0, -1, gz + 1, rpb, strips, col_splits, vec_ok, clip01, stream));
+}
+
+// K8z. x, out: [Zb, H, W] f32, the tile-aligned band whose first slice is
+// global slice z0 (a multiple of tz) of a volume of gz * tz slices; luts:
+// the whole volume's [gz, gy, gx, 256] grid. The z cells cz0 .. cz0 + ncz -
+// 1 launch (kernels/clahe3d.py band_launch: those that meet the band).
+extern "C" int mies_clahe3d_apply_band(
+    const float* x, const float* luts, float* out, int Zb, int H, int W,
+    int gz, int gy, int gx, int tz, int th, int tw, float inv_tz,
+    float inv_th, float inv_tw, int z0, int cz0, int ncz, int rpb, int strips,
+    int col_splits, int vec_ok, int clip01, cudaStream_t stream) {
+  if (tz < 1 || Zb < tz || Zb % tz != 0 || z0 < 0 || z0 % tz != 0 ||
+      z0 + Zb > gz * tz || cz0 < -1 || cz0 + ncz > gz) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned>(blocks_x), gy + 1, gz + 1);
-  if (clip01) {
-    clahe3d_apply_kernel<true><<<grid, kThreads, 0, stream>>>(
-        x, luts, out, Z, H, W, gz, gy, gx, tz, th, tw, inv_tz, inv_th, inv_tw,
-        rpb, col_splits, vec_ok);
-  } else {
-    clahe3d_apply_kernel<false><<<grid, kThreads, 0, stream>>>(
-        x, luts, out, Z, H, W, gz, gy, gx, tz, th, tw, inv_tz, inv_th, inv_tw,
-        rpb, col_splits, vec_ok);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_apply3d(
+      x, luts, out, Zb, H, W, gz, gy, gx, tz, th, tw, inv_tz, inv_th, inv_tw,
+      z0, cz0, ncz, rpb, strips, col_splits, vec_ok, clip01, stream));
 }
 
 // bins: [Zp, Hp, Wp] int32 bins of the padded volume; maps: [nz1, ny1, nx1,

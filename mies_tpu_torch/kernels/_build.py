@@ -62,6 +62,8 @@ _SIGNATURES = {
     "mies_srad": (_P, _P, *(_I,) * 7, _F, _F, _F, _F, _P),
     "mies_clahe3d_apply": (_P, _P, _P, *(_I,) * 9, _F, _F, _F, *(_I,) * 5,
                            _P),
+    "mies_clahe3d_apply_band": (_P, _P, _P, *(_I,) * 9, _F, _F, _F,
+                                *(_I,) * 8, _P),
     "mies_clahe3d_skimage_apply": (_P, _P, _P, *(_I,) * 21, _P),
     "mies_unsharp_gauss": (_P, _P, _I, _I, _I, _P, _I, _P, _I, _F, _P),
     "mies_bilateral_unsharp": (_P, _P, _I, _I, _I, _I, _P, _F, _I, _P, _I, _F,
@@ -74,7 +76,8 @@ LAUNCHES = {"tile_hists": 0, "tile_hists_bins": 0, "tile_luts": 0,
             "skimage_maps": 0, "skimage_apply": 0,
             "bilateral": 0, "unsharp_quant": 0, "bilateral_unsharp": 0,
             "nl_means": 0, "tv": 0, "srad": 0, "perona_malik": 0,
-            "clahe3d_apply": 0, "clahe3d_skimage_apply": 0,
+            "clahe3d_apply": 0, "clahe3d_apply_band": 0,
+            "clahe3d_skimage_apply": 0,
             "unsharp_gauss": 0}
 
 _lib: ctypes.CDLL | None = None

@@ -5,7 +5,11 @@ compositions of the volume conventions.
   (``mies_tpu.ops.volume3d.clahe3d``'s fast path): K1 (tile histograms,
   the Z slices as the batch) -> an int32 sum over each group of tz slices
   -> the LUT build in plain torch on the device -> K8 (trilinear apply,
-  level quantize in the kernel, epilogue u8norm or clip01).
+  level quantize in the kernel, epilogue u8norm or clip01). On a z band
+  of a z-sharded volume (``parallel.volume_shard.clahe3d_band``) the same
+  up to the LUTs of the band's tiles, then K8z
+  (``clahe3d_apply_lut_band``: K8 at the band's global z offset against
+  the all-gathered LUT grid).
 * skimage (``clahe3d_skimage_cuda``): the 14-bit scale-in, pad and binning
   in plain torch on the device -> K1 in bins mode over the region window of
   each padded slice, summed over each group of kz slices to the cubic
@@ -97,6 +101,90 @@ def clahe3d_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid,
                   x.data_ptr(), luts.data_ptr(), out.data_ptr(), *x.shape,
                   *grid, tz, th, tw, *inv, *launch, int(aligned),
                   KC._FINALIZE[finalize])
+    return out
+
+
+# --- K8z: K8 on a z band at its global offset ---------------------------------
+
+
+def _cell_of(p: int, inv: np.float32) -> int:
+    """The interpolation cell of position p: floor(p * inv - 0.5) in
+    float32, csrc/cells.cuh cell_of's correctly rounded arithmetic."""
+    return int(np.floor(np.float32(p) * inv - np.float32(0.5)))
+
+
+def band_launch(z_total: int, z0: int, zb: int, hw, grid, aligned: bool
+                ) -> tuple[int, int, int, int, int]:
+    """K8z's blocks: (first z cell, z cells, rows per block, strips per
+    cell, column chunks per cell). The z cells are those that meet the
+    band's global slices [z0, z0 + zb) (the cells of its first and last
+    slice and those between); the rest is K8's ``apply_launch`` of the
+    whole volume's tiles."""
+    tz = z_total // grid[0]
+    inv = np.float32(1.0) / np.float32(tz)
+    cz0 = max(_cell_of(z0, inv), -1)
+    ncz = _cell_of(z0 + zb - 1, inv) - cz0 + 1
+    return (cz0, ncz, *apply_launch((z_total, *hw), grid, aligned))
+
+
+def check_band(shape, grid, z_total: int, z0: int) -> tuple[int, int, int]:
+    """The tile (tz, th, tw) of a band [zb, H, W] at global slice ``z0`` of
+    a volume of ``z_total`` slices tiled by ``grid``; raises unless the band
+    is whole tiles of it."""
+    zb, h, w = shape
+    tz, th, tw = V.tile_shape_3d((z_total, h, w), grid)
+    if zb < 1 or zb % tz or z0 < 0 or z0 % tz or z0 + zb > z_total:
+        raise ValueError(
+            f"band of {zb} slices at z {z0} is not whole z tiles of "
+            f"{tz} slices within {z_total}"
+        )
+    return tz, th, tw
+
+
+def clahe3d_apply_lut_band_plain(band: torch.Tensor, luts: torch.Tensor,
+                                 grid, z_total: int, z0: int,
+                                 finalize: str = "u8norm") -> torch.Tensor:
+    """Plain version of K8z: the gather form at the band's global z (the
+    reference's ``_trilinear_zband_gather``) + the epilogue."""
+    res = V._apply_luts_trilinear_gather(H._levels(band), luts, tuple(grid),
+                                         z_total, z0)
+    return V.finalize_3d(res, finalize)
+
+
+def clahe3d_apply_lut_band(band: torch.Tensor, luts: torch.Tensor, grid,
+                           z_total: int, z0: int,
+                           finalize: str = "u8norm") -> torch.Tensor:
+    """K8z: K8's blend and epilogue on a tile-aligned z band whose first
+    slice is global slice ``z0`` of a volume of ``z_total`` slices tiled by
+    ``grid``; the z weights are taken at the global slices.
+
+    band: [zb, H, W] float32 in [0, 1]; luts: [gz, gy, gx, 256] float32,
+    the whole volume's grid; both contiguous. Returns [zb, H, W] float32."""
+    _build.check_tensor(band, "clahe3d_apply_lut_band: band")
+    _build.check_tensor(luts, "clahe3d_apply_lut_band: luts", ndim=4)
+    if finalize not in KC._FINALIZE:
+        raise ValueError(f"finalize must be one of {sorted(KC._FINALIZE)}, "
+                         f"got {finalize!r}")
+    grid = tuple(int(g) for g in grid)
+    z_total, z0 = int(z_total), int(z0)
+    tz, th, tw = check_band(band.shape, grid, z_total, z0)
+    if tuple(luts.shape) != (*grid, NBINS):
+        raise ValueError(f"luts: expected {(*grid, NBINS)}, got "
+                         f"{tuple(luts.shape)}")
+    KC._same_device(luts, band, "luts")
+    if band.device.type == "cpu":
+        return clahe3d_apply_lut_band_plain(band, luts, grid, z_total, z0,
+                                            finalize)
+    out = torch.empty_like(band)
+    aligned = (band.data_ptr() | out.data_ptr()) % 16 == 0 and \
+        band.shape[2] % 4 == 0
+    launch = band_launch(z_total, z0, band.shape[0], band.shape[1:], grid,
+                         aligned)
+    inv = [float(np.float32(1.0) / np.float32(t)) for t in (tz, th, tw)]
+    _build.launch("clahe3d_apply_band", "mies_clahe3d_apply_band",
+                  band.device, band.data_ptr(), luts.data_ptr(),
+                  out.data_ptr(), *band.shape, *grid, tz, th, tw, *inv, z0,
+                  *launch, int(aligned), KC._FINALIZE[finalize])
     return out
 
 

@@ -581,24 +581,35 @@ def equalize_hist(img: torch.Tensor, nbins: int = NBINS) -> torch.Tensor:
     return _equalize_hist(img, nbins, 2)
 
 
-def _equalize_hist(img: torch.Tensor, nbins: int, nd: int) -> torch.Tensor:
+def _local(t: torch.Tensor, op: str) -> torch.Tensor:
+    """A statistic of the tensor in hand: the default ``combine`` of the
+    statistics-taking ops (a z band's is an all_reduce,
+    ``parallel.volume_shard``)."""
+    return t
+
+
+def _equalize_hist(img: torch.Tensor, nbins: int, nd: int,
+                   combine=_local) -> torch.Tensor:
     """``equalize_hist`` over the last ``nd`` axes of ``img``, one
     histogram each. The counts and their cumulative sum are int64, exact
     at any size; each partial sum is rounded to float32 once and divided
     by the rounded total (the reference's float32 cumsum of float32
     counts, which is the same while an image has < 2**24 pixels and
-    drifts beyond)."""
+    drifts beyond). ``combine(t, "min" | "max" | "sum")`` turns a z band's
+    min, max and counts into the whole volume's
+    (``parallel.volume_shard``: an all_reduce)."""
     if nbins < 2:
         raise ValueError(f"nbins must be >= 2, got {nbins}")
     x = img.to(torch.float32)
     flat = x.reshape(-1, math.prod(x.shape[-nd:]))
-    lo = torch.amin(flat, dim=1, keepdim=True)
-    hi = torch.amax(flat, dim=1, keepdim=True)
+    lo = combine(torch.amin(flat, dim=1, keepdim=True), "min")
+    hi = combine(torch.amax(flat, dim=1, keepdim=True), "max")
     span = torch.maximum(hi - lo, _const(x, 1e-12))
     # bin index per pixel; pixels at `hi` land in the last bin
     idx = torch.clamp(((flat - lo) / span * nbins).to(torch.int64), 0,
                       nbins - 1)
-    cdf = torch.cumsum(_image_hists(idx, nbins), dim=1).to(torch.float32)
+    cdf = torch.cumsum(combine(_image_hists(idx, nbins), "sum"),
+                       dim=1).to(torch.float32)
     cdf = cdf / cdf[:, -1:]
     width = span / _const(x, nbins)
     c0 = lo + 0.5 * width

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from mies_tpu_torch.ops.filters import _pad2d
-from mies_tpu_torch.ops.histogram import _const
+from mies_tpu_torch.ops.histogram import _const, _local
 
 # Standard clinical CT windows (center, width) in Hounsfield units.
 HU_PRESETS: dict[str, tuple[float, float]] = {
@@ -37,13 +37,14 @@ HU_PRESETS: dict[str, tuple[float, float]] = {
 }
 
 
-def _image_min_max(img: torch.Tensor,
-                   nd: int = 2) -> tuple[torch.Tensor, torch.Tensor]:
+def _image_min_max(img: torch.Tensor, nd: int = 2,
+                   combine=_local) -> tuple[torch.Tensor, torch.Tensor]:
     """Each image's own min and max over its last ``nd`` axes, shaped to
-    broadcast over it."""
+    broadcast over it. ``combine(t, "min" | "max")`` turns a z band's into
+    the whole volume's (``parallel.volume_shard``: an all_reduce)."""
     dims = tuple(range(-nd, 0))
-    return (torch.amin(img, dim=dims, keepdim=True),
-            torch.amax(img, dim=dims, keepdim=True))
+    return (combine(torch.amin(img, dim=dims, keepdim=True), "min"),
+            combine(torch.amax(img, dim=dims, keepdim=True), "max"))
 
 
 def adjust_gamma(img: torch.Tensor, gamma: float = 1.0,
@@ -79,8 +80,9 @@ def normalize_minmax(img: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return _normalize_minmax(img, eps, 2)
 
 
-def _normalize_minmax(img: torch.Tensor, eps: float, nd: int) -> torch.Tensor:
-    lo, hi = _image_min_max(img, nd)
+def _normalize_minmax(img: torch.Tensor, eps: float, nd: int,
+                      combine=_local) -> torch.Tensor:
+    lo, hi = _image_min_max(img, nd, combine)
     return (img - lo) / torch.maximum(hi - lo, _const(img, eps))
 
 
@@ -96,9 +98,9 @@ def rescale_intensity(
 
 
 def _rescale_intensity(img: torch.Tensor, in_range, out_range,
-                       nd: int) -> torch.Tensor:
+                       nd: int, combine=_local) -> torch.Tensor:
     if in_range is None:
-        imin, imax = _image_min_max(img, nd)
+        imin, imax = _image_min_max(img, nd, combine)
     else:
         imin, imax = _const(img, in_range[0]), _const(img, in_range[1])
     omin, omax = out_range

@@ -457,6 +457,18 @@ def anisotropic_diffusion3d(
     axis's differences (the medpy convention: gradient and divergence both
     divide by the spacing). Stability: ``gamma * sum(1 / s^2) <= 1/2``."""
     check_volume(vol, "anisotropic_diffusion3d")
+    step = pm3d_step(niter, kappa, gamma, option, voxelspacing)
+    x = vol.to(torch.float32)
+    for _ in range(int(niter)):
+        x = step(x)
+    return x
+
+
+def pm3d_step(niter: int, kappa: float, gamma: float, option: int,
+              voxelspacing: tuple | None):
+    """The arguments of ``anisotropic_diffusion3d`` checked, bound into its
+    one-step function [Z, H, W] -> [Z, H, W] (the z band's runs it on a
+    slab extended by one edge-replicated slice each side)."""
     if voxelspacing is None:
         sp = (1.0,) * 3
     else:
@@ -465,14 +477,11 @@ def anisotropic_diffusion3d(
             raise ValueError(
                 "voxelspacing must be 3 positive numbers (dz, dy, dx)"
             )
-    niter, option = int(niter), int(option)
-    check_pm_args(niter, option)
+    option = int(option)
+    check_pm_args(int(niter), option)
     inv_k2 = pm_constants(kappa, gamma)[0]
     g32 = np.float32(gamma)
-    x = vol.to(torch.float32)
-    for _ in range(niter):
-        x = _pm_step3d(x, inv_k2, g32, option, sp)
-    return x
+    return lambda x: _pm_step3d(x, inv_k2, g32, option, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -598,13 +607,18 @@ def srad3d(
     niter = int(niter)
     check_srad_args(niter, dt, q0, rho)
     x = vol.to(torch.float32)
-    dt6 = float(np.float32(dt / 6.0))
-    eps32 = float(np.float32(eps))
     for t in range(niter):
-        q0t = float(np.float32(q0)) * torch.exp(
-            x.new_full((), srad_q0t_arg(rho, t)))
-        x = _srad_step3d(x, dt6, q0t * q0t, eps32)
+        x = srad3d_iteration(x, t, dt, q0, rho, eps)
     return x
+
+
+def srad3d_iteration(x: torch.Tensor, t: int, dt: float, q0: float,
+                     rho: float, eps: float) -> torch.Tensor:
+    """Iteration ``t`` of srad3d on [Z, H, W] float32 (the z band's runs
+    it on a slab extended by two edge-replicated slices each side)."""
+    q0t = float(np.float32(q0)) * torch.exp(x.new_full((), srad_q0t_arg(rho, t)))
+    return _srad_step3d(x, float(np.float32(dt / 6.0)), q0t * q0t,
+                        float(np.float32(eps)))
 
 
 # ---------------------------------------------------------------------------

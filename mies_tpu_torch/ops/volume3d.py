@@ -24,8 +24,8 @@ Same algorithms and f32 operation order as ``mies_tpu.ops.volume3d``:
   padded volume; min and max are exact, so it equals the full network.
 * ``erode3d`` ... ``black_hat3d``: a cubic min or max as one sliding pass
   per axis ('ignore': a +-inf border the reduction never picks).
-* ``resample3d``: three products with the host-built align-corners linear
-  interpolation matrices (float32; TF32 is off, ``mies_tpu_torch``).
+* ``resample3d``: the host-built align-corners linear interpolation
+  matrices' two taps per output row, z then y then x, as float32 lerps.
 * ``equalize_hist_volume``, ``normalize_volume``,
   ``rescale_intensity_volume``: the 2-D ops with the statistic (the
   histogram, the min and max) taken over the whole volume, as the
@@ -79,12 +79,15 @@ def _tile_hists_3d(u8: torch.Tensor, grid) -> torch.Tensor:
     return hist.scatter_add_(1, tiles, torch.ones_like(tiles, dtype=torch.float32))
 
 
-def _axis_weights(n: int, t: int, g: int, device):
-    """OpenCV per-axis interpolation: ``f = idx * f32(1 / t) - 0.5``, the
+def _axis_weights(n: int, t: int, g: int, device, offset: int = 0):
+    """OpenCV per-axis interpolation at the positions ``offset`` ..
+    ``offset + n - 1`` of the axis: ``f = idx * f32(1 / t) - 0.5``, the
     clamped lo / hi tile indices (hi from the unclipped floor) and the
-    fraction ``f - floor(f)``."""
+    fraction ``f - floor(f)``. The float32 index is exact (< 2**24), so a
+    band's weights at its global offset are the whole axis's."""
     inv = float(np.float32(1.0) / np.float32(t))
-    f = torch.arange(n, dtype=torch.float32, device=device) * inv - 0.5
+    f = torch.arange(offset, offset + n, dtype=torch.float32,
+                     device=device) * inv - 0.5
     lo_f = torch.floor(f)
     a = f - lo_f
     lo = torch.clamp(lo_f.to(torch.int64), min=0)
@@ -93,17 +96,21 @@ def _axis_weights(n: int, t: int, g: int, device):
 
 
 def _apply_luts_trilinear_gather(u8: torch.Tensor, luts: torch.Tensor,
-                                 grid) -> torch.Tensor:
+                                 grid, z_total: int | None = None,
+                                 z0: int = 0) -> torch.Tensor:
     """Trilinear blend of the 8 neighbouring tiles' LUT entries at each
     voxel's level: [Z, H, W] integer levels x [gz, gy, gx, 256] float32
     LUTs -> [Z, H, W] float32, unrounded. The corner values, the f32
     fractions and the x -> y -> z lerp order of the reference's gather
-    form."""
+    form. With ``z_total`` the input is the slices ``z0`` .. ``z0 + Z - 1``
+    of a volume of ``z_total`` slices (a z band: the reference's
+    ``_trilinear_zband_gather``), weighted at their global z."""
     gz, gy, gx = grid
     z, h, w = u8.shape
-    tz, th, tw = tile_shape_3d(u8.shape, grid)
+    tz, th, tw = tile_shape_3d(
+        (z if z_total is None else z_total, h, w), grid)
     dev = u8.device
-    zlo, zhi, za = _axis_weights(z, tz, gz, dev)
+    zlo, zhi, za = _axis_weights(z, tz, gz, dev, z0)
     ylo, yhi, ya = _axis_weights(h, th, gy, dev)
     xlo, xhi, xa = _axis_weights(w, tw, gx, dev)
     flat = luts.reshape(-1)
@@ -474,33 +481,58 @@ def _linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def _resize_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
-    """``_linear_resize_matrix`` on ``device`` (one host-to-device copy per
-    shape pair, not one per call)."""
-    return torch.as_tensor(_linear_resize_matrix(n_in, n_out), device=device)
+def _resize_taps(n_in: int, n_out: int, device: torch.device):
+    """The two taps of each row of ``_linear_resize_matrix`` on
+    ``device``: (lo, hi) input indices and their (w_lo, w_hi) weights, the
+    matrix's own float32 entries (hi = lo and w_hi = 0 where a row has one
+    tap). Kept: one host-to-device copy per shape pair."""
+    m = _linear_resize_matrix(n_in, n_out)
+    rows = np.arange(n_out)
+    if n_out == 1:
+        lo = np.full(1, int(np.floor(0.5 * (n_in - 1))))
+    else:
+        coords = np.arange(n_out, dtype=np.float64) * (n_in - 1) / (n_out - 1)
+        lo = np.clip(np.floor(coords).astype(int), 0, max(n_in - 2, 0))
+    hi = np.minimum(lo + 1, n_in - 1)
+    w_lo = m[rows, lo]
+    w_hi = np.where(hi != lo, m[rows, hi], np.float32(0.0)).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=device) for a in (lo, hi, w_lo, w_hi))
+
+
+def _lerp_rows(x: torch.Tensor, axis: int, taps, rows=slice(None),
+               offset: int = 0) -> torch.Tensor:
+    """Output rows ``rows`` of the linear resample along ``axis``: each
+    ``x[lo] * w_lo + x[hi] * w_hi`` (two products, one add: the same
+    float32 value wherever the row is computed), the input's rows
+    ``offset`` onwards standing for the taps' index 0."""
+    lo, hi, w_lo, w_hi = (t[rows] for t in taps)
+    shape = [1] * x.dim()
+    shape[axis] = -1
+    return (x.index_select(axis, lo - offset) * w_lo.reshape(shape)
+            + x.index_select(axis, hi - offset) * w_hi.reshape(shape))
 
 
 def resample3d(vol: torch.Tensor, depth: int, height: int,
                width: int) -> torch.Tensor:
     """Trilinear resample of a [Z, H, W] volume to [depth, height, width]
     (align-corners coordinates; scipy.ndimage.map_coordinates(order=1) on
-    that grid): three float32 products with the host-built interpolation
-    matrices, z then y then x, an axis of unchanged length skipped. Raw HU
-    (int16) is cast to float32 first: resample, then window."""
+    that grid): z, then y, then x, each output row the two-tap lerp of
+    the reference's host-built interpolation matrix (``_lerp_rows``); an
+    axis of unchanged length skipped. The reference multiplies by the
+    whole matrix, whose zero entries add nothing, so it differs only in
+    how a library's product rounds the two taps' sum; the two-tap form
+    rounds the same on any device and in any z band
+    (``parallel.volume_shard.resample3d_zband``). Raw HU (int16) is cast to
+    float32 first: resample, then window."""
     F.check_volume(vol, "resample3d")
     for name, v in (("depth", depth), ("height", height), ("width", width)):
         if int(v) < 1:
             raise ValueError(f"{name} must be >= 1")
-    z, h, w = vol.shape
     x = vol.to(torch.float32)
-    dev = x.device
-    if z != depth:
-        x = (_resize_matrix(z, int(depth), dev) @ x.reshape(z, h * w)
-             ).reshape(int(depth), h, w)
-    if h != height:
-        x = torch.matmul(_resize_matrix(h, int(height), dev), x)
-    if w != width:
-        x = torch.matmul(x, _resize_matrix(w, int(width), dev).T)
+    for axis, n_out in enumerate((int(depth), int(height), int(width))):
+        if x.shape[axis] != n_out:
+            x = _lerp_rows(x, axis, _resize_taps(x.shape[axis], n_out,
+                                                 x.device))
     return x
 
 

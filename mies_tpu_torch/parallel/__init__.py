@@ -1,6 +1,6 @@
 """Multi-device scaling on torch.distributed: meshes, batch sharding, halo
-exchange and row-sharded CLAHE (the port of ``mies_tpu.parallel`` for 2-D
-slices; the z-sharded volume layer is not ported yet).
+exchange, row-sharded CLAHE and z-sharded volume chains (the port of
+``mies_tpu.parallel``).
 
 * data parallelism: each rank runs the chain on its own shard of the batch
   (``shard_pipeline``);
@@ -8,7 +8,11 @@ slices; the z-sharded volume layer is not ported yet).
   stencils made exact by exchanging halo rows with the neighbouring ranks,
   clahe on tile-aligned bands with one LUT all_gather
   (``spatial_shard_apply``, ``batch_spatial_shard_apply``,
-  ``clahe_spatial_shard``).
+  ``clahe_spatial_shard``);
+* z sharding: one [Z, H, W] volume split into z slabs, the whole volume
+  chain on every slab with z halos, clahe3d on tile-aligned slabs with
+  one LUT all_gather (K8z), and the global statistics by all_reduce
+  (``volume_shard_apply``, ``clahe3d_band``).
 
 The callables take and return this rank's shard. They run the same on gloo
 worlds on the CPU (the tests) and on NCCL over the cards.
@@ -22,6 +26,10 @@ from mies_tpu_torch.parallel.halo import (
 )
 from mies_tpu_torch.parallel.mesh import init_distributed, make_mesh, mesh_devices
 from mies_tpu_torch.parallel.sharding import shard_pipeline
+from mies_tpu_torch.parallel.volume_shard import (
+    clahe3d_band,
+    volume_shard_apply,
+)
 
 __all__ = [
     "init_distributed",
@@ -32,4 +40,6 @@ __all__ = [
     "spatial_shard_apply",
     "batch_spatial_shard_apply",
     "clahe_spatial_shard",
+    "clahe3d_band",
+    "volume_shard_apply",
 ]

@@ -12,7 +12,10 @@ all_gather, K5). So the sharded chain equals the unsharded one bit for
 bit. ``guided_blur`` halo-wraps each of its box means on its own: a box
 of the extended band's a and b is not a box of a and b padded by the
 border mode, so one extension for the whole op would change the edge rows.
-Morphology and ``sharpness`` have no band form yet and are refused.
+Morphology extends every erode or dilate level by its own border (for the
+'ignore' default, rows of the constant the reduction never picks: +inf
+for a min, -inf for a max). ``sharpness`` has no band form yet and is
+refused.
 
 The band function is batched ([B, h, W] on every rank): one function
 serves ``spatial_shard_apply`` (one slice, B = 1) and
@@ -31,6 +34,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from mies_tpu_torch.kernels import diffusion as KD
 from mies_tpu_torch.ops import filters as F
+from mies_tpu_torch.ops import morphology as M
 from mies_tpu_torch.ops import restoration as R
 from mies_tpu_torch.parallel import clahe_shard as CS
 from mies_tpu_torch.parallel.mesh import mesh_device
@@ -63,12 +67,12 @@ _GLOBAL_OPS = frozenset({
 _POINTWISE = frozenset({
     "adjust_gamma", "adjust_log", "adjust_sigmoid", "invert", "window_hu",
     "adjust_brightness", "adjust_contrast", "solarize", "posterize"})
-# stencils whose band form is not (extend, run, crop): morphology's
-# 'ignore' border is no pad mode, and sharpness's interior mask needs the
-# band's global rows; their band forms are not ported yet
-_NO_BAND_FORM = frozenset({
+# a stencil whose band form is not (extend, run, crop): sharpness's
+# interior mask needs the band's global rows; its band form is not ported
+_NO_BAND_FORM = frozenset({"sharpness"})
+_MORPH_OPS = frozenset({
     "erode", "dilate", "morph_open", "morph_close", "morph_gradient",
-    "top_hat", "black_hat", "sharpness"})
+    "top_hat", "black_hat"})
 # each stencil op's default border mode (mies_tpu_torch.ops defaults)
 _DEFAULT_MODE = {
     "gaussian_blur": "nearest",
@@ -298,6 +302,47 @@ def _guided_band(p: dict, group) -> Callable:
     return lambda x: F.guided_dataflow(box2, x, eps)
 
 
+def _morph_band(op: str, p: dict, group) -> Callable:
+    """Morphology on a band: each erode or dilate level under (extend, run,
+    crop), its border the op's mode or, for 'ignore', rows of the constant
+    the reduction ignores (+inf for a min, -inf for a max: the unsharded
+    op's own border). min and max are exact, so the band equals the
+    unsharded op bit for bit."""
+    k = int(p.get("kernel_size", 3))
+    shape, mode = p.get("shape", "rect"), p.get("mode", "ignore")
+    r = k // 2
+
+    def border(maximum):
+        if mode != "ignore":
+            return mode
+        return float(np.float32("-inf" if maximum else "inf"))
+
+    def prim(v, maximum):
+        if r == 0:
+            return v
+        ext = halo_extend_rows(v, r, group, border(maximum))
+        return M._extremum(ext, k, shape, mode, maximum)[..., r:-r, :]
+
+    def gradient(x):
+        if r == 0:
+            return torch.zeros_like(x)
+        # one exchange, both borders
+        ed, ee = halo_extend_rows_multi(x, r, group,
+                                        (border(True), border(False)))
+        return (M._extremum(ed, k, shape, mode, True)[..., r:-r, :]
+                - M._extremum(ee, k, shape, mode, False)[..., r:-r, :])
+
+    return {
+        "erode": lambda x: prim(x, False),
+        "dilate": lambda x: prim(x, True),
+        "morph_open": lambda x: prim(prim(x, False), True),
+        "morph_close": lambda x: prim(prim(x, True), False),
+        "morph_gradient": gradient,
+        "top_hat": lambda x: x - prim(prim(x, False), True),
+        "black_hat": lambda x: prim(prim(x, True), False) - x,
+    }[op]
+
+
 def _band_stage(s, group) -> Callable:
     p = s.kwargs()
     if s.op in _NO_BAND_FORM:
@@ -321,6 +366,8 @@ def _band_stage(s, group) -> Callable:
         return _pm_band(p, group)
     if s.op == "guided_blur":
         return _guided_band(p, group)
+    if s.op in _MORPH_OPS:
+        return _morph_band(s.op, p, group)
     fn = _bind_batched_stage(s)
     if r == 0:
         return fn
@@ -332,8 +379,9 @@ def _build_band_fn(cfg: PipelineConfig, quantize: bool, group) -> Callable:
     row-sharded over ``group``: stencil stages as (halo exchange of their
     own radius and border mode) -> the port's batched stage (K3, K11,
     plain Gaussian / Lee) -> crop; srad and anisotropic_diffusion with the
-    halo refreshed every iteration (K10 / K9 per iteration); pointwise
-    stages directly; clahe as ``clahe_band``. A trailing unsharp_mask takes
+    halo refreshed every iteration (K10 / K9 per iteration); morphology
+    with one exchange per erode or dilate level; pointwise stages
+    directly; clahe as ``clahe_band``. A trailing unsharp_mask takes
     the quantize with it as in the unsharded chain (K4 on the extended
     band). Exact by induction: every stage sees the pixels the unsharded
     chain gives it."""

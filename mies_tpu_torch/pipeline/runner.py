@@ -77,7 +77,7 @@ def _refuse_mesh(mesh, name: str) -> None:
             f"{name}: mesh= is not ported yet. The port's "
             f"parallel.shard_pipeline takes a rank's own shard, not the "
             f"whole batch; data-parallel file runs are ROADMAP.md "
-            f"queue 1 item 7 (with parallel/volume_shard.py)"
+            f"queue 1 item 7"
         )
 
 
@@ -340,8 +340,17 @@ def enhance_volume(
 ) -> np.ndarray:
     """Run a [Z, H, W] volume through the batched chain slab by slab,
     at most ``max_in_flight`` slabs on the card at once; returns the
-    uint8 [Z, ...] result."""
-    _refuse_mesh(mesh, "enhance_volume")
+    uint8 [Z, ...] result.
+
+    With a ``mesh`` (``parallel.make_mesh`` over every rank of the process
+    group; every rank calls this), each slab is split over the mesh's
+    ranks: the first rank of the mesh holds ``volume`` (the others may
+    pass None), sends each rank its part of every slab, each rank runs the
+    chain on its own slices on its own device, and the first rank gathers
+    the parts and returns the whole output; the others return None.
+    ``slab_size`` must divide by the mesh's size."""
+    if mesh is not None:
+        return _enhance_volume_mesh(volume, cfg, slab_size, progress, mesh)
     dev = resolve_device(device)
     fn = compile_pipeline(cfg, batched=True, device=dev)
     outs: list[np.ndarray] = []
@@ -352,6 +361,86 @@ def enhance_volume(
         pipe.submit(volume[k : k + slab_size], None, cap=slab_size)
     pipe.flush()
     return np.concatenate(outs, axis=0)
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes as uint8 [..., bytes per row] (NCCL has
+    no int16 or uint16)."""
+    return t.contiguous().view(torch.uint8)
+
+
+def _enhance_volume_mesh(volume, cfg: PipelineConfig, slab_size: int,
+                         progress: bool, mesh) -> np.ndarray | None:
+    """``enhance_volume`` with a mesh: slab k's part i (its slices
+    [k + i s/n, k + (i + 1) s/n)) runs the batched chain on the mesh's
+    i-th rank (row-major coordinates, ``parallel.sharding.shard_index``),
+    as the reference's batch-sharded slab program splits it."""
+    from mies_tpu_torch.parallel.sharding import shard_pipeline
+
+    if slab_size % mesh.size():
+        raise ValueError(
+            f"slab_size {slab_size} must divide by the mesh's {mesh.size()} "
+            f"devices"
+        )
+    return run_sharded(volume, shard_pipeline(cfg, mesh), slab_size, mesh,
+                       progress)
+
+
+def run_sharded(volume, fn: Callable, slab_size: int, mesh,
+                progress: bool = False) -> np.ndarray | None:
+    """Run a [Z, H, W] volume through ``fn`` on every rank of ``mesh`` (a
+    mesh over the whole process group; every rank calls this): the mesh's
+    first rank holds ``volume`` (the others may pass None), cuts it into
+    slabs of ``slab_size`` slices (a divisor of the mesh's size), sends
+    the mesh's i-th rank (row-major coordinates) part i of every slab,
+    each rank runs ``fn`` on its part on its own device, and the first
+    rank gathers the parts' outputs and returns the whole output; the
+    others return None. A short last slab is padded with copies of its
+    last slice, whose outputs are dropped. ``enhance_volume(mesh=)`` runs
+    the batched chain so; ``enhance-volume --mode 3d --data-parallel`` one
+    slab of the whole volume through ``parallel.volume_shard_apply``."""
+    import torch.distributed as dist
+
+    from mies_tpu_torch.parallel.mesh import mesh_device
+
+    n = mesh.size()
+    if n != dist.get_world_size():
+        raise ValueError(f"the mesh has {n} of the process group's "
+                         f"{dist.get_world_size()} ranks; give it all")
+    dev = mesh_device(mesh)
+    ranks = mesh.mesh.flatten().tolist()  # the rank of each part
+    root, me = ranks[0], dist.get_rank()
+    head = [None]
+    if me == root:
+        volume = np.asarray(volume)
+        # staged in native byte order (a .nc volume is big-endian)
+        head = [(volume.shape, volume.dtype.newbyteorder("=").str)]
+    dist.broadcast_object_list(head, src=root)
+    shape, dtype = head[0][0], np.dtype(head[0][1])
+    part = slab_size // n
+    mine = torch.empty((part, *shape[1:]), dtype=_torch_dtype(dtype),
+                       device=dev)
+    outs: list[np.ndarray] = []
+    starts = range(0, shape[0], slab_size)
+    for k in _progress(starts, len(starts), "slab", progress and me == root):
+        parts = None
+        if me == root:
+            slab = volume[k:k + slab_size]
+            real = len(slab)
+            if real < slab_size:
+                slab = np.concatenate(
+                    [slab, np.repeat(slab[-1:], slab_size - real, 0)])
+            slab = torch.from_numpy(np.ascontiguousarray(slab, dtype)).to(dev)
+            by_part = slab.split(part)
+            parts = [_as_bytes(by_part[ranks.index(r)]) for r in range(n)]
+        dist.scatter(_as_bytes(mine), parts, src=root)
+        y = fn(mine).contiguous()
+        got = [torch.empty_like(y) for _ in range(n)] if me == root else None
+        dist.gather(y, got, dst=root)
+        if me == root:
+            out = torch.cat([got[r] for r in ranks]).cpu().numpy()
+            outs.append(out if real == slab_size else out[:real])
+    return np.concatenate(outs, axis=0) if me == root else None
 
 
 def _prefetched(it: Iterator[np.ndarray]) -> Iterator[np.ndarray]:

@@ -271,11 +271,29 @@ def test_receptive_field_matches_reference(op, kw):
     ("top_hat", {"kernel_size": 7, "shape": "ellipse"}), ("sharpness", {}),
     ("erode", {}), ("dilate", {}), ("morph_open", {}), ("morph_close", {}),
     ("morph_gradient", {}), ("black_hat", {})])
-def test_band_stage_refuses_ops_without_a_band_form(op, kw):
-    """The generic band path would pad morphology's 'ignore' border and
-    sharpness's interior mask wrong: it refuses them, naming the op."""
-    with pytest.raises(ValueError, match=f"op '{op}' has no row-band form"):
-        THALO._band_stage(StageConfig.make(op, **kw), None)
+def test_band_stage_refuses_ops_without_a_band_form(op, kw, tmp_path):
+    """The generic band path would pad sharpness's interior mask wrong: it
+    refuses it, naming the op. Morphology has its own band form (each
+    erode or dilate level extended by its own border, +-inf rows for
+    'ignore'): on a gloo world of one, where both edges are global, it is
+    the unsharded op bit for bit (worlds of 2 and 4:
+    tests/test_torch_volume_shard.py)."""
+    from mies_tpu_torch.parallel import init_distributed
+    from mies_tpu_torch.pipeline.compiler import OP_REGISTRY
+
+    stage = StageConfig.make(op, **kw)
+    if op == "sharpness":
+        with pytest.raises(ValueError, match=f"op '{op}' has no row-band form"):
+            THALO._band_stage(stage, None)
+        return
+    x = torch.from_numpy(np.random.default_rng(13).random(
+        (2, 40, 36)).astype(np.float32))
+    init_distributed(f"file://{tmp_path}/store", 1, 0, device="cpu")
+    try:
+        got = THALO._band_stage(stage, None)(x)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert torch.equal(got, OP_REGISTRY[op](x, **kw))
 
 
 def test_band_stage_takes_median_with_its_own_border():

@@ -148,7 +148,7 @@ REFUSED = [
     ("enhance", ["--stage-costs"], "item 7"),
     ("enhance", ["--data-parallel"], "item 7"),
     ("enhance-volume", ["--metrics", "psnr"], "item 5"),
-    ("enhance-volume", ["--data-parallel"], "item 7"),
+    ("enhance-volume", ["--data-parallel", "--stream"], "item 7"),
 ]
 
 
@@ -162,6 +162,128 @@ def test_unported_flags_exit_2_naming_the_roadmap_item(tmp_path, sharpen, cmd,
     err = capsys.readouterr().err
     assert f"{flag[0]} is not ported" in err
     assert f"ROADMAP.md queue 1 {item}" in err
+
+
+# --- enhance-volume --data-parallel in a gloo world of 2 --------------------
+
+CT3D_CHAIN = """name: z3d
+pipeline:
+  - {op: window_hu, center: 40.0, width: 400.0}
+  - {op: clahe3d, clip_limit: 2.0, grid_size: [8, 4, 4]}
+  - {op: unsharp_mask3d, radius: 1.0, amount: 0.5}
+"""
+SLICE_CHAIN = """name: slices
+pipeline:
+  - {op: window_hu, center: 40.0, width: 400.0}
+  - {op: clahe, clip_limit: 2.0, grid_size: [4, 4]}
+  - {op: unsharp_mask, radius: 1.0, amount: 0.5}
+"""
+# name -> the arguments after the input file
+DP_RUNS = {
+    "3d": ["-c", "c3d.yaml", "--mode", "3d"],
+    "slices": ["-c", "slices.yaml", "--slab", "6"],
+    "isotropic": ["-c", "iso.yaml", "--mode", "3d", "--isotropic", "1.25"],
+}
+DP_REFUSED = {
+    "odd_z": ["bad.nc", "-c", "c3d.yaml", "--mode", "3d"],
+    "odd_depth": ["series", "-c", "iso.yaml", "--mode", "3d", "--isotropic",
+                  "1.0"],
+}
+
+
+def _dp_source(name: str) -> str:
+    return "series" if name == "isotropic" else "ct.nc"
+
+
+def _dp_rank(rank: int, world: int, ports: list, tmp: str) -> None:
+    """One rank of a world of ``world``: each run of DP_RUNS and DP_REFUSED
+    through ``cli.main(..., device="cpu")`` with --data-parallel, the
+    process group joined by the CLI itself from torchrun's env://
+    variables (a port of its own per run); exit codes and SystemExit
+    messages to <tmp>/dp_<rank>.json."""
+    torch.set_num_threads(1)
+    tmp = Path(tmp)
+    result = {}
+    runs = [(name, [_dp_source(name), *argv]) for name, argv in DP_RUNS.items()]
+    runs += list(DP_REFUSED.items())
+    for (name, argv), port in zip(runs, ports):
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))
+        args = ["enhance-volume", str(tmp / argv[0]), *argv[1:]]
+        args = [str(tmp / a) if a.endswith(".yaml") else a for a in args]
+        try:
+            result[name] = cli.main([*args, "-o", str(tmp / f"dp_{name}.nc"),
+                                     "--data-parallel", "-q"], device="cpu")
+        except SystemExit as e:
+            result[name] = str(e)
+    (tmp / f"dp_{rank}.json").write_text(json.dumps(result))
+
+
+@pytest.fixture(scope="module")
+def dp_world(tmp_path_factory):
+    """The CLI's inputs, and one spawn of a gloo world of 2 that runs them
+    all with --data-parallel."""
+    import socket
+
+    tmp = tmp_path_factory.mktemp("dp")
+    save_volume(tmp / "ct.nc", np.random.default_rng(11).integers(
+        -500, 1500, (16, 32, 32), dtype=np.int16))
+    save_volume(tmp / "bad.nc", np.zeros((9, 32, 32), np.int16))
+    (tmp / "c3d.yaml").write_text(CT3D_CHAIN)
+    (tmp / "slices.yaml").write_text(SLICE_CHAIN)
+    (tmp / "iso.yaml").write_text(ISO_CHAIN)
+    _dicom_series(tmp / "series")
+    socks = [socket.socket() for _ in range(len(DP_RUNS) + len(DP_REFUSED))]
+    for sock in socks:
+        sock.bind(("localhost", 0))
+    ports = [sock.getsockname()[1] for sock in socks]
+    for sock in socks:
+        sock.close()
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, 2, ports, str(tmp)))
+             for r in range(2)]
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(120)
+    hung = [proc.pid for proc in procs if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+    assert not hung and all(proc.exitcode == 0 for proc in procs), (
+        hung, [proc.exitcode for proc in procs])
+    return tmp
+
+
+@pytest.mark.parametrize("name", list(DP_RUNS))
+def test_data_parallel_writes_the_file_of_the_run_without_it(dp_world, name):
+    """--data-parallel in --mode 3d (z slabs through volume_shard_apply,
+    also with --isotropic: the z-sharded resample3d) and in slice mode
+    (enhance_volume(mesh=)) on a gloo world of 2: exit 0 on both ranks, and
+    rank 0's output file byte-identical to the one written without it."""
+    for r in range(2):
+        assert json.loads((dp_world / f"dp_{r}.json").read_text())[name] == 0
+    args = [str(dp_world / a) if a.endswith(".yaml") else a
+            for a in DP_RUNS[name]]
+    assert cli.main(["enhance-volume", str(dp_world / _dp_source(name)),
+                     *args, "-o", str(dp_world / f"one_{name}.nc"), "-q"],
+                    device="cpu") == 0
+    assert (dp_world / f"dp_{name}.nc").read_bytes() == \
+        (dp_world / f"one_{name}.nc").read_bytes()
+
+
+@pytest.mark.parametrize("name,match", [
+    ("odd_z", "Z=9 must divide by the 2 devices"),
+    ("odd_depth", "target depth 15 is not divisible by the 2 devices"),
+])
+def test_data_parallel_refuses_a_size_that_does_not_divide(dp_world, name,
+                                                           match):
+    """The reference's refusals, on every rank: a Z (--mode 3d) and an
+    --isotropic depth that do not divide by the ranks."""
+    for r in range(2):
+        msg = json.loads((dp_world / f"dp_{r}.json").read_text())[name]
+        assert match in msg, msg
 
 
 ISO_CHAIN = """name: iso

@@ -385,13 +385,31 @@ def test_file_entry_points_without_a_card_raise(tmp_path):
 def test_mesh_is_refused_with_the_roadmap_item(tmp_path):
     cfg = flagship_config()
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        runner.enhance_volume(np.zeros((2, 8, 8), np.float32), cfg,
-                              mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
         runner.enhance_batch([], cfg, tmp_path, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
         runner.enhance_volume_stream(tmp_path / "x.nc", cfg, tmp_path / "y.nc",
                                      mesh=object(), device="cpu")
+
+
+def test_enhance_volume_with_a_mesh_of_one_equals_without(tmp_path):
+    """enhance_volume(mesh=) on a gloo world of one (the worlds of 2 and 4:
+    tests/test_torch_volume_shard.py): a big-endian .nc volume with a
+    short last slab gives the unsharded output."""
+    from mies_tpu_torch.parallel import init_distributed, make_mesh
+
+    vol = np.random.default_rng(7).integers(-500, 1500, (11, 24, 16),
+                                            dtype=np.int16)
+    save_volume(tmp_path / "in.nc", vol)
+    big_endian, _ = load_volume(tmp_path / "in.nc")
+    cfg = load_config(CT)
+    want = runner.enhance_volume(vol, cfg, slab_size=4, device="cpu")
+    init_distributed(f"file://{tmp_path}/store", 1, 0, device="cpu")
+    try:
+        got = runner.enhance_volume(big_endian, cfg, slab_size=4,
+                                    mesh=make_mesh())
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------
