@@ -145,7 +145,29 @@ Phases, one printed line each (or a few):
                it (K8z clip01); `python -m mies_tpu_torch enhance-volume
                --data-parallel` in --mode 3d and slice mode on a 512^3 .nc
                and with --isotropic 1.0 on the 64-slice series, each
-               output file equal to the one written without the flag.
+               output file equal to the one written without the flag;
+  9. 2-D registry — the rest of the 2-D registry at full width: chain
+               (a), b32 512^2 X-ray phantoms through retinex (sigma 2, 8,
+               30, clip) -> denoise_bilateral (K3 at k 7, 'edge') -> clahe
+               opencv (K1 to the LUTs, K2) -> unsharp_mask r 1.5 + uint8
+               (K4), each once a call and no other kernel, bit-equal to
+               its plain stages around K3's output, < 1e-4 of its pixels
+               off the all-plain chain on the card (K3's 2e-6 through
+               CLAHE); on 4 slices retinex within 1e-6 and K3 within 2e-6
+               of the CPU's, < 1e-3 of the uint8 pixels off, slices/s, device
+               ms by op, launches, busy share, K3 at that call against the
+               plain filter (the kernels line's k 7 row); chain (b), b8
+               1024^2 through resize 512 -> rotate 7 -> center_crop 480 ->
+               canny -> uint8 (no hand kernel; < 1e-3 of the edge pixels
+               differ from the CPU's on 4 slices), the same figures and
+               Canny's hysteresis steps; every other new op once at
+               [32, 512, 512] (device ms, finite, card vs CPU on a
+               [2, 64, 96] and a [2, 67, 93] crop within the CPU tests'
+               bounds; histogram_match against a DICOM written by the
+               port's writer), the rolling ball's launches a call, TF32
+               off; sobel_edges -> kuwahara -> subtract_background
+               (downscale 1) through spatial_shard_apply on an NCCL world
+               of one at 4096^2, equal to compile_pipeline.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -1108,6 +1130,338 @@ def _zshard_phase(dev: torch.device, card: str, repo: Path,
           f"s, each output file equal to the one without the flag ("
           + ", ".join(f"{k} {v} B" for k, v in sizes.items()) + f") | {card}")
     return ct_counts, fr_counts
+
+
+# Phase 9's op-by-op list: every op of the 2-D registry's rest that chains
+# (a) and (b) do not run, at the reference's defaults (a required parameter
+# given), with the card-vs-CPU bound of the CPU tests (tests/test_torch_
+# edges.py, _geometry.py, _background.py): 0 where the port is exact in any
+# order (shifted adds, min/max, gathers, a correctly rounded root), the
+# conv2d and matmul reduction orders and 30 iterations of Richardson-Lucy
+# elsewhere. Each entry: op, its parameters at [32, 512, 512], at the crops.
+_RESIZE_FULL, _RESIZE_CROP = {"height": 384, "width": 640}, {"height": 48,
+                                                             "width": 120}
+REGISTRY2D_OPS = (
+    ("sobel_edges", {}, None, 0.0),
+    ("scharr_edges", {}, None, 0.0),
+    ("prewitt_edges", {}, None, 0.0),
+    ("farid_edges", {}, None, 0.0),
+    ("roberts_edges", {}, None, 0.0),
+    ("laplace", {}, None, 0.0),
+    ("laplacian_sharpen", {}, None, 0.0),
+    ("difference_of_gaussians", {}, None, 0.0),
+    ("gabor", {}, None, 2e-6),
+    ("gabor_bank", {}, None, 2e-6),
+    ("motion_blur", {}, None, 2e-6),
+    ("kuwahara", {}, None, 0.0),
+    ("box_blur", {}, None, 0.0),
+    ("richardson_lucy", {}, None, 2e-6),
+    ("subtract_background", {}, None, 0.0),
+    ("subtract_background", {"downscale": 1}, None, 0.0),
+    ("flip", {}, None, 0.0),
+    ("rot90", {}, None, 0.0),
+    ("affine_warp", {"matrix": [[0.95, 0.1], [-0.08, 1.05]],
+                     "offset": [12.0, -20.0]}, None, 0.0),
+    ("perspective_warp", {"matrix": [[1.0, 0.04, 3.0], [0.02, 1.0, -5.0],
+                                     [4e-5, 2e-5, 1.0]]}, None, 0.0),
+    *(("resize", {**_RESIZE_FULL, "method": m}, {**_RESIZE_CROP, "method": m},
+       0.0 if m == "nearest" else 2e-6)
+      for m in ("nearest", "bilinear", "bicubic", "lanczos3", "lanczos5")),
+    ("histogram_match", None, None, 0.0),
+)
+CHAIN_A = (
+    ("retinex", {"sigmas": [2.0, 8.0, 30.0], "rescale": "clip"}),
+    ("denoise_bilateral", {"sigma_color": 0.1, "sigma_spatial": 1.0}),
+    ("clahe", {"clip_limit": 2.0, "grid_size": [8, 8], "convention": "opencv"}),
+    ("unsharp_mask", {"radius": 1.5}),
+)
+CHAIN_B = (
+    ("resize", {"height": 512, "width": 512, "method": "bilinear",
+                "antialias": True}),
+    ("rotate", {"angle": 7.0, "mode": "constant"}),
+    ("center_crop", {"height": 480, "width": 480}),
+    ("canny", {"sigma": 1.0}),
+)
+SHARDED_9 = (("sobel_edges", {}), ("kuwahara", {}),
+             ("subtract_background", {"downscale": 1}))
+CHAIN_B_BATCH, CHAIN_B_SIZE, SHARDED_9_SIZE = 8, 1024, 4096
+
+
+def _registry2d_phase(dev: torch.device, card: str, record, rec: dict) -> dict:
+    """Phase 9: the rest of the 2-D registry. (a) Chain (a) on b32 512^2
+    X-ray phantoms, retinex (sigma 2, 8, 30, clip) -> denoise_bilateral
+    (sigma_color 0.1, sigma_spatial 1: K3 at k 7, 'edge') -> clahe opencv
+    8x8 clip 2 (K1 to the LUTs, K2) -> unsharp_mask r 1.5 -> uint8 (K4):
+    K1L, K2, K3 and K4 once a call and no other kernel, bit-equal to the
+    chain's plain stages around K3's output; against the all-plain chain on
+    the card K3's 2e-6 moves < 1e-4 of the pixels (a CLAHE input level
+    flips, and its LUT step may be several levels wide); on 4 slices
+    retinex within 1e-6 and K3 within 2e-6 of the CPU's, which moves < 1e-3
+    of the uint8 pixels, slices/s (time_pipeline), device ms
+    by op, launches and busy share (profile_pipeline); K3 at its k 7 'edge'
+    call on chain (a)'s retinex output against the plain filter (the
+    kernels line's row). (b) Chain (b) on b8 1024^2: resize 512 bilinear
+    antialias -> rotate 7 -> center_crop 480 -> canny sigma 1 -> uint8, no
+    hand kernel, card against the CPU plain chain on 4 slices (an edge map:
+    < 1e-3 of pixels differ), the same figures and Canny's hysteresis
+    steps. (c) Every other new op once at b32 512^2: device ms (CUDA
+    events), finite, card against CPU on a [2, 64, 96] and a [2, 67, 93]
+    crop within the CPU tests' bounds; retinex and subtract_background's
+    launches a call (torch.profiler); TF32 off. (d) sobel_edges ->
+    kuwahara -> subtract_background (downscale 1) row-sharded through
+    spatial_shard_apply on an NCCL world of one at 4096^2, equal to
+    compile_pipeline. Returns chain (a)'s launch counts."""
+    from mies_tpu_torch.io.dicom import write_dicom
+    from mies_tpu_torch.kernels import _build
+    from mies_tpu_torch.kernels import bilateral as KB
+    from mies_tpu_torch.ops import feature as FT
+    from mies_tpu_torch.ops import filters as F
+    from mies_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        spatial_shard_apply,
+    )
+    from mies_tpu_torch.pipeline.compiler import (
+        OP_REGISTRY,
+        STAGE_BUILDERS,
+        _ingest,
+        _quantize_u8,
+        compile_pipeline,
+    )
+    from mies_tpu_torch.pipeline.config import PipelineConfig
+    from mies_tpu_torch.pipeline.runner import (
+        _profile,
+        profile_pipeline,
+        time_pipeline,
+    )
+
+    def close(out, ref, what, frac=1e-3, levels=1):
+        d = (out.int() - ref.int()).abs()
+        n = int((d > 0).sum().item())
+        _require(d.max().item() <= levels and n < frac * d.numel(),
+                 f"{what}: {n} pixels differ (max {d.max().item()} levels)")
+        return n, d.numel()
+
+    def plain_chain(stages, x):
+        y = _ingest(x)
+        for op, kw in stages:
+            y = OP_REGISTRY[op](y, **kw)
+        return _quantize_u8(y)
+
+    def event_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        if ms < 100.0:  # a short op: the mean of 5 more calls
+            start.record()
+            for _ in range(5):
+                fn()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / 5
+        return ms
+
+    def summary(prof, n=6):
+        return ", ".join(f"{k} {v:.3f}" for k, v in
+                         list(prof["by_op"].items())[:n])
+
+    # -- (a) retinex -> denoise_bilateral (K3) -> clahe -> unsharp -------
+    xa = torch.from_numpy(_xray_batch(BATCH, SIZE, SIZE, seed=91)).to(dev)
+    cfg_a = PipelineConfig.make(list(CHAIN_A), name="xray-retinex")
+    fn_a = compile_pipeline(cfg_a, batched=True, device=dev)
+    fn_a(xa)  # the first call allocates; count the second
+    _build.reset_launches()
+    out_a = fn_a(xa)
+    torch.cuda.synchronize(dev)
+    launches_a = dict(_build.LAUNCHES)
+    want = {k: int(k in ("tile_luts", "clahe_apply_lut", "bilateral",
+                         "unsharp_quant")) for k in launches_a}
+    _require(launches_a == want, f"chain (a) launches {launches_a}, want {want}")
+    _require(out_a.shape == xa.shape and out_a.dtype == torch.uint8,
+             f"chain (a) output {tuple(out_a.shape)} {out_a.dtype}")
+    # K1L, K2 and K4 are exact: the chain equals its plain stages around
+    # K3's own output, bit for bit
+    _build.reset_launches()
+    y = _ingest(xa)
+    for op, kw in CHAIN_A:
+        y = (KB.denoise_bilateral_batched(y, **kw) if op == "denoise_bilateral"
+             else OP_REGISTRY[op](y, **kw))
+    _require(_build.LAUNCHES["bilateral"] == 1 and sum(
+        _build.LAUNCHES.values()) == 1, f"K3 alone: {dict(_build.LAUNCHES)}")
+    _require(torch.equal(_quantize_u8(y), out_a), "chain (a) differs from its "
+             "plain stages around K3's output")
+    # K3's 2e-6 lands on a level boundary of CLAHE's input now and then,
+    # and CLAHE's LUT steps can be several levels wide: count those pixels
+    _build.reset_launches()
+    ref_a = plain_chain(CHAIN_A, xa)
+    torch.cuda.synchronize(dev)
+    _require(not any(_build.LAUNCHES.values()),
+             f"chain (a)'s plain stages launched {dict(_build.LAUNCHES)}")
+    n_plain_a, tot_a = close(out_a, ref_a, "chain (a) vs its plain stages",
+                             frac=1e-4, levels=255)
+    cpu_a = compile_pipeline(cfg_a, batched=True, device="cpu")(xa[:4].cpu())
+    n_cpu_a, tot_cpu_a = close(out_a[:4].cpu(), cpu_a, "chain (a) card vs CPU",
+                               frac=1e-3, levels=255)
+    lv_plain = (out_a.int() - ref_a.int()).abs().max().item()
+    lv_cpu = (out_a[:4].cpu().int() - cpu_a.int()).abs().max().item()
+    t_a = time_pipeline(cfg_a, iters=5, warmup=1, repeats=3, device=dev,
+                        batch=xa)
+    p_a = profile_pipeline(cfg_a, iters=3, device=dev, batch=xa)
+    ret = F.retinex(xa, sigmas=(2.0, 8.0, 30.0))
+    k3 = KB.denoise_bilateral_batched(ret, 0.1, 1.0, "edge")
+    k3_plain = F.denoise_bilateral(ret, 0.1, 1.0, "edge")
+    err = (k3 - k3_plain).abs().max().item()
+    _require(err <= 2e-6, f"K3 at denoise_bilateral k 7: max abs {err}")
+    # the two float stages against the CPU at the CPU tests' bounds: the
+    # logs of two libraries (1e-6), K3 on the card's retinex output (2e-6)
+    ret_err = (ret[:4].cpu() - F.retinex(xa[:4].cpu(), sigmas=(2.0, 8.0, 30.0))
+               ).abs().max().item()
+    k3_cpu_err = (k3[:4].cpu() - F.denoise_bilateral(ret[:4].cpu(), 0.1, 1.0,
+                                                     "edge")).abs().max().item()
+    _require(ret_err <= 1e-6 and k3_cpu_err <= 2e-6, f"chain (a) card vs CPU: "
+             f"retinex {ret_err:.3g}, K3 {k3_cpu_err:.3g}")
+    npx = ret.numel()
+    record("K3d", err, lambda: KB.denoise_bilateral_batched(ret, 0.1, 1.0,
+                                                            "edge"),
+           lambda: F.denoise_bilateral(ret, 0.1, 1.0, "edge"), 8 * npx,
+           _bilateral_ops(7) * npx, plain_iters=3)
+    ret_prof = _profile(lambda v: F.retinex(v, sigmas=(2.0, 8.0, 30.0)), xa,
+                        2, dev)
+    print(f"registry 2-D chain (a) [{BATCH},{SIZE},{SIZE}] float32 (retinex "
+          f"2/8/30 clip -> denoise_bilateral k7 edge (K3) -> clahe opencv 8x8 "
+          f"(K1L, K2) -> unsharp r1.5 + uint8 (K4)): "
+          f"{t_a['slices_per_sec']:.1f} slices/s ({t_a['ms_per_batch']:.3f} ms "
+          f"a batch) | device {p_a['device_ms_per_call']:.3f} ms, "
+          f"{p_a['device_launches_per_call']:g} launches, busy "
+          f"{p_a['busy_share']:.1%} | by op: {summary(p_a)} | retinex alone "
+          f"{ret_prof['device_ms_per_call']:.3f} ms, "
+          f"{ret_prof['device_launches_per_call']:g} launches | K3 (k7 edge) "
+          f"{rec['K3d']['ms']:.4f} ms vs plain "
+          f"{rec['K3d']['plain_ms']:.4f}, max abs {err:.3g} | launches "
+          f"{ {k: v for k, v in launches_a.items() if v} } | == its plain "
+          f"stages around K3's output | vs the plain K3 too {n_plain_a} of "
+          f"{tot_a} differ (max {lv_plain} levels) | 4 slices vs CPU: "
+          f"retinex max abs {ret_err:.3g}, K3 {k3_cpu_err:.3g}, uint8 "
+          f"{n_cpu_a} of {tot_cpu_a} differ (max {lv_cpu}) | {card}")
+    del out_a, ref_a, ret, k3, k3_plain, y
+
+    # -- (b) resize -> rotate -> center_crop -> canny ---------------------
+    xb = torch.from_numpy(_xray_batch(CHAIN_B_BATCH, CHAIN_B_SIZE,
+                                      CHAIN_B_SIZE, seed=92)).to(dev)
+    crop = CHAIN_B[2][1]
+    cfg_b = PipelineConfig.make(list(CHAIN_B), name="xray-edges")
+    fn_b = compile_pipeline(cfg_b, batched=True, device=dev)
+    fn_b(xb)
+    _build.reset_launches()
+    out_b = fn_b(xb)
+    torch.cuda.synchronize(dev)
+    _require(not any(_build.LAUNCHES.values()),
+             f"chain (b) launched {dict(_build.LAUNCHES)}")
+    _require(tuple(out_b.shape) == (CHAIN_B_BATCH, crop["height"],
+                                    crop["width"])
+             and out_b.dtype == torch.uint8,
+             f"chain (b) output {tuple(out_b.shape)} {out_b.dtype}")
+    _require(torch.equal(out_b, plain_chain(CHAIN_B, xb)),
+             "chain (b) differs from its stages in a row")
+    cpu_b = compile_pipeline(cfg_b, batched=True, device="cpu")(xb[:4].cpu())
+    n_cpu_b, tot_cpu_b = close(out_b[:4].cpu(), cpu_b, "chain (b) card vs CPU",
+                               levels=255)
+    t_b = time_pipeline(cfg_b, iters=5, warmup=1, repeats=3, device=dev,
+                        batch=xb)
+    p_b = profile_pipeline(cfg_b, iters=3, device=dev, batch=xb)
+    pre = _ingest(xb)
+    for op, kw in CHAIN_B[:-1]:
+        pre = OP_REGISTRY[op](pre, **kw)
+    edges, steps = FT.canny_with_steps(pre, sigma=1.0)
+    _require(torch.equal(_quantize_u8(edges), out_b), "canny_with_steps "
+             "differs from the chain's canny")
+    print(f"registry 2-D chain (b) {list(xb.shape)} float32 (resize 512 bilinear "
+          f"antialias -> rotate 7 -> center_crop 480 -> canny sigma 1 -> "
+          f"uint8, no hand kernel): {t_b['slices_per_sec']:.1f} slices/s "
+          f"({t_b['ms_per_batch']:.3f} ms a batch) | device "
+          f"{p_b['device_ms_per_call']:.3f} ms, "
+          f"{p_b['device_launches_per_call']:g} launches, busy "
+          f"{p_b['busy_share']:.1%} | by op: {summary(p_b)} | Canny "
+          f"hysteresis {steps} steps, {steps // FT.HYSTERESIS_CHECK_EVERY + 1} "
+          f"host reads | 4 slices vs CPU {n_cpu_b} of {tot_cpu_b} differ "
+          f"| {card}")
+    del out_b, pre, edges
+
+    # -- (c) every other new op once at b32 512^2 -------------------------
+    crops = ((slice(0, 2), slice(100, 164), slice(200, 296)),
+             (slice(2, 4), slice(300, 367), slice(50, 143)))
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_dcm = Path(tmp) / "ref.dcm"
+        ref_img = np.clip(np.random.default_rng(93).normal(140, 40, (256, 256)),
+                          0, 255).astype(np.uint8)  # read back as float [0, 1]
+        write_dicom(ref_dcm, ref_img)
+        for op, kw, ckw, tol in REGISTRY2D_OPS:
+            if op == "histogram_match":
+                f = STAGE_BUILDERS[op](reference=str(ref_dcm))
+                kw = ckw = {}
+            else:
+                f = OP_REGISTRY[op]
+            ckw = kw if ckw is None else ckw
+            out = f(xa, **kw)
+            _require(bool(torch.isfinite(out).all()), f"{op}: not finite")
+            ms = event_ms(lambda: f(xa, **kw))
+            errs = []
+            for c in crops:
+                xc = xa[c].contiguous()
+                got, want_c = f(xc, **ckw).cpu(), f(xc.cpu(), **ckw)
+                d = (got - want_c).abs().max().item()
+                _require(got.shape == want_c.shape and d <= tol,
+                         f"{op} {list(xc.shape)}: card vs CPU max abs {d:.3g} "
+                         f"> {tol}")
+                errs.append(d)
+            tags = [f"{k}={v}" for k, v in kw.items()
+                    if k in ("downscale", "method")]
+            label = " ".join([op, *tags])
+            rows.append((label, ms, max(errs)))
+    sb_prof = _profile(lambda v: OP_REGISTRY["subtract_background"](v), xa, 2,
+                       dev)
+    sb1_prof = _profile(lambda v: OP_REGISTRY["subtract_background"](
+        v, downscale=1), xa, 1, dev)
+    rows.sort(key=lambda r: -r[1])
+    print(f"registry 2-D ops at [{BATCH},{SIZE},{SIZE}] (device ms by CUDA "
+          f"events, card vs CPU max abs on [2,64,96] and [2,67,93] crops): "
+          + "; ".join(f"{op} {ms:.3f} ms {err:.2g}" for op, ms, err in rows)
+          + f" | subtract_background launches a call: auto "
+          f"{sb_prof['device_launches_per_call']:g} "
+          f"({sb_prof['device_ms_per_call']:.3f} ms device), downscale 1 "
+          f"{sb1_prof['device_launches_per_call']:g} "
+          f"({sb1_prof['device_ms_per_call']:.3f} ms) | TF32 off: "
+          f"{not torch.backends.cudnn.allow_tf32} | {card}")
+    _require(not torch.backends.cudnn.allow_tf32
+             and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+
+    # -- (d) the row-sharded chain at 4096^2 ------------------------------
+    big = torch.from_numpy(_xray_batch(1, SHARDED_9_SIZE, SHARDED_9_SIZE,
+                                       seed=94)[0]).to(dev)
+    cfg_d = PipelineConfig.make(list(SHARDED_9), name="edges-background")
+    with tempfile.TemporaryDirectory() as store:
+        init_distributed(f"file://{store}/store", 1, 0, device=dev.type)
+        try:
+            fn_d = spatial_shard_apply(cfg_d, make_mesh(1, 1))
+            ref_fn = compile_pipeline(cfg_d, device=dev)
+            out_d = fn_d(big)
+            _require(out_d.dtype == torch.uint8 and torch.equal(out_d,
+                                                                ref_fn(big)),
+                     "sharded sobel -> kuwahara -> subtract_background differs "
+                     "from compile_pipeline")
+            ms_d, ms_ref = _ms(lambda: fn_d(big), 1), _ms(lambda: ref_fn(big), 1)
+        finally:
+            dist.destroy_process_group()
+    print(f"registry 2-D sharded (spatial_shard_apply, NCCL, world 1) "
+          f"{list(big.shape)}: sobel_edges -> kuwahara -> subtract_background downscale 1 "
+          f"== compile_pipeline | {ms_d:.2f} ms a slice (compile_pipeline "
+          f"{ms_ref:.2f}) | {card}")
+    return launches_a
 
 
 def main() -> int:
@@ -2430,6 +2784,9 @@ def main() -> int:
     # -- 8. the z-sharded volume path -------------------------------------
     zs_launches, zsf_launches = _zshard_phase(dev, card, repo, record)
 
+    # -- 9. the rest of the 2-D registry ---------------------------------
+    p9_launches = _registry2d_phase(dev, card, record, rec)
+
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (
         ("tile_luts", "K1L", launches, "mies_tpu_torch/csrc/clahe.cu",
@@ -2498,6 +2855,8 @@ def main() -> int:
          "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/parallel/volume_shard.py:99"),
         ("clahe3d_apply_band", "K8zc", zsf_launches,
          "mies_tpu_torch/csrc/clahe3d.cu", "mies_tpu/parallel/volume_shard.py:99"),
+        ("bilateral", "K3d", p9_launches, "mies_tpu_torch/csrc/bilateral.cu",
+         "mies_tpu/kernels/bilateral.py:106"),
     )
     names = {"K1b": "tile_hists_bins", "K2c": "clahe_apply_lut[clip01]",
              "K2": "clahe_apply_lut[u8norm]", "K8": "clahe3d_apply[u8norm]",
@@ -2512,7 +2871,8 @@ def main() -> int:
              "K3r": "bilateral[8x1024x1024]",
              "K4r": "unsharp_quant[8x1024x1024]",
              "K8z": "clahe3d_apply_band[u8norm]",
-             "K8zc": "clahe3d_apply_band[clip01]"}
+             "K8zc": "clahe3d_apply_band[clip01]",
+             "K3d": "bilateral[denoise_bilateral,k7,edge]"}
     kernels = []
     for counter, k, counts, src, rep in sources:
         _require(counts[counter] >= 1, f"{k} never launched on its path")

@@ -310,13 +310,15 @@ def _ops_listing() -> dict:
     command's JSON, over the port's registry."""
     import inspect
 
-    from mies_tpu_torch.pipeline.compiler import OP_REGISTRY
+    from mies_tpu_torch.pipeline.compiler import OP_REGISTRY, STAGE_BUILDERS
     from mies_tpu_torch.pipeline.config import _VALUE_RULES
 
     out = {}
     for name, fn in sorted(OP_REGISTRY.items()):
         params = {}
-        for p in list(inspect.signature(fn).parameters.values())[1:]:
+        # a builder takes only config params (no image argument to skip)
+        skip = 0 if name in STAGE_BUILDERS else 1
+        for p in list(inspect.signature(fn).parameters.values())[skip:]:
             info = {}
             if p.default is not inspect.Parameter.empty:
                 info["default"] = p.default

@@ -51,3 +51,26 @@ def bilateral_cuda(
 
 # the pipeline's batched bilateral: the wrapper already dispatches by device
 bilateral_batched = bilateral_cuda
+
+
+def denoise_bilateral_batched(
+    batch: torch.Tensor,
+    sigma_color: float = 0.1,
+    sigma_spatial: float = 1.0,
+    mode: str = "edge",
+) -> torch.Tensor:
+    """The pipeline's batched denoise_bilateral: K3 where the derived
+    window is at most MAX_KERNEL_SIZE and the border one of K3's, the plain
+    ``ops.filters.bilateral_blur`` otherwise (wider windows; 'constant',
+    'wrap'). The route follows from the parameters alone, before any
+    launch."""
+    k = F.denoise_bilateral_window(sigma_spatial)
+    if denoise_bilateral_on_k3(sigma_spatial, mode):
+        return bilateral_cuda(batch, k, sigma_color, sigma_spatial, mode)
+    return F.bilateral_blur(batch, k, sigma_color, sigma_spatial, mode)
+
+
+def denoise_bilateral_on_k3(sigma_spatial: float, mode: str) -> bool:
+    """Whether denoise_bilateral at these parameters runs on K3."""
+    return (F.denoise_bilateral_window(sigma_spatial) <= MAX_KERNEL_SIZE
+            and mode in _MODE_CODE)

@@ -642,3 +642,52 @@ def equalize(img: torch.Tensor) -> torch.Tensor:
     lut = torch.where(step > 0, lut, bins)  # PIL's identity when step == 0
     out = torch.gather(lut, 1, u8).to(torch.float32)
     return (out / _const(out, 255.0)).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Histogram matching (skimage.exposure.match_histograms)
+# ---------------------------------------------------------------------------
+
+
+def reference_cdf(ref: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side half of histogram matching: the reference image's unique
+    values and their cumulative quantiles, float32 (skimage
+    ``_match_cumulative_cdf``'s template side)."""
+    values, counts = np.unique(np.asarray(ref).ravel(), return_counts=True)
+    quantiles = np.cumsum(counts) / ref.size
+    return values.astype(np.float32), quantiles.astype(np.float32)
+
+
+def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """jnp.interp(x, xp, fp) with its float32 arithmetic: the segment
+    searchsorted(side='right') clipped to [1, len - 1], fp[i-1] + (delta /
+    dx) * df (fp[i-1] where |dx| is below spacing(eps)), and fp's end
+    values outside [xp[0], xp[-1]]. jnp.interp is jitted, and XLA
+    contracts the last multiply-add into an FMA: it is rounded once here
+    too (the product of two float32 values is exact in float64)."""
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True),
+                    1, xp.numel() - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    dx0 = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
+    slope = delta / torch.where(dx0, torch.ones_like(dx), dx)
+    fused = (slope.double() * df.double() + fp[i - 1].double()).float()
+    f = torch.where(dx0, fp[i - 1], fused)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def match_histograms(img: torch.Tensor, ref_values: torch.Tensor,
+                     ref_quantiles: torch.Tensor) -> torch.Tensor:
+    """skimage.exposure.match_histograms on float [0, 1] slices quantized to
+    256 levels, each slice of [..., H, W] on its own: a level's quantile is
+    the inclusive CDF of the slice's histogram (float32 count / pixels),
+    and its output the reference value at that quantile (``_interp``),
+    applied as a 256-entry table."""
+    x = img.to(torch.float32)
+    u8 = _levels(x).reshape(-1, x.shape[-2] * x.shape[-1]).long()
+    hist = _image_hists(u8, NBINS)
+    q = torch.cumsum(hist, dim=1).to(torch.float32) / _const(x, u8.shape[1])
+    lut = _interp(q, ref_quantiles.to(x.device), ref_values.to(x.device))
+    return torch.gather(lut, 1, u8).reshape(x.shape)

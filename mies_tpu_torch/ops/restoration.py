@@ -1,6 +1,6 @@
 """Restoration denoisers, plain PyTorch: non-local means, TV-Chambolle,
 Perona-Malik diffusion, SRAD and the Wiener-Hunt deconvolution, in 2-D and
-3-D.
+3-D, and the Richardson-Lucy deconvolution (2-D).
 
 Same semantics and f32 operation order as ``mies_tpu.ops.restoration``. The
 2-D ops are written for a batch: each takes float32 ``[..., H, W]`` and
@@ -29,7 +29,9 @@ import torch
 import torch.nn.functional as F
 
 from mies_tpu_torch.ops.filters import (
+    _conv1d_shifted,
     _pad2d,
+    _sqrt_rn,
     _pad_axis,
     check_volume,
     gaussian_kernel1d,
@@ -293,15 +295,6 @@ def denoise_tv(
     """Total-variation denoising, skimage.restoration.denoise_tv_chambolle
     semantics on each 2-D slice."""
     return tv_chambolle(img, weight, eps, max_num_iter)[0]
-
-
-def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded float32 square root on any device: the
-    float64 root of a float32 value rounds to the float32 one exactly. The
-    CPU's vectorized ``torch.sqrt`` is off by an ulp on about an eighth of
-    inputs, and a root an ulp apart moves TV's output by ulps on the card
-    against the CPU, enough to flip a CLAHE level downstream."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def tv_chambolle3d(
@@ -619,6 +612,49 @@ def srad3d_iteration(x: torch.Tensor, t: int, dt: float, q0: float,
     q0t = float(np.float32(q0)) * torch.exp(x.new_full((), srad_q0t_arg(rho, t)))
     return _srad_step3d(x, float(np.float32(dt / 6.0)), q0t * q0t,
                         float(np.float32(eps)))
+
+
+# ---------------------------------------------------------------------------
+# Richardson-Lucy deconvolution
+# ---------------------------------------------------------------------------
+
+
+def _gauss_same(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """Separable 'same' zero-padded convolution (scipy.signal.convolve
+    mode='same' with a symmetric kernel, so a correlation)."""
+    return _conv1d_shifted(_conv1d_shifted(x, taps, -2, "constant"),
+                           taps, -1, "constant")
+
+
+def richardson_lucy(
+    img: torch.Tensor,
+    psf_sigma: float = 1.5,
+    psf_size: int = 7,
+    num_iter: int = 30,
+    clip: bool = True,
+    filter_epsilon: float | None = None,
+) -> torch.Tensor:
+    """Richardson-Lucy deconvolution with a separable Gaussian PSF,
+    skimage.restoration.richardson_lucy semantics: init 0.5, 1e-12 added
+    to the blurred estimate, the relative blur zeroed where that is below
+    ``filter_epsilon`` (if given), the result clipped to [-1, 1]. Four
+    zero-padded 1-D passes an iteration."""
+    if psf_size % 2 != 1:
+        raise ValueError("psf_size must be odd")
+    if num_iter < 1:
+        raise ValueError("num_iter must be >= 1")
+    taps = gaussian_kernel1d(float(psf_sigma), psf_size // 2)
+    x = img.to(torch.float32)
+    conv_eps = float(np.float32(1e-12))
+    im = torch.full_like(x, 0.5)
+    for _ in range(int(num_iter)):
+        conv = _gauss_same(im, taps) + conv_eps
+        rel = x / conv
+        if filter_epsilon:
+            rel = torch.where(conv < float(np.float32(filter_epsilon)),
+                              torch.zeros_like(rel), rel)
+        im = im * _gauss_same(rel, taps)
+    return torch.clamp(im, -1.0, 1.0) if clip else im
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,11 @@ of the extended band's a and b is not a box of a and b padded by the
 border mode, so one extension for the whole op would change the edge rows.
 Morphology extends every erode or dilate level by its own border (for the
 'ignore' default, rows of the constant the reduction never picks: +inf
-for a min, -inf for a max). ``sharpness`` has no band form yet and is
-refused.
+for a min, -inf for a max), and so does each pass of the rolling ball
+(``subtract_background`` at downscale 1; above 1 its pyramid grids do not
+tile along rows and it is refused). The geometry ops, ``histogram_match``,
+``richardson_lucy`` and ``canny`` read the whole image and are refused
+with the reason. ``sharpness`` has no band form yet and is refused.
 
 The band function is batched ([B, h, W] on every rank): one function
 serves ``spatial_shard_apply`` (one slice, B = 1) and
@@ -51,21 +54,34 @@ from mies_tpu_torch.pipeline.compiler import (
 )
 from mies_tpu_torch.pipeline.config import PipelineConfig
 
-# ops whose output pixel reads the whole image or its tile grid
-_GLOBAL_OPS = frozenset({
-    "clahe", "denoise_tv", "musica", "equalize_hist", "equalize",
-    "normalize", "rescale_intensity",
-    # thresholds are whole-subband statistics, and the decimated grids do
-    # not tile along rows
-    "denoise_wavelet",
-    # each scale normalized by its image-wide max
-    "meijering",
-    # the FFT: every output pixel reads every input pixel
-    "butterworth", "homomorphic",
-    # circular rolls wrap rows across the image
-    "cycle_spin"})
+# ops whose output pixel reads the whole image or its tile grid, and why
+_GLOBAL_OPS = {
+    "clahe": "tile histograms",
+    "denoise_tv": "its convergence test sums the energy over the image",
+    "musica": "decimated pyramid grids do not tile along rows",
+    "equalize_hist": "a per-image histogram",
+    "equalize": "a per-image histogram",
+    "normalize": "the image's own range",
+    "rescale_intensity": "the image's own range",
+    "denoise_wavelet": "thresholds are whole-subband statistics, and the "
+                       "decimated grids do not tile along rows",
+    "meijering": "each scale is normalized by its image-wide max",
+    "butterworth": "the FFT: every output pixel reads every input pixel",
+    "homomorphic": "the FFT: every output pixel reads every input pixel",
+    "wiener": "a circulant FFT deconvolution",
+    "cycle_spin": "circular rolls wrap rows across the image",
+    **{op: "a warped or resized pixel can read from anywhere" for op in (
+        "resize", "center_crop", "flip", "rot90", "rotate", "affine_warp",
+        "perspective_warp")},
+    "histogram_match": "a per-image CDF",
+    "richardson_lucy": "the zero-pad border applies to the intermediates "
+                       "of every iteration",
+    "canny": "hysteresis is global connectivity (and quantile thresholds "
+             "are whole-image statistics)",
+}
 _POINTWISE = frozenset({
     "adjust_gamma", "adjust_log", "adjust_sigmoid", "invert", "window_hu",
+    "normalize_meanstd", "denormalize_meanstd",
     "adjust_brightness", "adjust_contrast", "solarize", "posterize"})
 # a stencil whose band form is not (extend, run, crop): sharpness's
 # interior mask needs the band's global rows; its band form is not ported
@@ -78,7 +94,22 @@ _DEFAULT_MODE = {
     "gaussian_blur": "nearest",
     "unsharp_mask": "nearest",
     "median_blur": "nearest",
+    "box_blur": "reflect",
     "bilateral_blur": "reflect",
+    "denoise_bilateral": "edge",
+    "sobel_edges": "reflect",
+    "scharr_edges": "reflect",
+    "prewitt_edges": "reflect",
+    "farid_edges": "reflect",
+    "roberts_edges": "reflect",
+    "laplace": "reflect",
+    "laplacian_sharpen": "reflect",
+    "difference_of_gaussians": "nearest",
+    "gabor": "reflect",
+    "gabor_bank": "reflect",
+    "retinex": "nearest",
+    "kuwahara": "reflect",
+    "motion_blur": "constant",
     # nl-means has no mode param: it pads numpy 'reflect' == scipy 'mirror'
     "denoise_nl_means": "mirror",
     "lee_filter": "reflect",
@@ -177,8 +208,60 @@ def stage_receptive_field(op: str, params: dict) -> int:
         sigma = params.get("sigma", params.get("radius", 1.0))
         truncate = params.get("truncate", 4.0)
         return int(truncate * float(sigma) + 0.5)
-    if op in ("median_blur", "bilateral_blur"):
+    if op in ("median_blur", "box_blur", "bilateral_blur"):
         return params.get("kernel_size", 5 if op == "bilateral_blur" else 3) // 2
+    if op == "motion_blur":
+        return params.get("kernel_size", 9) // 2
+    if op == "denoise_bilateral":
+        return F.denoise_bilateral_window(params.get("sigma_spatial", 1.0)) // 2
+    if op in ("sobel_edges", "scharr_edges", "prewitt_edges",
+              "roberts_edges", "laplace", "laplacian_sharpen"):
+        # roberts reads only the forward (+1) diagonal; the symmetric
+        # 1-row halo covers it
+        return 1
+    if op == "farid_edges":
+        return 2  # the 5-tap Farid-Simoncelli pair
+    if op == "difference_of_gaussians":
+        low = params.get("low_sigma", 1.0)
+        high = params.get("high_sigma")
+        if high is None:
+            high = 1.6 * float(low)
+        return int(params.get("truncate", 4.0) * float(high) + 0.5)
+    if op in ("gabor", "gabor_bank"):
+        if op == "gabor":
+            thetas = [float(params.get("theta", 0.0))]
+        else:
+            n = int(params.get("n_orientations", 8))
+            thetas = [k * np.pi / n for k in range(n)]
+        # the row radius of each rotated support
+        return max(g.shape[0] // 2 for g in F._gabor_kernels(
+            params.get("frequency", 0.1), thetas,
+            params.get("bandwidth", 1.0), params.get("sigma_x"),
+            params.get("sigma_y"), params.get("n_stds", 3),
+            params.get("offset", 0.0)))
+    if op == "kuwahara":
+        return params.get("kernel_size", 5) // 2
+    if op == "retinex":
+        if params.get("rescale", "clip") == "minmax":
+            raise ValueError(
+                "retinex with rescale='minmax' stretches by the "
+                "IMAGE-WIDE min/max (global extent); use "
+                "rescale='clip' or batch sharding"
+            )
+        truncate = params.get("truncate", 4.0)
+        return max(int(truncate * float(s) + 0.5)
+                   for s in params.get("sigmas", (2.0, 8.0, 30.0)))
+    if op == "subtract_background":
+        if M._resolve_downscale(params.get("downscale", "auto"),
+                                params.get("radius", 25.0)) > 1:
+            raise ValueError(
+                "subtract_background with an effective downscale > 1 "
+                "(explicit, or 'auto' at radius > 10) runs on "
+                "decimated pyramid grids which don't tile along rows; "
+                "use downscale=1 or batch sharding"
+            )
+        # the non-flat ball opening: two levels of ceil(radius) each
+        return 2 * int(np.ceil(params.get("radius", 25.0)))
     if op == "guided_blur":
         # two box-filter levels: image statistics, then the a/b means
         return 2 * (params.get("kernel_size", 3) // 2)
@@ -227,9 +310,10 @@ def stage_receptive_field(op: str, params: dict) -> int:
         return 2 * (params.get("kernel_size", 3) // 2)
     if op in _GLOBAL_OPS:
         raise ValueError(
-            f"op {op!r} has global/tile extent and cannot be spatially "
-            "sharded with a fixed halo; use batch sharding for chains "
-            "containing it (clahe has its own tile-aligned shard path)"
+            f"op {op!r} has global/tile extent ({_GLOBAL_OPS[op]}) and "
+            "cannot be spatially sharded with a fixed halo; use batch "
+            "sharding for chains containing it (clahe has its own "
+            "tile-aligned shard path)"
         )
     if op in VOLUME_ONLY_OPS or op not in _POINTWISE:
         raise ValueError(f"unknown op {op!r} for spatial sharding")
@@ -343,6 +427,35 @@ def _morph_band(op: str, p: dict, group) -> Callable:
     }[op]
 
 
+def _background_band(p: dict, group) -> Callable:
+    """subtract_background on a band, at an effective downscale of 1 (the
+    receptive field refuses the pyramid's decimated grids): the ball's min
+    pass under +inf rows, its max pass under -inf rows, each halo-wrapped
+    on its own (the ignored constant of each reduction, as ``_morph_band``
+    does). min and max are exact, so the band equals the unsharded op bit
+    for bit."""
+    stage_receptive_field("subtract_background", p)
+    radius = float(p.get("radius", 25.0))
+    intensity = p.get("intensity")
+    table = M._ball_table(radius, radius / 255.0 if intensity is None
+                          else float(intensity))
+    rr = table.shape[0] // 2
+    inf = float(np.float32("inf"))
+
+    def opening(v):
+        e = M._rb_pass(halo_extend_rows(v, rr, group, inf), table, False)
+        return M._rb_pass(halo_extend_rows(e, rr, group, -inf), table, True)
+
+    def run(x):
+        x = x.to(torch.float32)
+        if p.get("light_background", False):
+            inv = 1.0 - x
+            return 1.0 - torch.clamp(inv - opening(inv), 0.0, 1.0)
+        return torch.clamp(x - opening(x), 0.0, 1.0)
+
+    return run
+
+
 def _band_stage(s, group) -> Callable:
     p = s.kwargs()
     if s.op in _NO_BAND_FORM:
@@ -368,6 +481,8 @@ def _band_stage(s, group) -> Callable:
         return _guided_band(p, group)
     if s.op in _MORPH_OPS:
         return _morph_band(s.op, p, group)
+    if s.op == "subtract_background":
+        return _background_band(p, group)
     fn = _bind_batched_stage(s)
     if r == 0:
         return fn

@@ -42,7 +42,13 @@ Batched chains on the card:
   configs/xray_wavelet_denoise.yaml: denoise_wavelet (plain torch) ->
     clahe opencv (K1, K2) -> uint8;
   configs/angio_vessel_enhance.yaml: uint8 ingest -> median_blur ->
-    vessel_enhance -> rescale_intensity: plain torch only.
+    vessel_enhance -> rescale_intensity: plain torch only;
+  denoise_bilateral: K3 where its window max(5, 2 ceil(3 sigma) + 1) is
+    at most 9 and its border one of K3's (reflect, mirror, nearest, edge),
+    decided when the chain is built; the plain bilateral_blur otherwise;
+  the edges, Laplacians, DoG, retinex, Kuwahara, Canny, Richardson-Lucy,
+    the rolling ball, the geometry ops and histogram_match are plain torch;
+    gabor, gabor_bank and motion_blur one conv2d each (cuDNN, TF32 off).
 The fraction convention runs K1 and K2 (clip01), kornia plain torch.
 
 Volume chains (``compile_volume_pipeline``, [Z, H, W] -> [Z, H, W]):
@@ -64,7 +70,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mies_tpu_torch.kernels.bilateral import bilateral_batched
+from mies_tpu_torch.kernels.bilateral import (
+    bilateral_batched,
+    denoise_bilateral_batched,
+)
 from mies_tpu_torch.kernels.clahe import clahe_batched
 from mies_tpu_torch.kernels.clahe3d import clahe3d_volume
 from mies_tpu_torch.kernels.diffusion import (
@@ -83,6 +92,7 @@ from mies_tpu_torch.kernels.unsharp_gauss import (
     unsharp_quant_cuda,
     unsharp_quant_supported,
 )
+from mies_tpu_torch.ops import feature as FT
 from mies_tpu_torch.ops import filters as F
 from mies_tpu_torch.ops import frequency as FQ
 from mies_tpu_torch.ops import geometry as GEO
@@ -120,10 +130,27 @@ OP_REGISTRY: dict[str, Callable] = {
     "clahe": H.clahe,
     # filters
     "bilateral_blur": F.bilateral_blur,
+    "denoise_bilateral": F.denoise_bilateral,
     "gaussian_blur": F.gaussian_blur,
+    "box_blur": F.box_blur,
     "unsharp_mask": F.unsharp_mask,
     "median_blur": F.median_blur,
     "guided_blur": F.guided_blur,
+    "sobel_edges": F.sobel_edges,
+    "scharr_edges": F.scharr_edges,
+    "prewitt_edges": F.prewitt_edges,
+    "farid_edges": F.farid_edges,
+    "roberts_edges": F.roberts_edges,
+    "laplace": F.laplace,
+    "laplacian_sharpen": F.laplacian_sharpen,
+    "difference_of_gaussians": F.difference_of_gaussians,
+    # dense 2-D kernels: one conv2d (cuDNN on the card, TF32 off)
+    "gabor": F.gabor,
+    "gabor_bank": F.gabor_bank,
+    "motion_blur": F.motion_blur,
+    "retinex": F.retinex,
+    "kuwahara": F.kuwahara,
+    "canny": FT.canny,
     "denoise_nl_means": R.denoise_nl_means,
     "denoise_tv": R.denoise_tv,
     "srad": R.srad,
@@ -150,9 +177,18 @@ OP_REGISTRY: dict[str, Callable] = {
     "morph_gradient": M.morph_gradient,
     "top_hat": M.top_hat,
     "black_hat": M.black_hat,
+    "subtract_background": M.subtract_background,
     # restoration by deconvolution (torch.fft: cuFFT on the card)
     "wiener": R.wiener,
-    # geometry (pointwise)
+    "richardson_lucy": R.richardson_lucy,
+    # geometry
+    "resize": GEO.resize,
+    "center_crop": GEO.center_crop,
+    "flip": GEO.flip,
+    "rot90": GEO.rot90,
+    "rotate": GEO.rotate,
+    "affine_warp": GEO.affine_warp,
+    "perspective_warp": GEO.perspective_warp,
     "normalize_meanstd": GEO.normalize_meanstd,
     "denormalize_meanstd": GEO.denormalize_meanstd,
     # volumetric [Z, H, W] stages: validated here, run by
@@ -186,6 +222,44 @@ OP_REGISTRY: dict[str, Callable] = {
     "denoise_wavelet3d": WV.denoise_wavelet3d,
 }
 
+
+
+def _histogram_match_builder(reference: str):
+    """Stage builder: load the reference image on the host when the chain
+    is built (the port's own ``io.image.load_image``) and keep its
+    (values, quantiles) CDF; every processed slice is matched to it."""
+    from mies_tpu_torch.io.image import load_image
+
+    try:
+        ref = load_image(reference)
+    except FileNotFoundError as e:
+        raise FileNotFoundError(
+            f"histogram_match stage: reference image {reference!r} not found"
+        ) from e
+    values, quantiles = (torch.from_numpy(a)
+                         for a in H.reference_cdf(np.asarray(ref)))
+    on_device = {}
+
+    def stage(img: torch.Tensor) -> torch.Tensor:
+        if img.device not in on_device:
+            on_device[img.device] = (values.to(img.device),
+                                     quantiles.to(img.device))
+        return H.match_histograms(img, *on_device[img.device])
+
+    return stage
+
+
+# Ops whose parameters need host-side work when the chain is built (a
+# reference image to load). Signature: builder(**params) -> fn(img) -> img.
+STAGE_BUILDERS: dict[str, Callable] = {
+    "histogram_match": _histogram_match_builder,
+}
+OP_REGISTRY["histogram_match"] = _histogram_match_builder
+
+# The reference's ops the port refuses by name, with the ROADMAP item that
+# brings them
+NOT_PORTED = {"learned_denoise": "ROADMAP.md queue 1 item 6 (the models)"}
+
 # The ops that take only a whole [Z, H, W] volume (the reference's set): a
 # 2-D chain refuses them at build time, by name.
 VOLUME_ONLY_OPS = frozenset(
@@ -202,6 +276,7 @@ VOLUME_ONLY_OPS = frozenset(
 _BATCHED_OPS: dict[str, Callable] = {
     "clahe": clahe_batched,
     "bilateral_blur": bilateral_batched,
+    "denoise_bilateral": denoise_bilateral_batched,
     "denoise_nl_means": nl_means_batched,
     "denoise_tv": denoise_tv_batched,
     "srad": srad_batched,
@@ -234,6 +309,8 @@ def _reject_volume_only(cfg: PipelineConfig) -> None:
 
 
 def _bind_batched_stage(s) -> Callable:
+    if s.op in STAGE_BUILDERS:
+        return STAGE_BUILDERS[s.op](**s.kwargs())
     fn = _BATCHED_OPS.get(s.op, OP_REGISTRY[s.op])
     return functools.partial(fn, **s.kwargs())
 

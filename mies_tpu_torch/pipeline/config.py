@@ -159,8 +159,8 @@ def load_config(path: str | Path) -> PipelineConfig:
 # --- load-time value validation ---------------------------------------------
 # Each rule: param -> (predicate, human description of the constraint).
 # Predicates run on the RAW config value, so bad types and bad ranges both
-# fail at load_config with the stage named. Rules exist for the ported ops
-# only; each later op brings its own.
+# fail at load_config with the stage named: the reference's rules for every
+# ported op.
 
 _PAD_MODES = ("nearest", "reflect", "edge", "mirror", "constant", "wrap")
 
@@ -346,7 +346,172 @@ _MORPH3D_RULES = {
     ),
 }
 
+_WARP_MODE = (lambda v: v in ("constant", "nearest"),
+              "one of 'constant', 'nearest'")
+_GABOR_RULES = {
+    "frequency": (_pos, "a number > 0 (cycles/pixel)"),
+    "bandwidth": (_pos, "a number > 0"),
+    "sigma_x": (lambda v: v is None or _pos(v),
+                "a number > 0 (or omitted: derived from bandwidth)"),
+    "sigma_y": (lambda v: v is None or _pos(v),
+                "a number > 0 (or omitted: derived from bandwidth)"),
+    "n_stds": (_pos_int, "an int >= 1"),
+    "offset": (_is_num, "a number (radians)"),
+    "mode": _MODE,
+}
+
 _VALUE_RULES: dict[str, dict[str, tuple]] = {
+    "box_blur": {"kernel_size": (_odd_kernel, "an odd int >= 1"),
+                 "mode": _MODE},
+    "denoise_bilateral": {
+        "sigma_color": (_pos, "a number > 0"),
+        "sigma_spatial": (_pos, "a number > 0"),
+        "mode": _MODE,
+    },
+    "difference_of_gaussians": _DOG_RULES,
+    "gabor": {
+        **_GABOR_RULES,
+        "theta": (_is_num, "a number (radians)"),
+        "output": (lambda v: v in ("magnitude", "real", "imag"),
+                   "one of ('magnitude', 'real', 'imag')"),
+    },
+    "gabor_bank": {
+        **_GABOR_RULES,
+        "n_orientations": (_pos_int, "an int >= 1"),
+        "output": (lambda v: v in ("max", "mean"), "one of ('max', 'mean')"),
+    },
+    "kuwahara": {
+        "kernel_size": (lambda v: _odd_kernel(v) and v >= 3,
+                        "an odd int >= 3"),
+        "mode": _MODE,
+    },
+    "retinex": {
+        "sigmas": _SIGMAS,
+        "weights": (
+            lambda v: v is None or (
+                isinstance(v, (tuple, list)) and len(v) >= 1
+                and all(_is_num(x) for x in v)
+            ),
+            "a list of numbers matching sigmas (or omitted: uniform)",
+        ),
+        "eps": (_pos, "a number > 0"),
+        "gain": (_pos, "a number > 0"),
+        "rescale": (lambda v: v in ("clip", "minmax"),
+                    "'clip' (local) or 'minmax' (global stretch)"),
+        "mode": _MODE,
+        "truncate": (_pos, "a number > 0"),
+    },
+    "subtract_background": {
+        "radius": (_pos, "a number > 0 (ball radius, pixels)"),
+        "intensity": (
+            lambda v: v is None or _pos(v),
+            "a number > 0 (ball height, intensity units; or omitted: "
+            "radius/255, the ImageJ 8-bit equivalence)",
+        ),
+        "light_background": (lambda v: isinstance(v, bool), "a bool"),
+        "downscale": (
+            lambda v: v == "auto" or (
+                _is_int(v) and v >= 1 and v & (v - 1) == 0
+            ),
+            "'auto' (ImageJ's shrink schedule) or a power-of-two "
+            "int >= 1",
+        ),
+    },
+    "richardson_lucy": {
+        "psf_sigma": (_pos, "a number > 0"),
+        "psf_size": (_odd_kernel, "an odd int >= 1"),
+        "num_iter": (_pos_int, "an int >= 1"),
+        "clip": (lambda v: isinstance(v, bool), "a bool"),
+        "filter_epsilon": (
+            lambda v: v is None or _pos(v), "a number > 0 (or omitted)"
+        ),
+    },
+    **{_m: {"mode": _MODE} for _m in (
+        "sobel_edges", "scharr_edges", "prewitt_edges", "farid_edges",
+        "roberts_edges", "laplace")},
+    "laplacian_sharpen": {
+        "alpha": (_nonneg, "a number >= 0"),
+        "mode": _MODE,
+    },
+    "resize": {
+        "height": (_pos_int, "an int >= 1"),
+        "width": (_pos_int, "an int >= 1"),
+        "method": (
+            lambda v: v in ("nearest", "bilinear", "bicubic", "lanczos3",
+                            "lanczos5"),
+            "a jax.image.resize method",
+        ),
+    },
+    "center_crop": {
+        "height": (_pos_int, "an int >= 1"),
+        "width": (_pos_int, "an int >= 1"),
+    },
+    "rot90": {"k": (_is_int, "an int")},
+    "rotate": {
+        "angle": (_is_num, "a number (degrees)"),
+        "mode": _WARP_MODE,
+        "cval": (_is_num, "a number"),
+    },
+    "affine_warp": {
+        "matrix": (
+            lambda v: (
+                isinstance(v, (tuple, list))
+                and len(v) == 2
+                and all(_num_pair(r) for r in v)
+            ),
+            "a 2x2 matrix (output->input map)",
+        ),
+        "offset": (_num_pair, "a 2-vector"),
+        "mode": _WARP_MODE,
+        "cval": (_is_num, "a number"),
+    },
+    "perspective_warp": {
+        "matrix": (
+            lambda v: (
+                isinstance(v, (tuple, list))
+                and len(v) == 3
+                and all(
+                    isinstance(r, (tuple, list)) and len(r) == 3
+                    and all(_is_num(x) for x in r)
+                    for r in v
+                )
+            ),
+            "a 3x3 homography (output->input, homogeneous (row, col, 1))",
+        ),
+        "mode": _WARP_MODE,
+        "cval": (_is_num, "a number"),
+    },
+    "motion_blur": {
+        "kernel_size": (
+            lambda v: _is_int(v) and v >= 3 and v % 2 == 1,
+            "an odd int >= 3",
+        ),
+        "angle": (_is_num, "a number (degrees)"),
+        "direction": (
+            lambda v: _is_num(v) and -1.0 <= v <= 1.0,
+            "a number in [-1, 1]",
+        ),
+        "mode": _MODE,
+    },
+    "canny": {
+        "sigma": (_pos, "a number > 0"),
+        "low_threshold": (
+            lambda v: v is None or (_is_num(v) and v >= 0),
+            "a number >= 0 (or omitted: 0.1)",
+        ),
+        "high_threshold": (
+            lambda v: v is None or (_is_num(v) and v >= 0),
+            "a number >= 0 (or omitted: 0.2)",
+        ),
+        "use_quantiles": (lambda v: isinstance(v, bool), "a bool"),
+        "mode": _MODE,
+    },
+    "histogram_match": {
+        "reference": (
+            lambda v: isinstance(v, str) and v,
+            "a reference image path",
+        )
+    },
     "butterworth": _BUTTERWORTH_RULES,
     "butterworth3d": _BUTTERWORTH_RULES,
     "homomorphic": _HOMOMORPHIC_RULES,
@@ -542,7 +707,7 @@ def validate(cfg: PipelineConfig) -> None:
     sane — fail at load_config with the stage named."""
     import inspect
 
-    from mies_tpu_torch.pipeline.compiler import OP_REGISTRY
+    from mies_tpu_torch.pipeline.compiler import NOT_PORTED, OP_REGISTRY
 
     ch = cfg.io_dict().get("channels")
     if ch not in (None, "gray", "per-channel"):
@@ -552,9 +717,10 @@ def validate(cfg: PipelineConfig) -> None:
         )
     for i, s in enumerate(cfg.stages):
         if s.op not in OP_REGISTRY:
+            item = f" ({NOT_PORTED[s.op]})" if s.op in NOT_PORTED else ""
             raise ValueError(
                 f"stage {i}: op {s.op!r} is not ported to mies_tpu_torch "
-                f"yet; available: {sorted(OP_REGISTRY)}"
+                f"yet{item}; available: {sorted(OP_REGISTRY)}"
             )
         sig = inspect.signature(OP_REGISTRY[s.op])
         rules = _VALUE_RULES.get(s.op, {})

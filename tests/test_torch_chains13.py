@@ -73,7 +73,7 @@ def _levels_close(a: np.ndarray, b: np.ndarray) -> None:
 def test_eleven_of_the_fourteen_shipped_configs_load(tmp_path):
     """Named when 11 loaded; since the frequency, wavelet and ridge ops all
     14 do. The refusal stays tested on a config whose second stage is an
-    op the port does not have yet (retinex)."""
+    op the port does not have yet (learned_denoise)."""
     paths = sorted(CONFIGS.glob("*.yaml"))
     assert len(paths) == 14
     loaded = []
@@ -82,11 +82,12 @@ def test_eleven_of_the_fourteen_shipped_configs_load(tmp_path):
         assert cfg.to_dict() == mies_tpu.load_config(p).to_dict()
         loaded.append(p.stem)
     assert len(loaded) == 14, loaded
-    unported = tmp_path / "retinex.yaml"
-    unported.write_text("name: msr\npipeline:\n  - {op: median_blur}\n"
-                        "  - {op: retinex, sigmas: [2.0, 8.0]}\n")
+    unported = tmp_path / "learned.yaml"
+    unported.write_text("name: dn\npipeline:\n  - {op: median_blur}\n"
+                        "  - {op: learned_denoise, checkpoint: dn.ckpt}\n")
     mies_tpu.load_config(unported)
-    with pytest.raises(ValueError, match="stage 1: op 'retinex' is not ported"):
+    with pytest.raises(ValueError,
+                       match="stage 1: op 'learned_denoise' is not ported"):
         mies_tpu_torch.load_config(unported)
 
 

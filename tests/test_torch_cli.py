@@ -384,7 +384,7 @@ def test_batch_mode_needs_an_output_dir(tmp_path, sharpen, capsys):
 def test_ops_lists_the_ports_registry(capsys):
     assert cli.main(["ops"], device="cpu") == 0
     got = json.loads(capsys.readouterr().out)
-    assert sorted(got) == sorted(OP_REGISTRY) and len(got) == 72
+    assert sorted(got) == sorted(OP_REGISTRY) and len(got) == 98
     ref = json.loads(json.dumps(jcli._ops_listing(), default=str))
     got = json.loads(json.dumps(got, default=str))
     for op, params in got.items():  # same parameters and defaults
@@ -432,4 +432,4 @@ def test_python_m_runs_the_cli(tmp_path):
     proc = subprocess.run([sys.executable, "-m", "mies_tpu_torch", "ops"],
                           capture_output=True, text=True, env=env, cwd=REPO,
                           timeout=120)
-    assert proc.returncode == 0 and len(json.loads(proc.stdout)) == 72
+    assert proc.returncode == 0 and len(json.loads(proc.stdout)) == 98

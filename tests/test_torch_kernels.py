@@ -770,3 +770,47 @@ def test_k12_refuses_a_halo_it_does_not_load(cuda_device, monkeypatch):
     monkeypatch.setattr(KT, "HALO", KT.HALO + 1)
     with pytest.raises(RuntimeError, match="did not launch"):
         KT.denoise_tv_cuda(x, 0.2, 2e-4, 9)
+
+
+# --- denoise_bilateral's route and the dense conv2d ops on the card -------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma,k", [(0.5, 5), (1.0, 7), (1.3, 9)])
+def test_denoise_bilateral_runs_k3_within_2e6(cuda_device, sigma, k):
+    """A window of at most 9 in the 'edge' border launches K3 once, within
+    its 2e-6 of the plain filter."""
+    x = _on(cuda_device, (4, 251, 333), 4)
+    _build.reset_launches()
+    got = KB.denoise_bilateral_batched(x, 0.1, sigma, "edge")
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bilateral"] == 1
+    want = TF.bilateral_blur(x, k, 0.1, sigma, "edge")
+    assert (got - want).abs().max().item() <= 2e-6
+
+
+@pytest.mark.cuda
+def test_denoise_bilateral_wide_window_runs_plain(cuda_device):
+    """sigma_spatial 1.4 gives k 11, past K3: the plain filter, no launch."""
+    x = _on(cuda_device, (2, 67, 93), 5)
+    _build.reset_launches()
+    got = KB.denoise_bilateral_batched(x, 0.1, 1.4, "edge")
+    torch.cuda.synchronize()
+    assert not any(_build.LAUNCHES.values())
+    assert torch.equal(got, TF.bilateral_blur(x, 11, 0.1, 1.4, "edge"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,kw", [
+    ("gabor", {}), ("gabor", {"frequency": 0.2, "theta": 0.7, "offset": 0.3}),
+    ("gabor_bank", {}), ("motion_blur", {"angle": 30.0})])
+def test_dense_conv2d_on_card_stays_float32(cuda_device, op, kw):
+    """cuDNN runs the Gabor and motion-blur conv2d in float32 (importing
+    mies_tpu_torch turns TF32 off): within 2e-6 of the CPU's float32
+    conv, far below TF32's 10-bit mantissa."""
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x = _on(cuda_device, (2, 128, 160), 6)
+    fn = getattr(TF, op)
+    got = fn(x, **kw).cpu()
+    want = fn(x.cpu(), **kw)
+    assert (got - want).abs().max().item() <= 2e-6

@@ -473,7 +473,8 @@ def test_receptive_fields():
         [("bilateral_blur", {}), ("unsharp_mask", {"radius": 1.5})])) == 2 + 6
     for op, match in (("clahe", "global/tile"), ("denoise_tv", "global/tile"),
                       ("musica", "global/tile"), ("clahe3d", "unknown op"),
-                      ("homomorphic", "global/tile"), ("retinex", "not ported")):
+                      ("homomorphic", "global/tile"),
+                      ("learned_denoise", "not ported")):
         with pytest.raises(ValueError, match=match):
             stage_receptive_field(op, {})
     with pytest.raises(ValueError, match="sigma"):

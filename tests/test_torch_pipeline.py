@@ -106,7 +106,8 @@ def _write_config(tmp_path, stages) -> Path:
     ({"op": "clahe", "clip_limit": -1.0}, "clip_limit"),
     ({"op": "unsharp_mask", "sigma": 1.0}, "does not accept param 'sigma'"),
     ({"op": "homomorphic", "order": -2.0}, "order=-2.0"),
-    ({"op": "retinex", "sigmas": [2.0]}, "'retinex' is not ported"),
+    ({"op": "learned_denoise", "checkpoint": "dn.ckpt"},
+     "'learned_denoise' is not ported"),
 ])
 def test_bad_config_raises_at_load(tmp_path, stage, match):
     with pytest.raises(ValueError, match=match):
