@@ -167,7 +167,29 @@ Phases, one printed line each (or a few):
                port's writer), the rolling ball's launches a call, TF32
                off; sobel_edges -> kuwahara -> subtract_background
                (downscale 1) through spatial_shard_apply on an NCCL world
-               of one at 4096^2, equal to compile_pipeline.
+               of one at 4096^2, equal to compile_pipeline;
+ 10. eval and models — the metric suite and the learned denoiser at full
+               width: every registry metric at b32 512^2 on the flagship's
+               uint8 input and output, card against CPU on 4 slices within
+               the CPU tests' bounds, ms per evaluate call;
+               sharded_evaluate of configs/xray_clahe.yaml (psnr, ssim) on
+               an NCCL world of one, K1 to the LUTs, K2, K3, K4 once a call
+               and no other kernel, equal to compile_pipeline(batched=True)
+               and the float chain's metrics, slices/s beside the flagship,
+               device ms by op, busy share; train_denoiser at the CLI's
+               defaults (DnCNN 32 x 6, bfloat16, b32, patch 64, 500
+               synthetic steps, evaluate=True: the loss falls, psnr_model
+               above psnr_noisy; steps/s, peak memory), then U-Net (24, 2),
+               Noise2Void, the mix loss and --augment --elastic 4 for 20
+               steps each; learned_denoise (that checkpoint) -> clahe
+               opencv -> unsharp -> uint8 at b32 512^2 (K1 to the LUTs, K2,
+               K4 once a call; equal to its plain CLAHE and tail on the
+               card; on 4 slices the learned stage within 8e-3 of the CPU's
+               and < 2% of the uint8 pixels off (bf16 on both, through
+               CLAHE); slices/s, the convolutions' share, busy); evaluate,
+               enhance --run-report and train-denoiser --steps 20 as
+               subprocesses on DICOM files, each equal to the in-process
+               result.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -1462,6 +1484,310 @@ def _registry2d_phase(dev: torch.device, card: str, record, rec: dict) -> dict:
           f"== compile_pipeline | {ms_d:.2f} ms a slice (compile_pipeline "
           f"{ms_ref:.2f}) | {card}")
     return launches_a
+
+
+# Phase 10's bounds of the card against the CPU for each metric: the CPU
+# tests' (tests/test_torch_metrics.py): the same float32 adds in another
+# reduction order, 5e-5 where a windowed variance cancels, sam's arccos
+# near a ratio of 1.
+METRIC_REL = {"ssim": 5e-5, "uqi": 5e-5, "scc": 5e-5, "vifp": 5e-5,
+              "msssim": 5e-5}
+METRIC_ABS = {"sam": 1e-3}
+LEARNED_CHAIN = """name: learned-xray
+pipeline:
+  - {{op: learned_denoise, checkpoint: {ckpt}}}
+  - {{op: clahe, clip_limit: 2.0, grid_size: [8, 8], convention: opencv}}
+  - {{op: unsharp_mask, radius: 1.5, amount: 1.0}}
+"""
+
+
+def _eval_models_phase(dev: torch.device, card: str, repo: Path) -> dict:
+    """Phase 10: the metric suite and the learned denoiser. (a) Every
+    registry metric at b32 512^2 on the flagship's uint8 input and output
+    (max_val 255), on the card against the CPU on 4 slices within the CPU
+    tests' bounds, ms per evaluate call (all 13 metrics), launches, busy.
+    (b) sharded_evaluate of configs/xray_clahe.yaml with psnr and ssim on
+    an NCCL world of one: K1 to the LUTs, K2, K3, K4 once a call and no
+    other kernel, the uint8 equal to compile_pipeline(batched=True), the
+    means to the metrics of the float chain; slices/s beside the flagship
+    alone, device ms by op, busy. (c) train_denoiser at the CLI's defaults
+    (DnCNN 32 x 6, bfloat16, b32, patch 64, 500 synthetic steps,
+    evaluate=True): the loss falls, psnr_model above psnr_noisy, steps/s
+    (the loop and a step alone), peak memory; then U-Net (24, 2),
+    Noise2Void, the mix loss and --augment --elastic 4 for 20 steps each.
+    (d) learned_denoise (c's checkpoint) -> clahe opencv -> unsharp -> uint8
+    at b32 512^2 through load_config / compile_pipeline(batched=True): K1
+    to the LUTs, K2, K4 once a call, equal to the same chain with the plain
+    CLAHE and tail on the card; on 4 slices the learned stage within the
+    CPU tests' bf16 bound (8e-3) of the CPU's and < 2% of the uint8 pixels
+    off the CPU chain's (CLAHE's LUT steps carry the bf16 gap);
+    slices/s, device ms by op (the convolutions' share), launches, busy. (e) evaluate, enhance --run-report and
+    train-denoiser --steps 20 in subprocesses on DICOM files: exit 0, equal
+    to the in-process results. Returns the kernels' launches in (b) and
+    (d)."""
+    from mies_tpu_torch.cli import _default_augment
+    from mies_tpu_torch.eval.metrics import METRIC_REGISTRY, metric_values
+    from mies_tpu_torch.eval.report import reference_u8
+    from mies_tpu_torch.io.image import from_float, load_image, save_image
+    from mies_tpu_torch.kernels import _build
+    from mies_tpu_torch.models.denoiser import denoise_batch, load_model
+    from mies_tpu_torch.models.train import (
+        make_train_step,
+        synth_batch,
+        train_denoiser,
+    )
+    from mies_tpu_torch.ops import filters as F
+    from mies_tpu_torch.ops import histogram as H
+    from mies_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        sharded_evaluate,
+    )
+    from mies_tpu_torch.pipeline.compiler import (
+        _quantize_u8,
+        compile_pipeline,
+    )
+    from mies_tpu_torch.pipeline.config import load_config
+    from mies_tpu_torch.pipeline.runner import (
+        _profile,
+        enhance_image,
+        profile_pipeline,
+        time_pipeline,
+    )
+
+    names = tuple(METRIC_REGISTRY)
+    flagship = load_config(repo / "configs" / "xray_clahe.yaml")
+    x = torch.from_numpy(_xray_batch(BATCH, SIZE, SIZE, seed=0)).to(dev)
+    counted = {}
+
+    def count(fn):
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, dict(_build.LAUNCHES)
+
+    def top_ops(prof, n=5):
+        return ", ".join(f"{k} {v:.3f}" for k, v in
+                         list(prof["by_op"].items())[:n])
+
+    # -- (a) every metric at b32 512^2 --------------------------------------
+    gt = _quantize_u8(x)
+    out = compile_pipeline(flagship, batched=True, device=dev)(x)
+    got = metric_values(gt, out, names, 255.0)
+    want = metric_values(gt[:4].cpu(), out[:4].cpu(), names, 255.0)
+    worst = {}
+    for n in names:
+        a, b = got[n][:4].cpu().double(), want[n].double()
+        _require(got[n].shape == (BATCH,) and bool(torch.isfinite(got[n]).all()),
+                 f"metric {n}: {tuple(got[n].shape)}, finite "
+                 f"{bool(torch.isfinite(got[n]).all())}")
+        tol = METRIC_REL.get(n, 2e-6) * b.abs() + METRIC_ABS.get(n, 1e-6)
+        _require(bool(((a - b).abs() <= tol).all()),
+                 f"metric {n} card vs CPU: {a.tolist()} vs {b.tolist()}")
+        worst[n] = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+    ms_eval = _ms(lambda: metric_values(gt, out, names, 255.0), 3)
+    per_metric = {n: _ms(lambda n=n: metric_values(gt, out, (n,), 255.0), 3)
+                  for n in names}
+    p_eval = _profile(lambda _: metric_values(gt, out, names, 255.0), None, 2,
+                      dev)
+    print(f"eval metrics [{BATCH},{SIZE},{SIZE}] uint8 flagship input vs "
+          f"output, max_val 255, all {len(names)}: {ms_eval:.3f} ms an "
+          f"evaluate call (CUDA events), device {p_eval['device_ms_per_call']:.3f}"
+          f" ms, {p_eval['device_launches_per_call']:g} launches, busy "
+          f"{p_eval['busy_share']:.1%} | per metric ms: "
+          + ", ".join(f"{n} {v:.3f}" for n, v in per_metric.items())
+          + " | means: " + ", ".join(f"{n} {got[n].double().mean():.6g}"
+                                     for n in names)
+          + " | card vs CPU on 4 slices, max rel: "
+          + ", ".join(f"{n} {v:.2g}" for n, v in worst.items()) + f" | {card}")
+
+    # -- (b) sharded_evaluate, NCCL world of one ----------------------------
+    with tempfile.TemporaryDirectory() as store:
+        init_distributed(f"file://{store}/store", 1, 0, device=dev.type)
+        try:
+            fn = sharded_evaluate(flagship, make_mesh(), ("psnr", "ssim"), 1.0)
+            fn(x)
+            (u8, means), launches_b = count(lambda: fn(x))
+            want_b = {k: int(k in ("tile_luts", "clahe_apply_lut", "bilateral",
+                                   "unsharp_quant")) for k in launches_b}
+            _require(launches_b == want_b,
+                     f"sharded_evaluate launches {launches_b}, want {want_b}")
+            ms_b = _ms(lambda: fn(x), 10)
+            p_b = _profile(lambda v: fn(v), x, 5, dev)
+        finally:
+            dist.destroy_process_group()
+    _require(torch.equal(u8, out), "sharded_evaluate uint8 differs from "
+             "compile_pipeline(batched=True)")
+    flt = compile_pipeline(flagship, batched=True, quantize=False,
+                           device=dev)(x)
+    per = metric_values(x, flt, ("psnr", "ssim"), 1.0)
+    for k in ("psnr", "ssim"):
+        ref = float(per[k].double().mean())
+        _require(abs(means[k] - ref) <= 1e-6 * abs(ref),
+                 f"sharded_evaluate {k} {means[k]} vs {ref}")
+    t_flag = time_pipeline(flagship, iters=10, warmup=2, repeats=3,
+                           device=dev, batch=x)
+    counted["sharded_evaluate"] = launches_b
+    print(f"eval sharded_evaluate (NCCL, world 1) xray_clahe.yaml "
+          f"[{BATCH},{SIZE},{SIZE}] psnr+ssim: {BATCH / ms_b * 1e3:.1f} slices/s "
+          f"({ms_b:.4f} ms a call) beside the flagship alone "
+          f"{t_flag['slices_per_sec']:.1f} ({t_flag['ms_per_batch']:.4f} ms) | "
+          f"device {p_b['device_ms_per_call']:.3f} ms, "
+          f"{p_b['device_launches_per_call']:g} launches, busy "
+          f"{p_b['busy_share']:.1%} | by op: {top_ops(p_b)} | launches "
+          f"{ {k: v for k, v in launches_b.items() if v} } | uint8 == "
+          f"compile_pipeline, means psnr {means['psnr']:.6f} ssim "
+          f"{means['ssim']:.6f} | {card}")
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        # -- (c) train_denoiser at the CLI's defaults -----------------------
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        state, losses, rep = train_denoiser(
+            steps=500, batch=32, patch=64, features=32, depth=6,
+            evaluate=True, checkpoint_dir=str(tmp / "dn"), device=dev)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        _require(state.model.dtype == torch.bfloat16 and next(
+            state.model.parameters()).device.type == "cuda",
+            "the denoiser does not train in bfloat16 on the card")
+        _require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        _require(rep["psnr_model"] > rep["psnr_noisy"],
+                 f"psnr_model {rep['psnr_model']} <= psnr_noisy "
+                 f"{rep['psnr_noisy']}")
+        init_fn, step_fn, _ = make_train_step(32, 6, device=dev)
+        st = init_fn(0)
+        noisy, clean = synth_batch(np.random.default_rng(0), 32, 64)
+        for _ in range(3):
+            st, _ = step_fn(st, noisy, clean)
+        ms_step = _ms(lambda: step_fn(st, noisy, clean), 20)
+        short = {}
+        for label, kw in (
+                ("unet 24x2", {"arch": "unet", "features": 24, "depth": 2}),
+                ("noise2void", {"self_supervised": True}),
+                ("mix", {"loss": "mix"}),
+                ("augment elastic 4", {"augment": _default_augment(4.0)})):
+            t1 = time.perf_counter()
+            _, ls, _ = train_denoiser(**{"steps": 20, "log_every": 5,
+                                         "device": dev, **kw})
+            torch.cuda.synchronize(dev)
+            _require(all(math.isfinite(v) for v in ls), f"{label}: {ls}")
+            short[label] = (time.perf_counter() - t1, ls[0], ls[-1])
+        print(f"models train_denoiser DnCNN 32x6 bf16 b32 patch 64, 500 "
+              f"synthetic steps + eval: {500 / wall:.1f} steps/s by the loop "
+              f"({wall:.2f} s; the host makes each batch), a step alone "
+              f"{ms_step:.3f} ms ({1e3 / ms_step:.1f} steps/s) | loss "
+              f"{losses[0]:.5f} -> {losses[-1]:.5f} | psnr noisy "
+              f"{rep['psnr_noisy']:.3f}, model {rep['psnr_model']:.3f}, "
+              f"bilateral {rep['psnr_bilateral']:.3f} dB | peak "
+              f"{peak:.1f} MiB | 20 steps: "
+              + "; ".join(f"{k} {v[0]:.2f} s loss {v[1]:.4f} -> {v[2]:.4f}"
+                          for k, v in short.items()) + f" | {card}")
+
+        # -- (d) learned_denoise -> clahe -> unsharp -> uint8 ---------------
+        (tmp / "learned.yaml").write_text(
+            LEARNED_CHAIN.format(ckpt=tmp / "dn"))
+        cfg_d = load_config(tmp / "learned.yaml")
+        fn_d = compile_pipeline(cfg_d, batched=True, device=dev)
+        fn_d(x)
+        out_d, launches_d = count(lambda: fn_d(x))
+        want_d = {k: int(k in ("tile_luts", "clahe_apply_lut",
+                               "unsharp_quant")) for k in launches_d}
+        _require(launches_d == want_d,
+                 f"learned chain launches {launches_d}, want {want_d}")
+        model = load_model(tmp / "dn", dev)
+        with torch.no_grad():
+            den = denoise_batch(model, x)
+        _build.reset_launches()
+        plain = _quantize_u8(F.unsharp_mask(H.clahe(den, 2.0, (8, 8)), 1.5,
+                                            1.0))
+        _require(not any(_build.LAUNCHES.values()) and torch.equal(out_d, plain),
+                 "learned chain differs from its plain CLAHE and tail")
+        # bfloat16 on both: the card's and the CPU's convolutions round
+        # their fp32 sums to bf16 in other orders, so the denoised slices
+        # differ by up to a few bf16 ulps (the CPU tests' bound, 8e-3) and
+        # about 0.1% of their uint8 levels; CLAHE's LUT steps turn those
+        # into ~1% of the chain's pixels, some by several levels
+        cpu_m = load_model(tmp / "dn")
+        with torch.no_grad():
+            den_err = (den[:4].cpu() - denoise_batch(cpu_m, x[:4].cpu())
+                       ).abs().max().item()
+        _require(den_err <= 8e-3, f"learned stage card vs CPU: {den_err}")
+        cpu_d = compile_pipeline(cfg_d, batched=True, device="cpu")(x[:4].cpu())
+        lv, n_off = _levels_off(out_d[:4].cpu().numpy(), cpu_d.numpy())
+        _require(n_off < 0.02 * cpu_d.numel(),
+                 f"learned chain card vs CPU: {n_off} pixels, {lv} levels")
+        t_d = time_pipeline(cfg_d, iters=10, warmup=2, repeats=3, device=dev,
+                            batch=x)
+        p_d = profile_pipeline(cfg_d, iters=5, device=dev, batch=x)
+        conv_ms = sum(v for k, v in p_d["by_op"].items() if "conv" in k)
+        counted["learned"] = launches_d
+        print(f"models learned chain [{BATCH},{SIZE},{SIZE}] float32 "
+              f"(learned_denoise DnCNN 32x6 bf16 -> clahe opencv 8x8 (K1L, K2) "
+              f"-> unsharp r1.5 + uint8 (K4)): {t_d['slices_per_sec']:.1f} "
+              f"slices/s ({t_d['ms_per_batch']:.3f} ms a batch) | device "
+              f"{p_d['device_ms_per_call']:.3f} ms, convolutions "
+              f"{conv_ms:.3f} ({conv_ms / p_d['device_ms_per_call']:.1%}), "
+              f"{p_d['device_launches_per_call']:g} launches, busy "
+              f"{p_d['busy_share']:.1%} | by op: {top_ops(p_d)} | launches "
+              f"{ {k: v for k, v in launches_d.items() if v} } | == its plain "
+              f"CLAHE and tail | 4 slices vs CPU: the learned stage max abs "
+              f"{den_err:.3g}, uint8 {n_off} of {cpu_d.numel()} differ (max "
+              f"{lv}) | {card}")
+
+        # -- (e) the CLI in subprocesses, on DICOM files ---------------------
+        a_u8, b_u8 = gt[1].cpu().numpy(), out[1].cpu().numpy()
+        save_image(tmp / "a.dcm", a_u8)
+        save_image(tmp / "b.dcm", b_u8)
+        env = {**os.environ, "PYTHONPATH": str(repo)}
+
+        def run(*args):
+            t1 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "mies_tpu_torch",
+                                   *map(str, args)], capture_output=True,
+                                  text=True, env=env, cwd=repo, timeout=300)
+            _require(proc.returncode == 0, f"CLI {args[0]} exited "
+                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            return json.loads(proc.stdout), time.perf_counter() - t1
+
+        ev, s_ev = run("evaluate", tmp / "a.dcm", tmp / "b.dcm")
+        want_ev = metric_values(
+            torch.from_numpy(from_float(load_image(tmp / "a.dcm"))).to(dev),
+            torch.from_numpy(from_float(load_image(tmp / "b.dcm"))).to(dev),
+            ("psnr", "ssim", "uqi"), 255.0)
+        for k, v in want_ev.items():
+            _require(abs(ev[k] - float(v)) <= 1e-6 * abs(float(v)),
+                     f"CLI evaluate {k} {ev[k]} vs {float(v)}")
+        _, s_rr = run("enhance", tmp / "a.dcm", "-c",
+                      repo / "configs" / "xray_clahe.yaml", "-o",
+                      tmp / "e.dcm", "--run-report", tmp / "r.json")
+        rr = json.loads((tmp / "r.json").read_text())["metrics"]
+        enh = enhance_image(tmp / "a.dcm", flagship, device=dev)
+        want_rr = metric_values(
+            torch.from_numpy(reference_u8(tmp / "a.dcm", flagship)).to(dev),
+            torch.from_numpy(enh).to(dev), ("psnr", "ssim"), 255.0)
+        for k, v in want_rr.items():
+            _require(abs(rr[k] - float(v)) <= 1e-6 * abs(float(v)),
+                     f"CLI --run-report {k} {rr[k]} vs {float(v)}")
+        tr, s_tr = run("train-denoiser", "-o", tmp / "cli_dn", "--steps", 20)
+        _, ls20, _ = train_denoiser(steps=20, device=dev)
+        # the first loss precedes any update; cuDNN's weight gradients sum
+        # in no fixed order, so the last is held to 1e-2
+        _require(tr["steps"] == 20 and abs(tr["loss_curve"][0] - ls20[0])
+                 <= 1e-6 * ls20[0] and abs(tr["loss_curve"][-1] - ls20[-1])
+                 <= 1e-2 * ls20[-1], f"CLI train-denoiser {tr['loss_curve']} "
+                 f"vs {ls20}")
+        _require((tmp / "cli_dn" / "params.pt").exists(),
+                 "CLI train-denoiser wrote no checkpoint")
+    print(f"eval/models CLI subprocesses (DICOM in and out, no Pillow): "
+          f"evaluate {s_ev:.1f} s ({ev}), enhance --run-report {s_rr:.1f} s "
+          f"({rr}), train-denoiser --steps 20 {s_tr:.1f} s (loss "
+          f"{tr['loss_curve']}) | each == the in-process result | {card}")
+    return counted
 
 
 def main() -> int:
@@ -2786,6 +3112,13 @@ def main() -> int:
 
     # -- 9. the rest of the 2-D registry ---------------------------------
     p9_launches = _registry2d_phase(dev, card, record, rec)
+
+    # -- 10. the metric suite and the learned denoiser -------------------
+    p10 = _eval_models_phase(dev, card, repo)
+    # K1 to the LUTs, K2 and K4 launch on the flagship's path, on the
+    # evaluated flagship's and on the learned chain's; K3 on the first two
+    launches = {k: launches[k] + p10["sharded_evaluate"][k]
+                + p10["learned"][k] for k in launches}
 
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (

@@ -1,53 +1,57 @@
-"""CLI: enhance / enhance-volume / ops / bench on the card.
+"""CLI: enhance / enhance-volume / evaluate / train-denoiser / ops / bench on
+the card.
 
 The reference's command line (``mies_tpu/cli.py``) for the subcommands
 whose modules are ported:
 
-  python -m mies_tpu_torch enhance -c config.yaml input.png [-o out.png]
+  python -m mies_tpu_torch enhance -c config.yaml input.png [-o out.png] [--report r.png] [--run-report r.json]
   python -m mies_tpu_torch enhance -c config.yaml imgs/*.dcm -o outdir/   (batch, resumable)
-  python -m mies_tpu_torch enhance-volume -c config.yaml vol.nc -o out.nc [--stream]
+  python -m mies_tpu_torch enhance-volume -c config.yaml vol.nc -o out.nc [--stream] [--metrics psnr ssim]
   python -m mies_tpu_torch enhance-volume -c configs/ct_volume_3d.yaml vol.nc -o out.nc --mode 3d
   python -m mies_tpu_torch enhance-volume -c chain3d.yaml dicom_dir/ -o out.nc --mode 3d --isotropic 1.0
   torchrun --nproc-per-node 4 -m mies_tpu_torch enhance-volume -c configs/ct_volume_3d.yaml vol.nc -o out.nc --mode 3d --data-parallel
+  python -m mies_tpu_torch evaluate orig.png enhanced.png -m psnr ssim uqi
+  python -m mies_tpu_torch train-denoiser -o ckpt/ [--steps 500 --arch dncnn --eval]
+  torchrun --nproc-per-node 4 -m mies_tpu_torch train-denoiser -o ckpt/ --data-parallel
   python -m mies_tpu_torch ops
   python -m mies_tpu_torch bench -c config.yaml --batch 32 --size 512
 
 Everything runs on the card; without one the commands raise.
-``enhance-volume --data-parallel`` runs one rank per card, launched by
-``torchrun`` (the process group joins from its ``env://`` variables;
-without them it is a world of one): rank 0 reads the input, sends each
+``--data-parallel`` runs one rank per card, launched by ``torchrun`` (the
+process group joins from its ``env://`` variables; without them it is a
+world of one). ``enhance-volume``: rank 0 reads the input, sends each
 rank its z slab (``--mode 3d``: ``parallel.volume_shard_apply``) or its
 part of every slab (slice mode: ``runner.enhance_volume(mesh=)``),
-gathers the output and writes it. The reference's other subcommands and
-the flags whose modules are not ported yet are refused with exit code 2
-and the ROADMAP.md item that brings them.
+gathers the output and writes it. ``train-denoiser``: each rank trains on
+its shard of every batch, the gradients summed by all_reduce; rank 0
+writes the checkpoint. The reference's other subcommands and the flags
+whose modules are not ported yet are refused with exit code 2 and the
+ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
+import time
 from pathlib import Path
+
+import numpy as np
 
 # refused flag or subcommand -> the ROADMAP.md item that ports it
 NOT_PORTED = {
-    "--report": "queue 1 item 5 (eval: metrics and the report)",
-    "--run-report": "queue 1 item 5 (eval: metrics and the report)",
     "--stage-costs": "queue 1 item 7 (utils/profiling)",
-    "--metrics": "queue 1 item 5 (eval: metrics)",
     "--data-parallel": "queue 1 item 7 (data-parallel image batches and "
                        "streamed volumes)",
-    "evaluate": "queue 1 item 5 (eval)",
-    "train-denoiser": "queue 1 item 6 (models)",
     "serve": "queue 1 item 7 (serve.py)",
     "export": "queue 1 item 7 (pipeline/export.py)",
     "doctor": "queue 1 item 7 (the user-facing surface)",
     "warmup": "queue 1 item 7 (the user-facing surface)",
 }
-REFUSED_COMMANDS = ("evaluate", "train-denoiser", "serve", "export", "doctor",
-                    "warmup")
+REFUSED_COMMANDS = ("serve", "export", "doctor", "warmup")
 
 
 def _refuse(what: str) -> int:
@@ -120,8 +124,7 @@ def _apply_file_window(cfg, inputs):
 def cmd_enhance(args, device) -> int:
     from mies_tpu_torch.pipeline import runner
 
-    flag = _refused_flags(args, ("--report", "--run-report", "--stage-costs",
-                                 "--data-parallel"))
+    flag = _refused_flags(args, ("--stage-costs", "--data-parallel"))
     if flag:
         return _refuse(flag)
     cfg = _load_cfg(args.config)
@@ -146,11 +149,20 @@ def cmd_enhance(args, device) -> int:
         out_path = args.output or inputs[0].with_name(
             inputs[0].stem + ".enhanced" + inputs[0].suffix
         )
+        t0 = time.perf_counter()
         out = runner.enhance_image(inputs[0], cfg, out_path, device=device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        if args.report or args.run_report:
+            return _reports(args, cfg, inputs[0], out_path, out, wall_ms,
+                            device)
         print(json.dumps({"output": str(out_path), "shape": list(out.shape)}))
         return 0
     if not args.output:
         print("error: batch mode requires -o OUTPUT_DIR", file=sys.stderr)
+        return 2
+    if args.report or args.run_report:
+        print("error: --report/--run-report are single-image flags; batch "
+              "runs record progress in the manifest instead", file=sys.stderr)
         return 2
     manifest = runner.enhance_batch(
         inputs, cfg, args.output, batch_size=args.batch,
@@ -162,13 +174,51 @@ def cmd_enhance(args, device) -> int:
     return 1 if manifest.failures else 0
 
 
+def _reports(args, cfg, src: Path, out_path, out, wall_ms: float,
+             device) -> int:
+    """``enhance --report/--run-report``: psnr and ssim of the output
+    against the input's uint8 form (``eval.report.reference_u8``), the
+    before/after PNG and the JSON run report. Refused (exit 2) for a
+    multi-channel output or a chain that changes the shape."""
+    from mies_tpu_torch.eval.metrics import evaluate
+    from mies_tpu_torch.eval.report import (
+        reference_u8,
+        save_comparison_report,
+        write_run_report,
+    )
+
+    if out.ndim != 2:
+        print("error: --report/--run-report metrics support grayscale "
+              "outputs only (io.channels: per-channel produces [C, H, W]); "
+              "rerun without reports", file=sys.stderr)
+        return 2
+    orig = reference_u8(src, cfg)
+    if orig.shape != out.shape:
+        print(f"error: --report/--run-report metrics need a shape-preserving "
+              f"chain (input {orig.shape} vs output {out.shape} — "
+              f"resize/crop/rot90 stages change it); rerun without reports",
+              file=sys.stderr)
+        return 2
+    metrics = evaluate(orig, out, names=("psnr", "ssim"), device=device)
+    if args.report:
+        save_comparison_report(orig, out, args.report, title=cfg.name,
+                               metrics=metrics)
+    if args.run_report:
+        write_run_report(
+            args.run_report, cfg, metrics=metrics,
+            timings={"wall_ms_including_compile": wall_ms},
+            extra={"input": str(src), "output": str(out_path)},
+        )
+    print(json.dumps({"output": str(out_path), "shape": list(out.shape)}))
+    return 0
+
+
 def cmd_enhance_volume(args, device) -> int:
     from mies_tpu_torch.io.volume import load_volume, save_volume
     from mies_tpu_torch.pipeline import runner
 
-    flag = _refused_flags(args, ("--metrics",))
-    if flag or (args.stream and args.data_parallel):
-        return _refuse(flag or "--data-parallel")
+    if args.stream and args.data_parallel:
+        return _refuse("--data-parallel")
     cfg = _load_cfg(args.config)
     if args.window_from_file:
         vp = Path(args.input)
@@ -178,9 +228,10 @@ def cmd_enhance_volume(args, device) -> int:
             return 2
     if args.stream:
         # disk to disk: the volume is never wholly resident on the host
-        if args.mode == "3d":
-            raise SystemExit("--stream is slice-mode only (--mode 3d needs "
-                             "the whole volume in memory)")
+        if args.mode == "3d" or args.metrics:
+            raise SystemExit("--stream is slice-mode only and incompatible "
+                             "with --metrics (both need the whole volume in "
+                             "memory)")
         if args.isotropic is not None:
             raise SystemExit(
                 "--isotropic needs --mode 3d (whole-volume resample); "
@@ -207,28 +258,54 @@ def cmd_enhance_volume(args, device) -> int:
         out = runner.enhance_volume(vol, cfg, slab_size=args.slab,
                                     progress=not args.quiet, device=device)
     save_volume(args.output, out)
-    print(json.dumps({"input": meta.source, "shape": list(out.shape),
-                      "output": args.output}))
+    result = {"input": meta.source, "shape": list(out.shape),
+              "output": args.output}
+    if args.metrics:
+        result.update(_volume_metrics(args, cfg, vol, out, device))
+    print(json.dumps(result))
     return 0
 
 
-def _enhance_volume_data_parallel(args, cfg, device) -> int:
-    """``enhance-volume --data-parallel``: join the process group (from
-    torchrun's ``env://`` variables, else a world of one), read the volume
-    on rank 0, run it z-sharded (``--mode 3d``) or slab-sharded, and write
-    the output on rank 0. Refused, on every rank: a Z (``--mode 3d``) or an
-    ``--isotropic`` depth that does not divide by the ranks."""
+def _volume_metrics(args, cfg, vol: np.ndarray, out: np.ndarray,
+                    device) -> dict:
+    """``enhance-volume --metrics``: per-slice metrics of the output against
+    the input on the uint8 scale (an integer volume other than uint8
+    through the chain's window_hu first), written to
+    ``<output>.metrics.json``; returns the result line's additions."""
+    from mies_tpu_torch.eval.metrics import evaluate_volume
+    from mies_tpu_torch.ops.intensity import window_hu
+    from mies_tpu_torch.pipeline.compiler import (
+        _quantize_u8,
+        _to_device,
+        resolve_device,
+    )
+
+    x = _to_device(vol, resolve_device(device))
+    if np.issubdtype(vol.dtype, np.integer) and vol.dtype != np.uint8:
+        win = next((st.kwargs() for st in cfg.stages if st.op == "window_hu"),
+                   None)
+        if win is None:
+            raise SystemExit("--metrics on int16 volumes needs a window_hu "
+                             "stage to define the reference scale")
+        gt = _quantize_u8(window_hu(x, **win))
+    else:
+        gt = x if vol.dtype == np.uint8 else _quantize_u8(x)
+    m = evaluate_volume(gt, out, names=tuple(args.metrics), device=device)
+    mpath = str(args.output) + ".metrics.json"
+    with open(mpath, "w") as f:
+        json.dump(m, f, indent=2)
+    return {"metrics_mean": m["mean"], "metrics_file": mpath}
+
+
+@contextlib.contextmanager
+def _process_group(device):
+    """Join the process group for ``--data-parallel`` (torchrun's env://
+    variables, else a world of one) unless one is joined; leave it after."""
     import tempfile
 
     import torch.distributed as dist
 
-    from mies_tpu_torch.io.volume import load_volume, save_volume
-    from mies_tpu_torch.parallel import (
-        init_distributed,
-        make_mesh,
-        volume_shard_apply,
-    )
-    from mies_tpu_torch.pipeline import runner
+    from mies_tpu_torch.parallel import init_distributed
 
     joined = not dist.is_initialized()
     with tempfile.TemporaryDirectory() as store:
@@ -237,35 +314,53 @@ def _enhance_volume_data_parallel(args, cfg, device) -> int:
         elif joined:
             init_distributed(f"file://{store}/store", 1, 0, device)
         try:
-            n, rank = dist.get_world_size(), dist.get_rank()
-            vol, head = None, [None]
-            if rank == 0:
-                vol, meta = load_volume(args.input, var_name=args.var)
-                head = [(vol.shape, meta.spacing, meta.source)]
-            dist.broadcast_object_list(head, src=0)
-            shape, spacing, source = head[0]
-            if args.isotropic is not None:
-                cfg = _isotropic_config(cfg, args, shape, spacing, n)
-            if args.mode == "3d":
-                if shape[0] % n:
-                    raise SystemExit(
-                        f"--data-parallel with --mode 3d z-shards the volume: "
-                        f"Z={shape[0]} must divide by the {n} devices"
-                    )
-                mesh = make_mesh(data=1, space=n)
-                out = runner.run_sharded(vol, volume_shard_apply(cfg, mesh),
-                                         shape[0], mesh)
-            else:
-                out = runner.enhance_volume(vol, cfg, slab_size=args.slab,
-                                            progress=not args.quiet,
-                                            mesh=make_mesh())
-            if rank == 0:
-                save_volume(args.output, out)
-                print(json.dumps({"input": source, "shape": list(out.shape),
-                                  "output": args.output, "ranks": n}))
+            yield dist.get_world_size(), dist.get_rank()
         finally:
             if joined:
                 dist.destroy_process_group()
+
+
+def _enhance_volume_data_parallel(args, cfg, device) -> int:
+    """``enhance-volume --data-parallel``: join the process group, read the
+    volume on rank 0, run it z-sharded (``--mode 3d``) or slab-sharded, and
+    write the output (and ``--metrics``) on rank 0. Refused, on every rank:
+    a Z (``--mode 3d``) or an ``--isotropic`` depth that does not divide by
+    the ranks."""
+    import torch.distributed as dist
+
+    from mies_tpu_torch.io.volume import load_volume, save_volume
+    from mies_tpu_torch.parallel import make_mesh, volume_shard_apply
+    from mies_tpu_torch.pipeline import runner
+
+    with _process_group(device) as (n, rank):
+        vol, head = None, [None]
+        if rank == 0:
+            vol, meta = load_volume(args.input, var_name=args.var)
+            head = [(vol.shape, meta.spacing, meta.source)]
+        dist.broadcast_object_list(head, src=0)
+        shape, spacing, source = head[0]
+        if args.isotropic is not None:
+            cfg = _isotropic_config(cfg, args, shape, spacing, n)
+        if args.mode == "3d":
+            if shape[0] % n:
+                raise SystemExit(
+                    f"--data-parallel with --mode 3d z-shards the volume: "
+                    f"Z={shape[0]} must divide by the {n} devices"
+                )
+            mesh = make_mesh(data=1, space=n)
+            out = runner.run_sharded(vol, volume_shard_apply(cfg, mesh),
+                                     shape[0], mesh)
+        else:
+            out = runner.enhance_volume(vol, cfg, slab_size=args.slab,
+                                        progress=not args.quiet,
+                                        mesh=make_mesh())
+        if rank == 0:
+            save_volume(args.output, out)
+            result = {"input": source, "shape": list(out.shape),
+                      "output": args.output, "ranks": n}
+            if args.metrics:
+                result.update(_volume_metrics(args, cfg, vol, out, device))
+            print(json.dumps(result))
     return 0
 
 
@@ -280,6 +375,9 @@ def _isotropic_config(cfg, args, shape, spacing, ranks: int | None = None):
     if args.mode != "3d":
         raise SystemExit("--isotropic needs --mode 3d (it resamples the "
                          "whole [Z, H, W] grid)")
+    if args.metrics:
+        raise SystemExit("--isotropic changes the grid shape; full-reference "
+                         "--metrics need matching shapes")
     if spacing is None:
         raise SystemExit(
             "--isotropic needs voxel spacing, which only DICOM series "
@@ -336,6 +434,62 @@ def cmd_ops(args, device) -> int:
     return 0
 
 
+def cmd_evaluate(args, device) -> int:
+    """Full-reference metrics of two image files on the uint8 scale."""
+    from mies_tpu_torch.eval.metrics import evaluate
+    from mies_tpu_torch.io.image import from_float, load_image
+
+    gt = from_float(load_image(args.original))
+    p = from_float(load_image(args.enhanced))
+    out = evaluate(gt, p, names=tuple(args.metrics), device=device)
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _default_augment(elastic: float = 0.0):
+    """The standard medical-training recipe: full D4 geometry, mild
+    intensity jitter on the input, no extra noise; the elastic warp by
+    amplitude."""
+    from mies_tpu_torch.models.augment import AugmentConfig
+
+    return AugmentConfig(hflip=0.5, vflip=0.5, rot90=True, brightness=0.05,
+                         contrast=0.1, gamma=0.1, elastic=elastic)
+
+
+def cmd_train_denoiser(args, device) -> int:
+    """Train the learned denoiser; prints one JSON line (rank 0)."""
+    from mies_tpu_torch.models.train import train_denoiser
+
+    depth = args.depth
+    if depth is None:
+        depth = 2 if args.arch == "unet" else 6
+    kwargs = dict(
+        steps=args.steps, batch=args.batch, patch=args.patch,
+        features=args.features, depth=depth, arch=args.arch,
+        sigma=args.noise_sigma, checkpoint_dir=args.output,
+        data_dir=args.data, evaluate=args.eval,
+        self_supervised=args.self_supervised,
+        augment=(_default_augment(args.elastic)
+                 if (args.augment or args.elastic > 0) else None),
+        loss=args.loss, device=device,
+    )
+
+    def report(state, losses, rep) -> None:
+        print(json.dumps({"checkpoint": args.output, "steps": int(state.step),
+                          "loss_curve": losses, **rep}))
+
+    if not args.data_parallel:
+        report(*train_denoiser(**kwargs))
+        return 0
+    from mies_tpu_torch.parallel import make_mesh
+
+    with _process_group(device) as (_, rank):
+        result = train_denoiser(mesh=make_mesh(), **kwargs)
+        if rank == 0:
+            report(*result)
+    return 0
+
+
 def cmd_bench(args, device) -> int:
     from mies_tpu_torch.pipeline.runner import time_pipeline
 
@@ -366,8 +520,10 @@ def main(argv=None, device="cuda") -> int:
                         "(0028,1050/1051)")
     p.add_argument("--data-parallel", action="store_true",
                    help="not ported yet (refused)")
-    p.add_argument("--report", help="not ported yet (refused)")
-    p.add_argument("--run-report", help="not ported yet (refused)")
+    p.add_argument("--report", help="write a before/after PNG report here")
+    p.add_argument("--run-report",
+                   help="write a structured JSON run report (config hash, "
+                        "timings, metrics)")
     p.add_argument("--stage-costs", action="store_true",
                    help="not ported yet (refused)")
     p.set_defaults(fn=cmd_enhance)
@@ -391,13 +547,61 @@ def main(argv=None, device="cuda") -> int:
                    help="resample to MM-mm isotropic voxels first "
                         "(--mode 3d, DICOM series inputs)")
     p.add_argument("--metrics", nargs="+", default=None,
-                   help="not ported yet (refused)")
+                   help="also write per-slice quality metrics vs the "
+                        "(windowed) input, e.g. --metrics psnr ssim")
     p.add_argument("--data-parallel", action="store_true",
                    help="one rank per card under torchrun: --mode 3d "
                         "z-shards the volume, slice mode splits each slab "
                         "(not with --stream: refused)")
     p.add_argument("-q", "--quiet", action="store_true")
     p.set_defaults(fn=cmd_enhance_volume)
+
+    p = sub.add_parser("evaluate", help="full-reference quality metrics")
+    p.add_argument("original")
+    p.add_argument("enhanced")
+    p.add_argument("-m", "--metrics", nargs="+",
+                   default=["psnr", "ssim", "uqi"])
+    p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("train-denoiser", help="train the learned denoiser")
+    p.add_argument("-o", "--output", required=True, help="checkpoint dir")
+    p.add_argument("--data", help="directory of real slices "
+                   "(png/jpg/tif/npy/dcm) to train on; default: synthetic "
+                   "phantoms")
+    p.add_argument("--eval", action="store_true",
+                   help="report PSNR vs the bilateral baseline on a "
+                        "held-out phantom set")
+    p.add_argument("--steps", type=int, default=500)
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--patch", type=int, default=64)
+    p.add_argument("--arch", choices=("dncnn", "unet"), default="dncnn",
+                   help="model family: all-3x3 residual CNN or U-Net "
+                        "encoder-decoder (larger receptive field/FLOP)")
+    p.add_argument("--features", type=int, default=32)
+    p.add_argument("--depth", type=int, default=None,
+                   help="dncnn: conv layers (default 6); unet: stride-2 "
+                        "levels (default 2)")
+    p.add_argument("--noise-sigma", type=float, default=0.08)
+    p.add_argument("--self-supervised", action="store_true",
+                   help="Noise2Void blind-spot training: no clean "
+                        "targets; with --data, the slices' own noise is "
+                        "the noise")
+    p.add_argument("--loss", choices=("l2", "l1", "ssim", "mix"),
+                   default="l2",
+                   help="training objective: l2 (default), l1, ssim, mix "
+                        "(0.16 L1 + 0.84 SSIM); Noise2Void supports l1/l2")
+    p.add_argument("--augment", action="store_true",
+                   help="stochastic augmentation on the card (flips + "
+                        "90-degree rotations on input AND target, "
+                        "brightness/contrast/gamma jitter on the input "
+                        "only)")
+    p.add_argument("--elastic", type=float, default=0.0, metavar="PX",
+                   help="add elastic deformation (implies --augment) with "
+                        "peak displacement PX pixels")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="one rank per card under torchrun: each rank trains "
+                        "on its shard of every batch")
+    p.set_defaults(fn=cmd_train_denoiser)
 
     p = sub.add_parser("ops", help="list every pipeline op with its params, "
                                    "defaults, and constraints")

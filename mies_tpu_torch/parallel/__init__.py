@@ -3,7 +3,8 @@ exchange, row-sharded CLAHE and z-sharded volume chains (the port of
 ``mies_tpu.parallel``).
 
 * data parallelism: each rank runs the chain on its own shard of the batch
-  (``shard_pipeline``);
+  (``shard_pipeline``), with the batch-mean quality metrics by one
+  all_reduce (``sharded_evaluate``);
 * spatial sharding: one oversized slice split into row bands across ranks,
   stencils made exact by exchanging halo rows with the neighbouring ranks,
   clahe on tile-aligned bands with one LUT all_gather
@@ -25,7 +26,7 @@ from mies_tpu_torch.parallel.halo import (
     spatial_shard_apply,
 )
 from mies_tpu_torch.parallel.mesh import init_distributed, make_mesh, mesh_devices
-from mies_tpu_torch.parallel.sharding import shard_pipeline
+from mies_tpu_torch.parallel.sharding import sharded_evaluate, shard_pipeline
 from mies_tpu_torch.parallel.volume_shard import (
     clahe3d_band,
     volume_shard_apply,
@@ -36,6 +37,7 @@ __all__ = [
     "make_mesh",
     "mesh_devices",
     "shard_pipeline",
+    "sharded_evaluate",
     "halo_extend_rows",
     "spatial_shard_apply",
     "batch_spatial_shard_apply",

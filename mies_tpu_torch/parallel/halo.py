@@ -202,8 +202,10 @@ def stage_receptive_field(op: str, params: dict) -> int:
     """Row radius a stage reads beyond its output pixel (0 = pointwise);
     raises for a stage that cannot shard by rows, naming the op."""
     if op not in OP_REGISTRY:
-        raise ValueError(f"op {op!r} is not ported to mies_tpu_torch; no "
-                         f"receptive field for spatial sharding")
+        raise ValueError(f"unknown op {op!r}; no receptive field for "
+                         f"spatial sharding")
+    if op == "learned_denoise":
+        raise ValueError("learned_denoise receptive field is model-dependent")
     if op in ("gaussian_blur", "unsharp_mask"):
         sigma = params.get("sigma", params.get("radius", 1.0))
         truncate = params.get("truncate", 4.0)

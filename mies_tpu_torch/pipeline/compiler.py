@@ -48,7 +48,9 @@ Batched chains on the card:
     decided when the chain is built; the plain bilateral_blur otherwise;
   the edges, Laplacians, DoG, retinex, Kuwahara, Canny, Richardson-Lucy,
     the rolling ball, the geometry ops and histogram_match are plain torch;
-    gabor, gabor_bank and motion_blur one conv2d each (cuDNN, TF32 off).
+    gabor, gabor_bank and motion_blur one conv2d each (cuDNN, TF32 off);
+  learned_denoise: the checkpoint's DnCNN or U-Net (cuDNN convolutions in
+    bfloat16), e.g. before clahe opencv (K1, K2) and unsharp + uint8 (K4).
 The fraction convention runs K1 and K2 (clip01), kornia plain torch.
 
 Volume chains (``compile_volume_pipeline``, [Z, H, W] -> [Z, H, W]):
@@ -249,16 +251,40 @@ def _histogram_match_builder(reference: str):
     return stage
 
 
+def _learned_denoise_builder(checkpoint: str):
+    """Stage builder: load the denoiser checkpoint once, when the chain is
+    built, and run the model on [B, 1, H, W] (bfloat16 compute, as the
+    reference), its weights moved to the chain's device at the first call
+    there."""
+    from mies_tpu_torch.models.denoiser import denoise_batch, load_model
+
+    try:
+        model = load_model(checkpoint)
+    except FileNotFoundError as e:
+        raise FileNotFoundError(
+            f"learned_denoise stage: checkpoint {checkpoint!r} not found "
+            f"(train one with `python -m mies_tpu_torch train-denoiser -o "
+            f"{checkpoint}`)"
+        ) from e
+    on_device = {}
+
+    def stage(img: torch.Tensor) -> torch.Tensor:
+        if img.device not in on_device:
+            on_device[img.device] = model.to(img.device)
+        with torch.no_grad():
+            return denoise_batch(on_device[img.device], img)
+
+    return stage
+
+
 # Ops whose parameters need host-side work when the chain is built (a
-# reference image to load). Signature: builder(**params) -> fn(img) -> img.
+# reference image or a checkpoint to load). Signature: builder(**params) ->
+# fn(img) -> img.
 STAGE_BUILDERS: dict[str, Callable] = {
+    "learned_denoise": _learned_denoise_builder,
     "histogram_match": _histogram_match_builder,
 }
-OP_REGISTRY["histogram_match"] = _histogram_match_builder
-
-# The reference's ops the port refuses by name, with the ROADMAP item that
-# brings them
-NOT_PORTED = {"learned_denoise": "ROADMAP.md queue 1 item 6 (the models)"}
+OP_REGISTRY.update(STAGE_BUILDERS)
 
 # The ops that take only a whole [Z, H, W] volume (the reference's set): a
 # 2-D chain refuses them at build time, by name.

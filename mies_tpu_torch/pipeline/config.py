@@ -3,8 +3,8 @@
 The same schema and the same YAML/JSON files as ``mies_tpu.pipeline.config``
 (``configs/*.yaml``, ``PipelineConfig.to_dict()``): a config is frozen,
 hashable data. ``validate`` checks every stage against the port's own op
-registry and function signatures, so a config naming an op the port does
-not have yet fails at load time with the op named.
+registry (the reference's 99 ops), function signatures and value rules,
+so a bad config fails at load time with the stage named.
 
 Schema (YAML/JSON):
 
@@ -506,6 +506,9 @@ _VALUE_RULES: dict[str, dict[str, tuple]] = {
         "use_quantiles": (lambda v: isinstance(v, bool), "a bool"),
         "mode": _MODE,
     },
+    "learned_denoise": {
+        "checkpoint": (lambda v: isinstance(v, str) and v, "a checkpoint path")
+    },
     "histogram_match": {
         "reference": (
             lambda v: isinstance(v, str) and v,
@@ -707,7 +710,7 @@ def validate(cfg: PipelineConfig) -> None:
     sane — fail at load_config with the stage named."""
     import inspect
 
-    from mies_tpu_torch.pipeline.compiler import NOT_PORTED, OP_REGISTRY
+    from mies_tpu_torch.pipeline.compiler import OP_REGISTRY
 
     ch = cfg.io_dict().get("channels")
     if ch not in (None, "gray", "per-channel"):
@@ -717,10 +720,9 @@ def validate(cfg: PipelineConfig) -> None:
         )
     for i, s in enumerate(cfg.stages):
         if s.op not in OP_REGISTRY:
-            item = f" ({NOT_PORTED[s.op]})" if s.op in NOT_PORTED else ""
             raise ValueError(
-                f"stage {i}: op {s.op!r} is not ported to mies_tpu_torch "
-                f"yet{item}; available: {sorted(OP_REGISTRY)}"
+                f"stage {i}: unknown op {s.op!r}; available: "
+                f"{sorted(OP_REGISTRY)}"
             )
         sig = inspect.signature(OP_REGISTRY[s.op])
         rules = _VALUE_RULES.get(s.op, {})

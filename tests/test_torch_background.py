@@ -15,8 +15,9 @@ value rules of the 26 ops this slice adds, and their row-band forms.
   jitted interp's FMA rounded once), the uint8 chain output within 1
   level on < 1e-3 of pixels of the reference compiler's.
 * Against tests/goldens/golden_ops.py at the reference's own bounds.
-* The registry holds the reference's 99 ops less learned_denoise, which
-  is refused by name with its ROADMAP item; a bad value of each new op's
+* The registry holds the reference's 99 ops (learned_denoise since the
+  models were ported; until then it was refused by name with its ROADMAP
+  item); a bad value of each new op's
   parameters is refused at load with the reference's own message.
 * The row bands of the new stencil ops in gloo worlds of 2 and 4 (one
   spawn each): bit-equal to the unsharded op (shifted adds, min/max),
@@ -237,16 +238,15 @@ NEW_OPS = [
 
 
 def test_registry_is_the_references_less_learned_denoise(tmp_path):
+    """Named when the registry was the reference's less learned_denoise;
+    since the models are ported (queue 1 item 6) it is the reference's 99,
+    and a learned_denoise config loads in both packages alike."""
     assert len(NEW_OPS) == 26 and set(NEW_OPS) <= set(T_OPS)
-    assert set(J_OPS) - set(T_OPS) == {"learned_denoise"}
-    assert set(T_OPS) <= set(J_OPS) and len(T_OPS) == 98
+    assert set(J_OPS) == set(T_OPS) and len(T_OPS) == 99
     p = tmp_path / "ld.json"
     p.write_text(json.dumps({"pipeline": [
         {"op": "learned_denoise", "checkpoint": "ckpt"}]}))
-    mies_tpu.load_config(p)
-    with pytest.raises(ValueError, match="learned_denoise' is not ported.*"
-                       "ROADMAP.md queue 1 item 6"):
-        load_config(p)
+    assert load_config(p).to_dict() == mies_tpu.load_config(p).to_dict()
 
 
 BAD = [

@@ -4,8 +4,7 @@ port's coverage of the shipped configs.
 
 * Every shipped config: all 14 load in ``mies_tpu_torch`` (11 since PR
   13's ops, the last three since the frequency, wavelet and ridge ops) and
-  equal the reference's; a config naming an op the port does not have yet
-  is refused at that stage, the op named.
+  equal the reference's, as does a config with a learned_denoise stage.
 * ``configs/histeq_baseline.yaml``, BASELINE w1 (equalize_hist ->
   adjust_gamma, batch 1), ``configs/mammo_microcalc_tophat.yaml`` and
   BASELINE w7 (median -> top_hat -> rescale_intensity) through
@@ -72,8 +71,8 @@ def _levels_close(a: np.ndarray, b: np.ndarray) -> None:
 
 def test_eleven_of_the_fourteen_shipped_configs_load(tmp_path):
     """Named when 11 loaded; since the frequency, wavelet and ridge ops all
-    14 do. The refusal stays tested on a config whose second stage is an
-    op the port does not have yet (learned_denoise)."""
+    14 do. A config whose second stage is learned_denoise, refused until
+    the models were ported, loads in both packages alike."""
     paths = sorted(CONFIGS.glob("*.yaml"))
     assert len(paths) == 14
     loaded = []
@@ -85,10 +84,8 @@ def test_eleven_of_the_fourteen_shipped_configs_load(tmp_path):
     unported = tmp_path / "learned.yaml"
     unported.write_text("name: dn\npipeline:\n  - {op: median_blur}\n"
                         "  - {op: learned_denoise, checkpoint: dn.ckpt}\n")
-    mies_tpu.load_config(unported)
-    with pytest.raises(ValueError,
-                       match="stage 1: op 'learned_denoise' is not ported"):
-        mies_tpu_torch.load_config(unported)
+    assert mies_tpu_torch.load_config(unported).to_dict() == \
+        mies_tpu.load_config(unported).to_dict()
 
 
 def _xray_batch(xray, shape, dtype, seed) -> np.ndarray:

@@ -4,8 +4,9 @@ input files: ``enhance`` (one file, a batch) and ``enhance-volume``
 (streamed and in memory) within PERF.md section 2's bound (at most 1
 level on fewer than 1e-3 of pixels), on chains without opencv CLAHE
 (the JAX package's opencv CLAHE on XLA:CPU is off cv2; ROADMAP.md queue
-3). Also the refused flags and subcommands, ``ops``, ``--window-from-
-file``, ``--mode 3d`` and ``python -m mies_tpu_torch``.
+3). Also the refused flags and subcommands (and the eval ones, which
+run since they were ported), ``ops``, ``--window-from-file``, ``--mode
+3d`` and ``python -m mies_tpu_torch``.
 """
 
 from __future__ import annotations
@@ -143,11 +144,8 @@ def test_enhance_volume_3d_equals_the_volume_program(tmp_path):
 
 
 REFUSED = [
-    ("enhance", ["--report", "r.png"], "item 5"),
-    ("enhance", ["--run-report", "r.json"], "item 5"),
     ("enhance", ["--stage-costs"], "item 7"),
     ("enhance", ["--data-parallel"], "item 7"),
-    ("enhance-volume", ["--metrics", "psnr"], "item 5"),
     ("enhance-volume", ["--data-parallel", "--stream"], "item 7"),
 ]
 
@@ -162,6 +160,37 @@ def test_unported_flags_exit_2_naming_the_roadmap_item(tmp_path, sharpen, cmd,
     err = capsys.readouterr().err
     assert f"{flag[0]} is not ported" in err
     assert f"ROADMAP.md queue 1 {item}" in err
+
+
+# the flags queue 1 item 5 ported (eval), refused until then
+EVAL_FLAGS = [
+    ("enhance", ["--report", "r.png"]),
+    ("enhance", ["--run-report", "r.json"]),
+    ("enhance-volume", ["--metrics", "psnr"]),
+]
+
+
+@pytest.mark.parametrize("cmd,flag", EVAL_FLAGS,
+                         ids=[f"{c}{f[0]}" for c, f in EVAL_FLAGS])
+def test_eval_flags_run_and_write_their_file(tmp_path, sharpen, cmd, flag,
+                                             capsys):
+    """--report, --run-report and --metrics run (tests/test_torch_eval_cli.py
+    holds their numbers against the reference's) and write their file."""
+    if cmd == "enhance":
+        src, out = _png(tmp_path / "x.png"), tmp_path / "o.png"
+    else:
+        src, out = tmp_path / "v.npy", tmp_path / "o.npy"
+        save_volume(src, np.random.default_rng(1).random((3, 24, 32)).astype(
+            np.float32))
+    made = tmp_path / flag[1]
+    argv = [cmd, str(src), "-c", str(sharpen), "-o", str(out), flag[0],
+            str(made) if cmd == "enhance" else flag[1]]
+    assert cli.main(argv, device="cpu") == 0
+    line = json.loads(capsys.readouterr().out)
+    if cmd == "enhance-volume":
+        made = Path(line["metrics_file"])
+        assert set(line["metrics_mean"]) == {"psnr"}
+    assert made.exists() and made.stat().st_size > 0
 
 
 # --- enhance-volume --data-parallel in a gloo world of 2 --------------------
@@ -354,25 +383,41 @@ def test_isotropic_refusals(tmp_path, extra, match):
 
 
 def test_isotropic_with_metrics_is_refused_naming_item_5(tmp_path, capsys):
+    """Since --metrics is ported (queue 1 item 5) the refusal is the
+    reference's: the resampled grid has no full-reference counterpart."""
     _dicom_series(tmp_path / "series")
     cfg_path = tmp_path / "iso.yaml"
     cfg_path.write_text(ISO_CHAIN)
-    assert cli.main(["enhance-volume", str(tmp_path / "series"), "-c",
-                     str(cfg_path), "-o", str(tmp_path / "o.nc"), "--mode",
-                     "3d", "--isotropic", "1.0", "--metrics", "psnr"],
-                    device="cpu") == 2
-    err = capsys.readouterr().err
-    assert "--metrics is not ported" in err and "queue 1 item 5" in err
+    with pytest.raises(SystemExit, match="--isotropic changes the grid shape"):
+        cli.main(["enhance-volume", str(tmp_path / "series"), "-c",
+                  str(cfg_path), "-o", str(tmp_path / "o.nc"), "--mode",
+                  "3d", "--isotropic", "1.0", "--metrics", "psnr"],
+                 device="cpu")
 
 
-@pytest.mark.parametrize("sub,item", [("evaluate", "item 5"),
-                                      ("train-denoiser", "item 6"),
-                                      ("serve", "item 7"), ("export", "item 7"),
+@pytest.mark.parametrize("sub,item", [("serve", "item 7"), ("export", "item 7"),
                                       ("doctor", "item 7"), ("warmup", "item 7")])
 def test_unported_subcommands_exit_2_naming_the_roadmap_item(sub, item, capsys):
     assert cli.main([sub, "-c", "x.yaml", "--anything"], device="cpu") == 2
     err = capsys.readouterr().err
     assert f"{sub} is not ported" in err and f"ROADMAP.md queue 1 {item}" in err
+
+
+@pytest.mark.parametrize("sub", ["evaluate", "train-denoiser"])
+def test_ported_subcommands_run(tmp_path, sub, capsys):
+    """evaluate (queue 1 item 5) and train-denoiser (item 6), refused until
+    ported, run: one JSON result (tests/test_torch_eval_cli.py and
+    tests/test_torch_train.py hold them to the reference's)."""
+    if sub == "evaluate":
+        a, b = _png(tmp_path / "a.png", seed=1), _png(tmp_path / "b.png", seed=2)
+        argv = [sub, str(a), str(b)]
+    else:
+        argv = [sub, "-o", str(tmp_path / "ck"), "--steps", "2", "--batch",
+                "2", "--patch", "16", "--features", "4", "--depth", "3"]
+    assert cli.main(argv, device="cpu") == 0
+    out = json.loads(capsys.readouterr().out)
+    assert set(out) >= ({"psnr", "ssim", "uqi"} if sub == "evaluate"
+                        else {"checkpoint", "steps", "loss_curve"})
 
 
 def test_batch_mode_needs_an_output_dir(tmp_path, sharpen, capsys):
@@ -384,7 +429,7 @@ def test_batch_mode_needs_an_output_dir(tmp_path, sharpen, capsys):
 def test_ops_lists_the_ports_registry(capsys):
     assert cli.main(["ops"], device="cpu") == 0
     got = json.loads(capsys.readouterr().out)
-    assert sorted(got) == sorted(OP_REGISTRY) and len(got) == 98
+    assert sorted(got) == sorted(OP_REGISTRY) and len(got) == 99
     ref = json.loads(json.dumps(jcli._ops_listing(), default=str))
     got = json.loads(json.dumps(got, default=str))
     for op, params in got.items():  # same parameters and defaults
@@ -432,4 +477,4 @@ def test_python_m_runs_the_cli(tmp_path):
     proc = subprocess.run([sys.executable, "-m", "mies_tpu_torch", "ops"],
                           capture_output=True, text=True, env=env, cwd=REPO,
                           timeout=120)
-    assert proc.returncode == 0 and len(json.loads(proc.stdout)) == 98
+    assert proc.returncode == 0 and len(json.loads(proc.stdout)) == 99

@@ -474,7 +474,7 @@ def test_receptive_fields():
     for op, match in (("clahe", "global/tile"), ("denoise_tv", "global/tile"),
                       ("musica", "global/tile"), ("clahe3d", "unknown op"),
                       ("homomorphic", "global/tile"),
-                      ("learned_denoise", "not ported")):
+                      ("learned_denoise", "model-dependent")):
         with pytest.raises(ValueError, match=match):
             stage_receptive_field(op, {})
     with pytest.raises(ValueError, match="sigma"):

@@ -106,8 +106,8 @@ def _write_config(tmp_path, stages) -> Path:
     ({"op": "clahe", "clip_limit": -1.0}, "clip_limit"),
     ({"op": "unsharp_mask", "sigma": 1.0}, "does not accept param 'sigma'"),
     ({"op": "homomorphic", "order": -2.0}, "order=-2.0"),
-    ({"op": "learned_denoise", "checkpoint": "dn.ckpt"},
-     "'learned_denoise' is not ported"),
+    ({"op": "learned_denoise", "checkpoint": ""},
+     "param checkpoint='' is invalid"),
 ])
 def test_bad_config_raises_at_load(tmp_path, stage, match):
     with pytest.raises(ValueError, match=match):
@@ -159,16 +159,21 @@ def test_timing_refuses_the_cpu():
 
 
 def test_port_imports_neither_jax_nor_mies_tpu(tmp_path):
-    """The port, its file I/O (every codec), the native decoders, the CLI
-    and the file entry points load no jax, jaxlib, triton or mies_tpu module;
+    """The port, its file I/O (every codec), the native decoders, the CLI,
+    the file entry points, the metric suite and its reports, the models and
+    the sharded evaluation load no jax, jaxlib, triton or mies_tpu module;
     a DICOM/.nc-only run (one small DICOM of each compressed syntax
     decoded, a DICOM enhanced, a .nc streamed) loads no PIL either, so
-    the card's path cannot need Pillow."""
+    the card's path cannot need Pillow; nothing loads matplotlib (only a
+    report's panel draws it)."""
     code = (
         "import sys, torch\n"
         "import numpy as np\n"
         "import mies_tpu_torch\n"
         "import mies_tpu_torch.io, mies_tpu_torch.native, mies_tpu_torch.cli\n"
+        "import mies_tpu_torch.eval, mies_tpu_torch.eval.report\n"
+        "import mies_tpu_torch.models, mies_tpu_torch.models.augment\n"
+        "import mies_tpu_torch.parallel.sharding\n"
         "import mies_tpu_torch.io.jpegll, mies_tpu_torch.io.jpegdct\n"
         "import mies_tpu_torch.io.jpegls, mies_tpu_torch.io.jpeg2k\n"
         "import mies_tpu_torch.io.htj2k, mies_tpu_torch.io.htj2k_tables\n"
@@ -206,8 +211,11 @@ def test_port_imports_neither_jax_nor_mies_tpu(tmp_path):
         "enhance_volume_stream(f'{tmp}/in.nc', cfg, f'{tmp}/out.nc', slab_size=5,\n"
         "                      device='cpu')\n"
         "assert load_volume(f'{tmp}/out.nc')[0].shape == ct.shape\n"
+        "from mies_tpu_torch.eval import evaluate\n"
+        "assert evaluate(ct[0], ct[0] + 1, device='cpu')['ssim'] > 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'triton', 'mies_tpu', 'PIL'))\n"
+        "             ('jax', 'jaxlib', 'triton', 'mies_tpu', 'PIL',\n"
+        "              'matplotlib', 'flax', 'optax', 'orbax'))\n"
         "print(bad)\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO)}
