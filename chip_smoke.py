@@ -189,7 +189,29 @@ Phases, one printed line each (or a few):
                CLAHE); slices/s, the convolutions' share, busy); evaluate,
                enhance --run-report and train-denoiser --steps 20 as
                subprocesses on DICOM files, each equal to the in-process
-               result.
+               result;
+ 11. serving and deployment — the HTTP server (mies_tpu_torch.serve) in
+               a thread with the flagship chain on the card: 64 seeded
+               512^2 uint8 PNGs from one client and 16 from 4 concurrent
+               clients (each response equal to runner.enhance_image on the
+               card, within 1 level on < 1e-3 of pixels of the plain chain
+               on the card; K1 to the LUTs, K2, K3, K4 once a request),
+               8 int16 DICOMs by ?filename= to a ct_soft_tissue server;
+               requests/s, p50/p95, the handler's decode / chain (CUDA
+               events) / encode split beside time_latency; export_pipeline
+               of the flagship at b32 and b1 (uint8) and of
+               configs/ct_volume_3d.yaml as an int16 [256, 512, 512] volume,
+               then the b32 once more: each artifact bit-equal to its
+               chain, its mies ops launching the kernels once a call, ms
+               of the artifact beside the closure, bytes, export seconds;
+               serve --artifact with the b1 artifact (responses equal to
+               the server's, a wrong shape a 400); `python -m
+               mies_tpu_torch serve --warmup 512x512`, `doctor`, `warmup`
+               and `enhance --run-report --stage-costs` as four
+               subprocesses at once; enhance_batch(mesh=) on the 64 PNG
+               files and enhance_volume_stream(mesh=) on a seeded 512^3
+               int16 .nc (w5) at NCCL world 1, equal to the runs without a
+               mesh, files/s and z-slices/s beside them.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -1790,6 +1812,446 @@ def _eval_models_phase(dev: torch.device, card: str, repo: Path) -> dict:
     return counted
 
 
+def _post(url: str, body: bytes, timeout: float = 60.0) -> tuple[int, bytes]:
+    """POST ``body`` to ``url``: (status, response body); an HTTP error's
+    status and body too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "image/png"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _png(a: np.ndarray) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _unpng(data: bytes) -> np.ndarray:
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)))
+
+
+def _pct(samples: list[float]) -> tuple[float, float]:
+    s = sorted(samples)
+    return s[len(s) // 2], s[min(int(len(s) * 0.95), len(s) - 1)]
+
+
+def _serving_phase(dev: torch.device, card: str, repo: Path) -> dict:
+    """Phase 11: serving and deployment. (a) make_server(flagship) in a
+    thread on the card, the reference's body cap and timeout: 64 seeded
+    512^2 uint8 PNGs from one client, then 16 from 4 concurrent clients,
+    and 8 seeded 512^2 int16 DICOMs (by ?filename=) to a ct_soft_tissue
+    server; each response bit-equal to runner.enhance_image on the card and
+    within 1 level on < 1e-3 of pixels of the plain chain on the card (K3's
+    2e-6), K1 to the LUTs, K2, K3, K4 once a request; requests/s, p50/p95
+    per request, the handler's decode / chain (CUDA events) / encode split,
+    the chain's own batch-1 time_latency. (b) export_pipeline of the
+    flagship at b32 512^2 uint8 and at b1, and of configs/ct_volume_3d.yaml
+    as an int16 [256, 512, 512] volume (then the b32 flagship once more in
+    the same process): each artifact bit-equal to compile_pipeline /
+    compile_volume_pipeline on the same input, its mies ops launching the
+    kernels once a call; ms per call of the artifact and of the closure
+    (CUDA events), artifact bytes, export seconds. (c) serve --artifact
+    with the b1 artifact: the 64 PNGs' responses bit-equal to (a)'s, a
+    wrong shape a 400. (d) `python -m mies_tpu_torch serve -c
+    configs/xray_clahe.yaml --port 0 --warmup 512x512` as a subprocess (its
+    announce line read, one POST, terminated), `doctor` (exit 0, the card
+    named), `warmup --batch 1 32`, `enhance --run-report --stage-costs`
+    (every stage's operations and bytes finite). (e) enhance_batch(mesh=)
+    on the 64 PNG files and enhance_volume_stream(mesh=) on phase 6's w5
+    .nc (a seeded 512^3 int16 volume) on an NCCL world of one, each output
+    bit-equal to the run without a mesh, files/s and z-slices/s beside it.
+    Returns the kernels' launches by the flagship server's requests."""
+    import queue
+    import threading
+
+    import torch.distributed as dist
+
+    from mies_tpu_torch.io.dicom import write_dicom
+    from mies_tpu_torch.io.image import load_image
+    from mies_tpu_torch.io.volume import load_volume, save_volume
+    from mies_tpu_torch.kernels import _build
+    from mies_tpu_torch.parallel import init_distributed, make_mesh
+    from mies_tpu_torch.pipeline.compiler import (
+        OP_REGISTRY,
+        _ingest,
+        _quantize_u8,
+        compile_pipeline,
+        compile_volume_pipeline,
+    )
+    from mies_tpu_torch.pipeline.config import load_config
+    from mies_tpu_torch.pipeline.export import export_pipeline, load_exported
+    from mies_tpu_torch.pipeline.presets import (
+        flagship_config,
+        flagship_volume_config,
+    )
+    from mies_tpu_torch.pipeline.runner import (
+        enhance_batch,
+        enhance_image,
+        enhance_volume_stream,
+        time_latency,
+    )
+    from mies_tpu_torch.serve import (
+        DEFAULT_MAX_BODY_BYTES,
+        make_server,
+    )
+
+    flagship = flagship_config()
+    kern4 = ("tile_luts", "clahe_apply_lut", "bilateral", "unsharp_quant")
+    rng = np.random.default_rng(11)
+    imgs = [np.clip(_xray_batch(1, SIZE, SIZE, seed=100 + i)[0] * 255.0
+                    + rng.normal(0, 2, (SIZE, SIZE)), 0, 255).astype(np.uint8)
+            for i in range(64)]
+    bodies = [_png(a) for a in imgs]
+
+    def plain(cfg, img: np.ndarray) -> torch.Tensor:
+        y = _ingest(torch.from_numpy(img).to(dev)[None])
+        for s in cfg.stages:
+            y = OP_REGISTRY[s.op](y, **s.kwargs())
+        return _quantize_u8(y)[0]
+
+    def running(srv):
+        t = threading.Thread(target=srv.serve_forever, daemon=True)
+        t.start()
+        return t, f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def stop(srv, t):
+        srv.shutdown()
+        srv.server_close()
+        t.join(60)
+        _require(not t.is_alive(), "the server thread did not stop")
+
+    def clients(url, work, n):
+        """``work`` (index, body) split over ``n`` client threads; returns
+        {index: (status, body, seconds)} and the wall seconds."""
+        results, errors = {}, []
+
+        def run(part):
+            try:
+                for i, body in part:
+                    t0 = time.perf_counter()
+                    st, data = _post(url, body)
+                    results[i] = (st, data, time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=(work[k::n],))
+                   for k in range(n)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        _require(not errors and not any(t.is_alive() for t in threads),
+                 f"clients failed: {errors}")
+        return results, wall
+
+    results = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        # -- (a) the server -------------------------------------------------
+        srv = make_server(flagship, port=0, device=dev)
+        _require(srv.RequestHandlerClass.timeout == 60.0,
+                 "the server's request timeout is not the reference's")
+        th, url = running(srv)
+        try:
+            st, _ = _post(url + "/enhance", bodies[0])  # warm the chain
+            _require(st == 200, f"warm-up request: {st}")
+            srv.state.timings.clear()
+            _build.reset_launches()
+            serial, wall_s = clients(url + "/enhance",
+                                     list(enumerate(bodies)), 1)
+            torch.cuda.synchronize(dev)
+            counts_s = dict(_build.LAUNCHES)
+            conc, wall_c = clients(url + "/enhance",
+                                   [(i, bodies[i]) for i in range(16)], 4)
+            torch.cuda.synchronize(dev)
+            counts = dict(_build.LAUNCHES)
+            timings = list(srv.state.timings)
+        finally:
+            stop(srv, th)
+        want = {k: 80 * (k in kern4) for k in counts}
+        _require(counts == want, f"served flagship launches {counts}, "
+                 f"want {want} (64 + 16 requests)")
+        _require({k: v for k, v in counts_s.items() if v} ==
+                 dict.fromkeys(kern4, 64), f"serial launches {counts_s}")
+        plain_off = 0
+        for i in range(64):
+            st, data, _ = serial[i]
+            _require(st == 200, f"request {i}: {st} {data[:200]!r}")
+            out = _unpng(data)
+            (tmp / "r.png").write_bytes(bodies[i])
+            _require(np.array_equal(out, enhance_image(tmp / "r.png", flagship,
+                                                       device=dev)),
+                     f"response {i} differs from enhance_image")
+            d = np.abs(out.astype(np.int16)
+                       - plain(flagship, imgs[i]).cpu().numpy().astype(
+                           np.int16))
+            _require(d.max() <= 1 and (d > 0).mean() < 1e-3,
+                     f"response {i}: {(d > 0).sum()} pixels off the plain "
+                     f"chain (max {d.max()})")
+            plain_off += int((d > 0).sum())
+            if i < 16:
+                _require(conc[i][0] == 200 and conc[i][1] == data,
+                         f"concurrent response {i} differs from the serial")
+        results["served"] = [serial[i][1] for i in range(64)]
+        lat_s = [serial[i][2] * 1e3 for i in range(64)]
+        lat_c = [conc[i][2] * 1e3 for i in range(16)]
+        split = {k: _pct([t[k] for t in timings])[0]
+                 for k in ("decode_ms", "chain_ms", "encode_ms")}
+        lat1 = time_latency(flagship, iters=16, repeats=16, device=dev)
+        # the int16 CT server: 8 DICOMs by ?filename=
+        ct_cfg = load_config(repo / "configs" / "ct_soft_tissue.yaml")
+        ct = _ct_batch(8, SIZE, SIZE, seed=21)
+        dcms = []
+        for i in range(8):
+            write_dicom(tmp / f"ct{i}.dcm", ct[i])
+            dcms.append((tmp / f"ct{i}.dcm").read_bytes())
+        srv = make_server(ct_cfg, port=0, device=dev)
+        th, url = running(srv)
+        try:
+            _post(url + "/enhance?filename=w.dcm", dcms[0])
+            _build.reset_launches()
+            dres, wall_d = clients(url + "/enhance?filename=s.dcm",
+                                   list(enumerate(dcms)), 1)
+            torch.cuda.synchronize(dev)
+            ct_counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        finally:
+            stop(srv, th)
+        _require(ct_counts == {"tile_luts": 8, "clahe_apply_lut": 8,
+                               "unsharp_quant": 8},
+                 f"served CT launches {ct_counts}")
+        for i in range(8):
+            _require(dres[i][0] == 200, f"DICOM {i}: {dres[i][0]}")
+            _require(np.array_equal(_unpng(dres[i][1]), enhance_image(
+                tmp / f"ct{i}.dcm", ct_cfg, device=dev)),
+                f"DICOM response {i} differs from enhance_image")
+        print(f"serve (a) flagship {SIZE}^2 uint8 PNG: serial 64 requests "
+              f"{64 / wall_s:.1f} req/s, p50/p95 "
+              f"{_pct(lat_s)[0]:.3f}/{_pct(lat_s)[1]:.3f} ms; 4 clients x 4 "
+              f"{16 / wall_c:.1f} req/s, p50/p95 {_pct(lat_c)[0]:.3f}/"
+              f"{_pct(lat_c)[1]:.3f} ms | in the handler (p50 of 80) decode "
+              f"{split['decode_ms']:.3f}, chain {split['chain_ms']:.4f} (CUDA "
+              f"events, H2D + 4 kernels), encode {split['encode_ms']:.3f} ms | "
+              f"the chain's own batch-1 time_latency p50/p95 "
+              f"{lat1['p50_ms']:.4f}/{lat1['p95_ms']:.4f} ms | launches "
+              f"{ {k: v for k, v in counts.items() if v} } | every response "
+              f"== enhance_image; {plain_off} of {64 * SIZE * SIZE} pixels 1 "
+              f"level off the plain chain | ct_soft_tissue int16 DICOM x 8 "
+              f"{8 / wall_d:.1f} req/s, == enhance_image, launches "
+              f"{ct_counts} | max body {DEFAULT_MAX_BODY_BYTES} B | {card}")
+
+        # -- (b) export ------------------------------------------------------
+        xb = torch.from_numpy(np.stack(imgs[:BATCH])).to(dev)
+        x1 = xb[0].contiguous()
+        ctv_cfg = load_config(repo / "configs" / "ct_volume_3d.yaml")
+        vol = _ct_volume(256, SIZE, SIZE, seed=4, dev=dev)
+        arts = {}
+        for key, cfg, kw, inp, ref_fn in (
+                ("b32", flagship, {"batch_size": BATCH, "input_dtype": "uint8"},
+                 xb, compile_pipeline(flagship, batched=True, device=dev)),
+                ("b1", flagship, {"input_dtype": "uint8"}, x1,
+                 compile_pipeline(flagship, device=dev)),
+                ("volume", ctv_cfg, {"volume": True, "input_dtype": "int16"},
+                 vol, compile_volume_pipeline(ctv_cfg, device=dev)),
+                ("b32 again", flagship,
+                 {"batch_size": BATCH, "input_dtype": "uint8"}, xb,
+                 compile_pipeline(flagship, batched=True, device=dev))):
+            shape = tuple(inp.shape) if key == "volume" else (SIZE, SIZE)
+            t0 = time.perf_counter()
+            path = export_pipeline(cfg, tmp / f"{key}.mies", shape=shape,
+                                   device=dev, **kw)
+            export_s = time.perf_counter() - t0
+            fn, hdr = load_exported(path, device=dev)
+            _require(hdr["platforms"] == ["cuda"], f"{key}: {hdr}")
+            _build.reset_launches()
+            got = fn(inp)
+            torch.cuda.synchronize(dev)
+            art_counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+            want_ref = ref_fn(inp)
+            _require(torch.equal(got, want_ref),
+                     f"the {key} artifact differs from its chain")
+            want_counts = ({"tile_hists": 1, "clahe3d_apply": 1}
+                           if key == "volume" else dict.fromkeys(kern4, 1))
+            _require(art_counts == want_counts,
+                     f"{key} artifact launches {art_counts}")
+            arts[key] = (path, fn, hdr)
+            iters = 5 if key == "volume" else 20
+            ms_art = _ms(lambda: fn(inp), iters)
+            ms_ref = _ms(lambda: ref_fn(inp), iters)
+            print(f"export (b) {key} {list(inp.shape)} {inp.dtype}: artifact "
+                  f"{ms_art:.4f} ms a call, the closure {ms_ref:.4f} (CUDA "
+                  f"events, {iters} calls) | {path.stat().st_size} B, export "
+                  f"{export_s:.2f} s | bit-equal, launches {art_counts} | "
+                  f"{card}")
+
+        # -- (c) serve --artifact --------------------------------------------
+        _, fn1, hdr1 = arts["b1"]
+        srv = make_server(flagship, port=0, artifact_fn=fn1,
+                          artifact_header=hdr1, device=dev)
+        th, url = running(srv)
+        try:
+            _post(url + "/enhance", bodies[0])
+            ares, wall_a = clients(url + "/enhance", list(enumerate(bodies)), 1)
+            small = _png(imgs[0][:SIZE // 2, :SIZE // 2].copy())
+            st_bad, msg_bad = _post(url + "/enhance", small)
+        finally:
+            stop(srv, th)
+        for i in range(64):
+            _require(ares[i][0] == 200 and ares[i][1] == results["served"][i],
+                     f"artifact response {i} differs from (a)'s")
+        _require(st_bad == 400 and b"re-export" in msg_bad,
+                 f"a wrong shape gave {st_bad} {msg_bad[:120]!r}")
+        lat_a = [ares[i][2] * 1e3 for i in range(64)]
+        print(f"serve (c) --artifact b1: 64 requests {64 / wall_a:.1f} req/s, "
+              f"p50/p95 {_pct(lat_a)[0]:.3f}/{_pct(lat_a)[1]:.3f} ms, every "
+              f"response == (a)'s; {SIZE // 2}^2 -> {st_bad} | {card}")
+
+        # -- (d) the command line: the four subprocesses run at once ------
+        env = {**os.environ, "PYTHONPATH": str(repo)}
+        xray_cfg = repo / "configs" / "xray_clahe.yaml"
+        (tmp / "in.png").write_bytes(bodies[2])
+        cmds = {
+            "serve": ["serve", "-c", str(xray_cfg), "--port", "0",
+                      "--warmup", "512x512"],
+            "doctor": ["doctor"],
+            "warmup": ["warmup", "-c", str(xray_cfg), "--batch", "1", "32"],
+            "enhance": ["enhance", str(tmp / "in.png"), "-c", str(xray_cfg),
+                        "-o", str(tmp / "out.png"), "--run-report",
+                        str(tmp / "r.json"), "--stage-costs"],
+        }
+        procs = {}
+        t0 = time.perf_counter()
+        for name, args in cmds.items():
+            with open(tmp / f"{name}.out", "w") as out, \
+                    open(tmp / f"{name}.err", "w") as err:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "mies_tpu_torch", *args],
+                    stdout=subprocess.PIPE if name == "serve" else out,
+                    stderr=err, text=True, cwd=repo, env=env)
+        lines: queue.Queue = queue.Queue()
+        threading.Thread(
+            target=lambda: lines.put(procs["serve"].stdout.readline()),
+            daemon=True).start()
+        try:
+            try:
+                announce = json.loads(lines.get(timeout=180))
+            except (queue.Empty, ValueError):
+                raise RuntimeError(
+                    "chip_smoke check failed: serve printed no announce line "
+                    "in 180 s: " + (tmp / "serve.err").read_text()[-800:]
+                ) from None
+            startup_s = time.perf_counter() - t0
+            st, data = _post(announce["serving"] + "/enhance", bodies[1])
+            for name in ("doctor", "warmup", "enhance"):
+                rc = procs[name].wait(300)
+                _require(rc == 0, f"{name} exit {rc}: "
+                         f"{(tmp / f'{name}.err').read_text()[-500:]}")
+            cli_s = time.perf_counter() - t0
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.terminate()
+                    try:
+                        proc.wait(30)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+        _require(st == 200 and data == results["served"][1],
+                 f"the serve subprocess answered {st}, not (a)'s response")
+        doc = json.loads((tmp / "doctor.out").read_text())
+        _require(doc["status"] == "ok" and doc["accelerator"]["name"]
+                 == torch.cuda.get_device_name(0) and doc["sharding"]["ok"]
+                 and doc["kernels"]["current"], f"doctor: {doc}")
+        warm = json.loads((tmp / "warmup.out").read_text())
+        _require([c["batch"] for c in warm["compiled"]] == [1, 32]
+                 and warm["backend"] == "cuda", f"warmup: {warm}")
+        costs = json.loads((tmp / "r.json").read_text())["stage_costs"]
+        _require([c["op"] for c in costs] == ["clahe", "bilateral_blur",
+                                              "unsharp_mask"]
+                 and all(math.isfinite(c.get("flops", math.nan))
+                         and math.isfinite(c.get("bytes", math.nan))
+                         for c in costs), f"stage costs {costs}")
+        print(f"serve (d) CLI, four subprocesses at once ({cli_s:.2f} s): "
+              f"serve --warmup 512x512 announced in {startup_s:.2f} s, one "
+              f"POST == (a)'s; doctor exit 0 "
+              f"({doc['accelerator']['name']}, "
+              f"{doc['accelerator']['power_limit']}, kernels current, gloo "
+              f"world 2 ok); warmup "
+              + ", ".join(f"b{c['batch']} {c['seconds']} s"
+                          for c in warm["compiled"])
+              + f" (kernel build {warm['kernel_build_seconds']} s); "
+              f"--stage-costs " + ", ".join(
+                  f"{c['op']} {c['flops']:.3g} ops {c['bytes']:.3g} B"
+                  for c in costs) + f" | {card}")
+
+        # -- (e) data-parallel at NCCL world 1 --------------------------------
+        src = tmp / "png"
+        src.mkdir()
+        paths = []
+        for i, body in enumerate(bodies):
+            paths.append(src / f"x{i:02d}.png")
+            paths[-1].write_bytes(body)
+        vol5 = np.random.default_rng(0).integers(-1000, 2000, (512, SIZE, SIZE),
+                                                 dtype=np.int16)
+        save_volume(tmp / "w5.nc", vol5, var_name="hu")
+        del vol5
+        cfg5 = flagship_volume_config()
+        walls = {}
+        for mode in ("one", "mesh", "mesh 2", "one 2"):
+            meshed = mode.startswith("mesh")
+            with tempfile.TemporaryDirectory() as store:
+                if meshed:
+                    init_distributed(f"file://{store}/store", 1, 0,
+                                     device=dev.type)
+                try:
+                    kw = {"mesh": make_mesh()} if meshed else {"device": dev}
+                    t0 = time.perf_counter()
+                    enhance_batch(paths, flagship, tmp / f"b_{mode}",
+                                  progress=False, **kw)
+                    t1 = time.perf_counter()
+                    enhance_volume_stream(tmp / "w5.nc", cfg5,
+                                          tmp / f"w5_{mode}.nc", **kw)
+                    t2 = time.perf_counter()
+                finally:
+                    if meshed:
+                        dist.destroy_process_group()
+            walls[mode] = (t1 - t0, t2 - t1)
+        for i, p in enumerate(paths):
+            a = load_image(tmp / "b_mesh" / p.name, dtype="raw")
+            _require(np.array_equal(a, load_image(tmp / "b_one" / p.name,
+                                                  dtype="raw")),
+                     f"enhance_batch(mesh=) {p.name} differs")
+            _require(np.array_equal(a, _unpng(results["served"][i])),
+                     f"enhance_batch {p.name} differs from the server's")
+        w_one, _ = load_volume(tmp / "w5_one.nc")
+        w_mesh, _ = load_volume(tmp / "w5_mesh.nc")
+        _require(np.array_equal(w_one, w_mesh),
+                 "enhance_volume_stream(mesh=) differs")
+        print("data-parallel (e) NCCL world 1: enhance_batch 64 PNG files "
+              + ", ".join(f"{m} {64 / w[0]:.1f}" for m, w in walls.items())
+              + " files/s; enhance_volume_stream w5 512^3 int16 .nc "
+              + ", ".join(f"{m} {512 / w[1]:.1f}" for m, w in walls.items())
+              + f" z-slices/s | outputs bit-equal with and without the mesh "
+              f"| {card}")
+    return counts
+
+
 def main() -> int:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3119,6 +3581,11 @@ def main() -> int:
     # evaluated flagship's and on the learned chain's; K3 on the first two
     launches = {k: launches[k] + p10["sharded_evaluate"][k]
                 + p10["learned"][k] for k in launches}
+
+    # -- 11. serving and deployment --------------------------------------
+    # K1 to the LUTs, K2, K3 and K4 launch once a served flagship request
+    p11 = _serving_phase(dev, card, repo)
+    launches = {k: launches[k] + p11[k] for k in launches}
 
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (

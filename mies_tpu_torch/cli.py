@@ -1,32 +1,39 @@
-"""CLI: enhance / enhance-volume / evaluate / train-denoiser / ops / bench on
-the card.
+"""CLI: enhance / enhance-volume / evaluate / train-denoiser / serve / export /
+doctor / warmup / ops / bench on the card.
 
-The reference's command line (``mies_tpu/cli.py``) for the subcommands
-whose modules are ported:
+The reference's command line (``mies_tpu/cli.py``), its subcommands, flags,
+defaults, JSON lines and messages:
 
-  python -m mies_tpu_torch enhance -c config.yaml input.png [-o out.png] [--report r.png] [--run-report r.json]
+  python -m mies_tpu_torch enhance -c config.yaml input.png [-o out.png] [--report r.png] [--run-report r.json [--stage-costs]]
   python -m mies_tpu_torch enhance -c config.yaml imgs/*.dcm -o outdir/   (batch, resumable)
-  python -m mies_tpu_torch enhance-volume -c config.yaml vol.nc -o out.nc [--stream] [--metrics psnr ssim]
+  torchrun --nproc-per-node 4 -m mies_tpu_torch enhance -c config.yaml imgs/*.dcm -o outdir/ --data-parallel
+  python -m mies_tpu_torch enhance-volume -c config.yaml vol.nc -o out.nc [--stream [--data-parallel]] [--metrics psnr ssim]
   python -m mies_tpu_torch enhance-volume -c configs/ct_volume_3d.yaml vol.nc -o out.nc --mode 3d
   python -m mies_tpu_torch enhance-volume -c chain3d.yaml dicom_dir/ -o out.nc --mode 3d --isotropic 1.0
   torchrun --nproc-per-node 4 -m mies_tpu_torch enhance-volume -c configs/ct_volume_3d.yaml vol.nc -o out.nc --mode 3d --data-parallel
   python -m mies_tpu_torch evaluate orig.png enhanced.png -m psnr ssim uqi
   python -m mies_tpu_torch train-denoiser -o ckpt/ [--steps 500 --arch dncnn --eval]
   torchrun --nproc-per-node 4 -m mies_tpu_torch train-denoiser -o ckpt/ --data-parallel
+  python -m mies_tpu_torch serve -c config.yaml --warmup 512x512 [--port 8080]
+  python -m mies_tpu_torch export -c config.yaml -o chain.mies --batch 1 --dtype uint8
+  python -m mies_tpu_torch serve --artifact chain.mies
+  python -m mies_tpu_torch doctor
+  python -m mies_tpu_torch warmup -c config.yaml --batch 1 32
   python -m mies_tpu_torch ops
   python -m mies_tpu_torch bench -c config.yaml --batch 32 --size 512
 
-Everything runs on the card; without one the commands raise.
-``--data-parallel`` runs one rank per card, launched by ``torchrun`` (the
-process group joins from its ``env://`` variables; without them it is a
-world of one). ``enhance-volume``: rank 0 reads the input, sends each
-rank its z slab (``--mode 3d``: ``parallel.volume_shard_apply``) or its
-part of every slab (slice mode: ``runner.enhance_volume(mesh=)``),
-gathers the output and writes it. ``train-denoiser``: each rank trains on
-its shard of every batch, the gradients summed by all_reduce; rank 0
-writes the checkpoint. The reference's other subcommands and the flags
-whose modules are not ported yet are refused with exit code 2 and the
-ROADMAP.md item that brings them.
+Everything runs on the card; without one the commands raise (``doctor``
+reports it and exits 1). ``--data-parallel`` runs one rank per card,
+launched by ``torchrun`` (the process group joins from its ``env://``
+variables; without them it is a world of one). ``enhance``: rank 0
+decodes each batch, sends each rank its part, gathers the outputs, saves
+them and keeps the manifest (``runner.enhance_batch(mesh=)``).
+``enhance-volume``: rank 0 reads the input, sends each rank its z slab
+(``--mode 3d``: ``parallel.volume_shard_apply``) or its part of every
+slab (slice mode: ``runner.enhance_volume(mesh=)``; ``--stream``:
+``runner.enhance_volume_stream(mesh=)``), gathers the output and writes
+it. ``train-denoiser``: each rank trains on its shard of every batch, the
+gradients summed by all_reduce; rank 0 writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -40,34 +47,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-
-# refused flag or subcommand -> the ROADMAP.md item that ports it
-NOT_PORTED = {
-    "--stage-costs": "queue 1 item 7 (utils/profiling)",
-    "--data-parallel": "queue 1 item 7 (data-parallel image batches and "
-                       "streamed volumes)",
-    "serve": "queue 1 item 7 (serve.py)",
-    "export": "queue 1 item 7 (pipeline/export.py)",
-    "doctor": "queue 1 item 7 (the user-facing surface)",
-    "warmup": "queue 1 item 7 (the user-facing surface)",
-}
-REFUSED_COMMANDS = ("serve", "export", "doctor", "warmup")
-
-
-def _refuse(what: str) -> int:
-    print(f"error: {what} is not ported to mies_tpu_torch yet: ROADMAP.md "
-          f"{NOT_PORTED[what]}", file=sys.stderr)
-    return 2
-
-
-def _refused_flags(args, flags: tuple[str, ...]) -> str | None:
-    """The first of ``flags`` that was given, or None."""
-    for flag in flags:
-        value = getattr(args, flag.lstrip("-").replace("-", "_"))
-        if value not in (None, False):
-            return flag
-    return None
-
 
 def _load_cfg(path: str):
     from mies_tpu_torch.pipeline.config import load_config
@@ -124,9 +103,6 @@ def _apply_file_window(cfg, inputs):
 def cmd_enhance(args, device) -> int:
     from mies_tpu_torch.pipeline import runner
 
-    flag = _refused_flags(args, ("--stage-costs", "--data-parallel"))
-    if flag:
-        return _refuse(flag)
     cfg = _load_cfg(args.config)
     inputs = [Path(p) for p in args.inputs]
     if args.window_from_file:
@@ -146,6 +122,10 @@ def cmd_enhance(args, device) -> int:
         )
     )
     if not batch_mode:
+        if args.data_parallel:
+            print("error: --data-parallel applies to batch mode only "
+                  "(single-image runs use one device)", file=sys.stderr)
+            return 2
         out_path = args.output or inputs[0].with_name(
             inputs[0].stem + ".enhanced" + inputs[0].suffix
         )
@@ -164,10 +144,20 @@ def cmd_enhance(args, device) -> int:
         print("error: --report/--run-report are single-image flags; batch "
               "runs record progress in the manifest instead", file=sys.stderr)
         return 2
-    manifest = runner.enhance_batch(
-        inputs, cfg, args.output, batch_size=args.batch,
-        resume=not args.no_resume, device=device,
-    )
+    if args.data_parallel:
+        from mies_tpu_torch.parallel import make_mesh
+
+        with _process_group(device):
+            manifest = runner.enhance_batch(
+                inputs, cfg, args.output, batch_size=args.batch,
+                resume=not args.no_resume, mesh=make_mesh())
+        if manifest is None:  # not rank 0: rank 0 saves and reports
+            return 0
+    else:
+        manifest = runner.enhance_batch(
+            inputs, cfg, args.output, batch_size=args.batch,
+            resume=not args.no_resume, device=device,
+        )
     print(json.dumps({"done": manifest.done_count,
                       "failed": len(manifest.failures),
                       "manifest": str(manifest.path)}))
@@ -178,8 +168,10 @@ def _reports(args, cfg, src: Path, out_path, out, wall_ms: float,
              device) -> int:
     """``enhance --report/--run-report``: psnr and ssim of the output
     against the input's uint8 form (``eval.report.reference_u8``), the
-    before/after PNG and the JSON run report. Refused (exit 2) for a
-    multi-channel output or a chain that changes the shape."""
+    before/after PNG and the JSON run report (with ``--stage-costs``,
+    ``utils.profiling.stage_costs`` of the chain at the output's shape
+    and batch 1). Refused (exit 2) for a multi-channel output or a chain
+    that changes the shape."""
     from mies_tpu_torch.eval.metrics import evaluate
     from mies_tpu_torch.eval.report import (
         reference_u8,
@@ -204,10 +196,16 @@ def _reports(args, cfg, src: Path, out_path, out, wall_ms: float,
         save_comparison_report(orig, out, args.report, title=cfg.name,
                                metrics=metrics)
     if args.run_report:
+        extra = {"input": str(src), "output": str(out_path)}
+        if args.stage_costs:
+            from mies_tpu_torch.utils.profiling import stage_costs
+
+            extra["stage_costs"] = stage_costs(
+                cfg, shape=out.shape[-2:], batch_size=1, device=device)
         write_run_report(
             args.run_report, cfg, metrics=metrics,
             timings={"wall_ms_including_compile": wall_ms},
-            extra={"input": str(src), "output": str(out_path)},
+            extra=extra,
         )
     print(json.dumps({"output": str(out_path), "shape": list(out.shape)}))
     return 0
@@ -217,8 +215,6 @@ def cmd_enhance_volume(args, device) -> int:
     from mies_tpu_torch.io.volume import load_volume, save_volume
     from mies_tpu_torch.pipeline import runner
 
-    if args.stream and args.data_parallel:
-        return _refuse("--data-parallel")
     cfg = _load_cfg(args.config)
     if args.window_from_file:
         vp = Path(args.input)
@@ -237,10 +233,21 @@ def cmd_enhance_volume(args, device) -> int:
                 "--isotropic needs --mode 3d (whole-volume resample); "
                 "it cannot run under --stream's slab-at-a-time model"
             )
-        meta = runner.enhance_volume_stream(
-            args.input, cfg, args.output, slab_size=args.slab,
-            var_name=args.var, progress=not args.quiet, device=device,
-        )
+        if args.data_parallel:
+            from mies_tpu_torch.parallel import make_mesh
+
+            with _process_group(device):
+                meta = runner.enhance_volume_stream(
+                    args.input, cfg, args.output, slab_size=args.slab,
+                    var_name=args.var, progress=not args.quiet,
+                    mesh=make_mesh())
+            if meta is None:  # not rank 0: rank 0 writes and reports
+                return 0
+        else:
+            meta = runner.enhance_volume_stream(
+                args.input, cfg, args.output, slab_size=args.slab,
+                var_name=args.var, progress=not args.quiet, device=device,
+            )
         print(json.dumps({"input": meta.source, "shape": list(meta.shape),
                           "output": args.output, "streamed": True}))
         return 0
@@ -403,6 +410,238 @@ def _isotropic_config(cfg, args, shape, spacing, ranks: int | None = None):
     )
 
 
+def cmd_export(args, device) -> int:
+    """Export the chain as a portable .mies artifact (``torch.export``)."""
+    from mies_tpu_torch.pipeline.export import (
+        export_pipeline,
+        read_export_header,
+    )
+
+    cfg = _load_cfg(args.config)
+    if args.volume:
+        if args.batch is not None:
+            raise SystemExit("--batch does not apply to --volume exports "
+                             "(whole-volume programs have no batch axis)")
+        out = export_pipeline(cfg, args.output, shape=tuple(args.volume),
+                              volume=True, input_dtype=args.dtype,
+                              device=device)
+    else:
+        batch = 32 if args.batch is None else args.batch
+        out = export_pipeline(
+            cfg, args.output, shape=(args.size, args.size),
+            batch_size=None if batch <= 1 else batch,
+            input_dtype=args.dtype, device=device,
+        )
+    hdr = read_export_header(out)
+    print(json.dumps({
+        "artifact": str(out), "bytes": out.stat().st_size,
+        "platforms": hdr["platforms"], "input_shape": hdr["input_shape"],
+    }))
+    return 0
+
+
+# the accelerator probe: the card's name, count and power limit, as one
+# JSON line (nvidia-smi's power.limit where it answers)
+_CARD_PROBE = """\
+import json, subprocess, torch
+if not torch.cuda.is_available():
+    raise SystemExit("torch.cuda.is_available() is False")
+rep = {"name": torch.cuda.get_device_name(0),
+       "devices": torch.cuda.device_count()}
+try:
+    rep["power_limit"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30).stdout.splitlines()[0]
+except (OSError, IndexError, subprocess.TimeoutExpired) as e:
+    rep["power_limit"] = f"unavailable: {e}"
+print(json.dumps(rep))
+"""
+
+# one rank of the sharding probe: a gloo all_reduce over a world of 2
+_RANK_PROBE = """\
+import sys, torch, torch.distributed as dist
+dist.init_process_group("gloo", init_method=sys.argv[1], world_size=2,
+                        rank=int(sys.argv[2]))
+t = torch.ones(4)
+dist.all_reduce(t)
+dist.destroy_process_group()
+print(float(t.sum()))
+"""
+
+
+def _last_error(text: str, rc: int) -> str:
+    lines = text.strip().splitlines()
+    return lines[-1][:200] if lines else f"exit {rc}"
+
+
+def _probe_card(timeout: float) -> dict:
+    import subprocess
+
+    try:
+        r = subprocess.run([sys.executable, "-c", _CARD_PROBE],
+                           timeout=timeout, capture_output=True, text=True)
+    except subprocess.TimeoutExpired:
+        return {"error": f"card probe exceeded {timeout}s"}
+    if r.returncode != 0:
+        return {"error": _last_error(r.stderr, r.returncode)}
+    try:
+        return json.loads(r.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        return {"error": f"unparseable probe output: "
+                         f"{r.stdout.strip()[:200]!r}"}
+
+
+def _probe_kernels() -> dict:
+    """The kernel build: nvcc, whether the library is built and its stamp
+    the sources' current hash."""
+    from mies_tpu_torch.kernels import _build
+
+    stamp = _build.LIBRARY.with_suffix(".sha256")
+    rep = {"library": str(_build.LIBRARY), "built": _build.LIBRARY.is_file(),
+           "current": (_build.LIBRARY.is_file() and stamp.is_file()
+                       and stamp.read_text() == _build._digest())}
+    try:
+        rep["nvcc"] = _build.find_nvcc()
+    except RuntimeError as e:
+        rep["error"] = str(e)
+    return rep
+
+
+def _probe_sharding(timeout: float = 180.0) -> dict:
+    """A gloo world of 2 on the CPU, one subprocess a rank."""
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as store:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _RANK_PROBE, f"file://{store}/store",
+             str(rank)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for rank in range(2)]
+        results = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=timeout)
+                results.append((p.returncode, out, err))
+        except subprocess.TimeoutExpired:
+            return {"ok": False, "error": "probe timed out"}
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for rc, out, err in results:
+        if rc != 0 or out.split()[-1:] != ["8.0"]:
+            return {"ok": False, "error": _last_error(err, rc)}
+    return {"ok": True, "world": 2, "backend": "gloo"}
+
+
+def cmd_doctor(args, device) -> int:
+    """Deployment health report: the card (a bounded probe in a
+    subprocess: its name, count and power limit), the kernel build (nvcc,
+    the library and its stamp), the native DICOM parser, and a gloo world
+    of 2 on the CPU. One JSON object.
+
+    Unlike the reference, whose CPU backend is a working deployment, the
+    status is "ok" (exit 0) only when the card is usable and nvcc found:
+    the port's entry points have no CPU fallback, so a healthy CPU alone
+    is "degraded" (exit 1)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from mies_tpu_torch import native
+
+    with ThreadPoolExecutor(max_workers=2) as pool:  # both probes at once
+        card = pool.submit(_probe_card, args.probe_timeout)
+        sharding = pool.submit(_probe_sharding)
+        report = {
+            "torch": torch.__version__,
+            "accelerator": card.result(),
+            "kernels": _probe_kernels(),
+            "native_dicom": {"available": native.available()},
+            "sharding": sharding.result(),
+        }
+    ok = "error" not in report["accelerator"] and \
+        "error" not in report["kernels"]
+    report["status"] = "ok" if ok else "degraded"
+    print(json.dumps(report, indent=2))
+    return 0 if ok else 1
+
+
+def cmd_warmup(args, device) -> int:
+    """Pay a config's first-call costs before production: build the kernels
+    (nvcc, on the card), then run the chain once for each ``--batch`` on
+    zeros of ``--dtype`` and report the seconds of each (the first call's
+    allocator growth and cuDNN algorithm search)."""
+    import time
+
+    import torch
+
+    from mies_tpu_torch.pipeline.compiler import (
+        compile_pipeline,
+        resolve_device,
+    )
+    from mies_tpu_torch.utils.profiling import (
+        device_sync,
+        enable_compilation_cache,
+    )
+
+    dev = resolve_device(device)
+    cfg = _load_cfg(args.config)
+    build_s = None
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        enable_compilation_cache()
+        build_s = round(time.perf_counter() - t0, 2)
+    h, w = args.size, args.size
+    dtype = torch.int16 if args.dtype == "int16" else torch.float32
+    compiled = []
+    for b in args.batch:
+        t0 = time.perf_counter()
+        fn = compile_pipeline(cfg, batched=(b > 1), device=dev)
+        shape = (b, h, w) if b > 1 else (h, w)
+        device_sync(fn(torch.zeros(shape, dtype=dtype, device=dev)))
+        compiled.append(
+            {"batch": b, "shape": [h, w], "dtype": args.dtype,
+             "seconds": round(time.perf_counter() - t0, 2)}
+        )
+    print(json.dumps({"config": cfg.name, "backend": dev.type,
+                      "kernel_build_seconds": build_s,
+                      "compiled": compiled}))
+    return 0
+
+
+def cmd_serve(args, device) -> int:
+    from mies_tpu_torch.serve import serve
+
+    if args.artifact is None and args.config is None:
+        raise SystemExit("serve needs -c CONFIG or --artifact FILE.mies")
+    if args.artifact is not None and args.config is not None:
+        raise SystemExit(
+            "-c and --artifact conflict: the artifact embeds its own "
+            "config — pass exactly one"
+        )
+    if args.artifact is not None and args.warmup:
+        raise SystemExit("--warmup is meaningless with --artifact "
+                         "(the program is AOT-compiled)")
+    warmup = None
+    if args.warmup:
+        try:
+            h, w = (int(x) for x in args.warmup.lower().split("x"))
+            warmup = (h, w)
+        except ValueError:
+            raise SystemExit(
+                f"--warmup expects HxW (e.g. 512x512), got {args.warmup!r}"
+            )
+    if args.max_body_mb <= 0:
+        raise SystemExit(f"--max-body-mb must be positive, got "
+                         f"{args.max_body_mb}")
+    serve(args.config, host=args.host, port=args.port, warmup=warmup,
+          artifact=args.artifact, max_body_bytes=args.max_body_mb * 2**20,
+          device=device)
+    return 0
+
+
 def _ops_listing() -> dict:
     """Op registry -> {op: {param: {default, expects}}}, the ``ops``
     command's JSON, over the port's registry."""
@@ -519,13 +758,15 @@ def main(argv=None, device="cuda") -> int:
                         "first DICOM input's own WindowCenter/Width "
                         "(0028,1050/1051)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (refused)")
+                   help="one rank per card under torchrun: each batch split "
+                        "over the ranks (batch must divide by them)")
     p.add_argument("--report", help="write a before/after PNG report here")
     p.add_argument("--run-report",
                    help="write a structured JSON run report (config hash, "
                         "timings, metrics)")
     p.add_argument("--stage-costs", action="store_true",
-                   help="not ported yet (refused)")
+                   help="include per-stage operations/bytes in the run "
+                        "report")
     p.set_defaults(fn=cmd_enhance)
 
     p = sub.add_parser("enhance-volume", help="run a volume through the chain")
@@ -551,8 +792,8 @@ def main(argv=None, device="cuda") -> int:
                         "(windowed) input, e.g. --metrics psnr ssim")
     p.add_argument("--data-parallel", action="store_true",
                    help="one rank per card under torchrun: --mode 3d "
-                        "z-shards the volume, slice mode splits each slab "
-                        "(not with --stream: refused)")
+                        "z-shards the volume, slice mode (and --stream) "
+                        "splits each slab")
     p.add_argument("-q", "--quiet", action="store_true")
     p.set_defaults(fn=cmd_enhance_volume)
 
@@ -603,9 +844,61 @@ def main(argv=None, device="cuda") -> int:
                         "on its shard of every batch")
     p.set_defaults(fn=cmd_train_denoiser)
 
+    p = sub.add_parser("serve", help="HTTP inference server: a resident "
+                                     "POST /enhance endpoint (see "
+                                     "mies_tpu_torch/serve.py)")
+    p.add_argument("-c", "--config")
+    p.add_argument("--artifact", help="serve a .mies export instead of a "
+                                      "config: one fixed-shape program")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--warmup", default=None, metavar="HxW",
+                   help="run the chain once on this uint8 shape before the "
+                        "socket serves, e.g. 512x512")
+    p.add_argument("--max-body-mb", type=int, default=256,
+                   help="reject POST bodies above this size with a 413 "
+                        "before reading them (default 256)")
+    p.set_defaults(fn=cmd_serve)
+
     p = sub.add_parser("ops", help="list every pipeline op with its params, "
                                    "defaults, and constraints")
     p.set_defaults(fn=cmd_ops)
+
+    p = sub.add_parser("export", help="export the chain (torch.export) as "
+                                      "one portable artifact")
+    p.add_argument("-c", "--config", required=True)
+    p.add_argument("-o", "--output", required=True, help=".mies artifact path")
+    p.add_argument("--size", type=int, default=512)
+    p.add_argument("--batch", type=int, default=None,
+                   help="leading batch axis (default 32; 1 = the "
+                        "single-slice program `serve --artifact` needs)")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "uint8", "uint16", "int16"),
+                   help="traced input spec: uint8 for PNG/X-ray serving, "
+                        "int16 for CT window_hu chains (raw ints normalize "
+                        "in the program), float32 for pre-normalized "
+                        "callers")
+    p.add_argument("--volume", type=int, nargs=3, metavar=("Z", "H", "W"),
+                   help="export the [Z, H, W] volume program instead")
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("doctor", help="deployment health report: the card "
+                                      "(bounded probe), the kernel build, "
+                                      "native parser, sharding sanity")
+    p.add_argument("--probe-timeout", type=int, default=240,
+                   help="seconds to wait for the card probe")
+    p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser("warmup", help="build the kernels and run a config's "
+                                      "chain once per batch size (the first "
+                                      "call's costs)")
+    p.add_argument("-c", "--config", required=True)
+    p.add_argument("--size", type=int, default=512)
+    p.add_argument("--batch", type=int, nargs="+", default=[1, 32],
+                   help="batch sizes to run (1 = the single-slice program)")
+    p.add_argument("--dtype", choices=("float32", "int16"),
+                   default="float32")
+    p.set_defaults(fn=cmd_warmup)
 
     p = sub.add_parser("bench", help="throughput benchmark for a config")
     p.add_argument("-c", "--config", required=True)
@@ -614,12 +907,6 @@ def main(argv=None, device="cuda") -> int:
     p.add_argument("--iters", type=int, default=20)
     p.set_defaults(fn=cmd_bench)
 
-    for name in REFUSED_COMMANDS:
-        sub.add_parser(name, help="not ported yet (refused)")
-
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in REFUSED_COMMANDS:
-        return _refuse(argv[0])  # whatever its arguments
     args = ap.parse_args(argv)
     return args.fn(args, device)
 

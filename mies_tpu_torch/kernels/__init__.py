@@ -2,5 +2,19 @@
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs
 its plain PyTorch version only for a CPU tensor; ``_build.LAUNCHES``
-counts the launches.
+counts the launches. Importing the package registers every wrapper a
+chain calls as a ``torch.ops.mies`` custom op (``_build.register_op``),
+which ``torch.export`` records and ``pipeline.export.load_exported``
+resolves.
 """
+
+from mies_tpu_torch.kernels import (  # noqa: F401 (registers the mies ops)
+    bilateral,
+    clahe,
+    clahe3d,
+    diffusion,
+    fused,
+    nlmeans,
+    tv,
+    unsharp_gauss,
+)

@@ -16,17 +16,32 @@ there is no plain fallback for a tensor on the card.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``launch`` raises if that is not 0 and otherwise adds one to the kernel's
-count in ``LAUNCHES`` — the only place a count moves.
+count in ``LAUNCHES`` — the only place a count moves (under a lock: the
+server launches from several handler threads).
+
+``register_op`` makes a wrapper a ``torch.library`` custom op in the
+``mies`` namespace, for ``torch.export`` only: while export traces
+(``exporting()``) a wrapper calls ``torch.ops.mies.<name>``, which the
+tracer keeps as one opaque node whose shape and dtype come from the op's
+fake; the eager path calls the wrappers directly (a custom op's dispatch
+costs tens of microseconds of host time a call). The op's implementation
+is the wrapper itself, so the artifact launches the hand kernel on a CUDA
+tensor and runs the plain version on a CPU tensor. ``through_ops()`` routes
+eager calls through the ops too, so that a ``TorchDispatchMode`` sees each
+kernel as one call (``utils.profiling.stage_costs`` counts them so).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -80,7 +95,14 @@ LAUNCHES = {"tile_hists": 0, "tile_hists_bins": 0, "tile_luts": 0,
             "clahe3d_skimage_apply": 0,
             "unsharp_gauss": 0}
 
+# mies op name -> operations of one call, fn(*the op's arguments): the
+# counts the bounds in PERF.md section 6 take (utils.profiling.stage_costs)
+OPERATIONS: dict = {}
+
+_THROUGH_OPS = contextvars.ContextVar("mies_through_ops", default=False)
 _lib: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()
+_LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -157,14 +179,15 @@ def _run_all(cmds: list[list[str]]) -> None:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(LIBRARY))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _LIB_LOCK:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(str(LIBRARY))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 
@@ -177,7 +200,51 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
         rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} ({name}) did not launch: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
+
+def exporting() -> bool:
+    """Whether ``torch.export`` is tracing (or ``through_ops`` is on): the
+    wrappers then call their ``torch.ops.mies`` op instead of launching."""
+    return _THROUGH_OPS.get() or torch.compiler.is_exporting()
+
+
+@contextlib.contextmanager
+def through_ops():
+    """Route the wrappers' eager calls through their ``torch.ops.mies`` ops
+    inside the block."""
+    token = _THROUGH_OPS.set(True)
+    try:
+        yield
+    finally:
+        _THROUGH_OPS.reset(token)
+
+
+def _shares_storage(out: torch.Tensor, args) -> bool:
+    return any(isinstance(a, torch.Tensor) and a.untyped_storage().data_ptr()
+               == out.untyped_storage().data_ptr() for a in args)
+
+
+def register_op(name: str, wrapper, schema: str, fake, ops):
+    """Register ``wrapper`` as the custom op ``mies::<name>`` of ``schema``
+    (its arguments in the wrapper's order) with ``fake(*args)`` giving the
+    output's shape and dtype and ``ops(*args)`` the operations of a call
+    (``OPERATIONS``). An op's output may not alias an input, so where the
+    wrapper returns its input (zero iterations) the op copies it."""
+    def impl(*args):
+        token = _THROUGH_OPS.set(False)  # the wrapper runs its own body
+        try:
+            out = wrapper(*args)
+        finally:
+            _THROUGH_OPS.reset(token)
+        return out.clone() if _shares_storage(out, args) else out
+
+    op = torch.library.custom_op(f"mies::{name}", impl, mutates_args=(),
+                                 device_types=("cpu", "cuda"), schema=schema)
+    op.register_fake(fake)
+    OPERATIONS[name] = ops
+    return op
 
 
 def check_tensor(t: torch.Tensor, what: str, ndim: int = 3,

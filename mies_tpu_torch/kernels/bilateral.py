@@ -29,6 +29,10 @@ def bilateral_cuda(
 ) -> torch.Tensor:
     """K3: k x k bilateral of [B, H, W] float32 (k odd, <= 9; border
     'reflect', 'mirror' or 'nearest'/'edge')."""
+    if _build.exporting():
+        return torch.ops.mies.bilateral(batch, int(kernel_size),
+                                        float(sigma_color),
+                                        float(sigma_space), mode)
     _build.check_tensor(batch, "bilateral: batch")
     k = int(kernel_size)
     if k % 2 != 1 or not 1 <= k <= MAX_KERNEL_SIZE:
@@ -48,6 +52,20 @@ def bilateral_cuda(
                   _MODE_CODE[mode])
     return out
 
+
+def bilateral_ops(k: int) -> int:
+    """Operations per pixel of a k x k bilateral filter in its symmetric
+    form: one weight per unordered pair (diff, square, scale, exp, times the
+    spatial weight), three per tap (weight times value, two sums) and the
+    final divide: 136 at k 5."""
+    return (k * k - 1) // 2 * 5 + k * k * 3 + 1
+
+
+_build.register_op(
+    "bilateral", bilateral_cuda,
+    "(Tensor batch, int kernel_size, float sigma_color, float sigma_space, "
+    "str mode) -> Tensor", lambda batch, *_: torch.empty_like(batch),
+    lambda batch, k, *_: bilateral_ops(k) * batch.numel())
 
 # the pipeline's batched bilateral: the wrapper already dispatches by device
 bilateral_batched = bilateral_cuda

@@ -89,6 +89,8 @@ def tile_hists(x: torch.Tensor, grid_size,
     x: [B, H, W] float32 in [0, 1], contiguous. Returns [B, gy, gx, 256]
     int32 exact counts over the tiles of x padded (reflect-101) by the
     ``convention``'s rule (opencv or fraction)."""
+    if _build.exporting():
+        return torch.ops.mies.tile_hists(x, list(grid_size), convention)
     _build.check_tensor(x, "tile_hists: x")
     gy, gx = grid_size
     B, h, w = x.shape
@@ -130,6 +132,9 @@ def tile_luts(x: torch.Tensor, grid_size, clip_limit: float,
     kernel would not add in torch's order.
 
     x: [B, H, W] float32 in [0, 1], contiguous."""
+    if _build.exporting():
+        return torch.ops.mies.tile_luts(x, list(grid_size), float(clip_limit),
+                                        convention)
     if convention not in ("opencv", "fraction"):
         raise ValueError(f"tile_luts builds opencv or fraction LUTs, not "
                          f"{convention!r}")
@@ -175,6 +180,10 @@ def tile_hists_bins(bins: torch.Tensor, origin, grid_size, tile,
 
     bins: [B, H, W] int32 in [0, nbins), contiguous. Returns
     [B, gy, gx, nbins] int32."""
+    if _build.exporting():
+        return torch.ops.mies.tile_hists_bins(bins, list(origin),
+                                              list(grid_size), list(tile),
+                                              int(nbins))
     _build.check_tensor(bins, "tile_hists_bins: bins", dtype=torch.int32)
     _check_nbins(nbins)
     (y0, x0), (gy, gx), (th, tw) = origin, grid_size, tile
@@ -216,6 +225,9 @@ def clahe_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid_size,
 
     x: [B, H, W] float32 in [0, 1]; luts: [B, gy, gx, 256] float32, both
     contiguous. Returns [B, H, W] float32."""
+    if _build.exporting():
+        return torch.ops.mies.clahe_apply_lut(x, luts, list(grid_size),
+                                              finalize, convention)
     _build.check_tensor(x, "clahe_apply_lut: x")
     _build.check_tensor(luts, "clahe_apply_lut: luts", ndim=4)
     if finalize not in _FINALIZE:
@@ -278,6 +290,10 @@ def clahe_apply_lut_band(band: torch.Tensor, luts: torch.Tensor, grid_size,
 
     band: [B, hb, W] float32 in [0, 1]; luts: [B, gy, gx, 256] float32,
     the whole slice's grid; both contiguous. Returns [B, hb, W] float32."""
+    if _build.exporting():
+        return torch.ops.mies.clahe_apply_lut_band(
+            band, luts, list(grid_size), list(tile_shape), int(y_offset),
+            finalize)
     _build.check_tensor(band, "clahe_apply_lut_band: band")
     _build.check_tensor(luts, "clahe_apply_lut_band: luts", ndim=4)
     if finalize not in _FINALIZE:
@@ -320,6 +336,8 @@ def skimage_maps(hists: torch.Tensor, clim: int, k_elems: int) -> torch.Tensor:
     hists: [B, nr, nc, nbins] int32 counts, contiguous; clim: the integer
     clip limit; k_elems: pixels per region. Returns float32 maps of the
     same shape, floor(min(cumsum(clipped) * f32(16383 / k_elems), 16383))."""
+    if _build.exporting():
+        return torch.ops.mies.skimage_maps(hists, int(clim), int(k_elems))
     _build.check_tensor(hists, "skimage_maps: hists", ndim=4, dtype=torch.int32)
     nbins = hists.shape[-1]
     _check_nbins(nbins)
@@ -394,6 +412,9 @@ def skimage_apply(binned: torch.Tensor, maps: torch.Tensor, kernel_size,
 
     binned: [B, H, W] int32 bins in [0, nbins); maps: [B, nr, nc, nbins]
     float32 integer-valued; both contiguous. Returns [B, H0, W0] float32."""
+    if _build.exporting():
+        return torch.ops.mies.skimage_apply(binned, maps, list(kernel_size),
+                                            list(origin), list(out_shape))
     _build.check_tensor(binned, "skimage_apply: binned", dtype=torch.int32)
     _build.check_tensor(maps, "skimage_apply: maps", ndim=4)
     _same_device(maps, binned, "maps")
@@ -470,13 +491,86 @@ def clahe_batched(
     """The pipeline's batched CLAHE. For a CUDA tensor: skimage through
     K1 bins / K6a / K6, opencv through K1 to the LUTs / K2, fraction
     through K1 / plain LUT build / K2, kornia in
-    plain torch on the card. For a CPU tensor: ``ops.histogram.clahe``."""
+    plain torch on the card. For a CPU tensor: ``ops.histogram.clahe``, but
+    while ``torch.export`` traces, through the kernels' ``mies`` ops (their
+    plain versions on the CPU: the same numbers)."""
     H.check_convention(convention, nbins)
     grid = tuple(grid_size)
-    if batch.device.type == "cuda":
+    if batch.device.type == "cuda" or _build.exporting():
         if convention == "skimage":
             ks = H.skimage_kernel_size(batch.shape[-2:], grid, kernel_size)
             return clahe_skimage_cuda(batch, ks, clip_limit, nbins)
         if convention in ("opencv", "fraction"):
             return clahe_cuda(batch, clip_limit, grid, convention)
     return H.clahe(batch, clip_limit, grid, convention, nbins, kernel_size)
+
+
+# --- the custom ops, for torch.export (kernels._build.register_op) ----------
+
+
+def _counts_fake(x, grid_size, *_):
+    return x.new_empty((x.shape[0], *grid_size, NBINS), dtype=torch.int32)
+
+
+def _luts_fake(x, grid_size, *_):
+    return x.new_empty((x.shape[0], *grid_size, NBINS), dtype=torch.float32)
+
+
+def _bins_fake(bins, origin, grid_size, tile, nbins):
+    return bins.new_empty((bins.shape[0], *grid_size, nbins),
+                          dtype=torch.int32)
+
+
+def _crop_fake(binned, maps, kernel_size, origin, out_shape):
+    return binned.new_empty((binned.shape[0], *out_shape),
+                            dtype=torch.float32)
+
+
+# operations of a call: K1 a level quantize (4) and a count per pixel, and
+# about 20 integer operations per LUT entry for the clip, redistribution,
+# two scans and the rint; K2 and K5 29 per pixel (u8norm) or 27 (clip01);
+# K6a 16 + 2 log2(nbins) per bin of a region (the data-dependent sweeps of
+# its phase 3 not counted); K6 16 per output pixel
+APPLY_OPS = {"u8norm": 29, "clip01": 27}
+
+
+def _luts_ops(x, grid_size, *_):
+    return 5 * x.numel() + 20 * x.shape[0] * grid_size[0] * grid_size[1] \
+        * NBINS
+
+
+_build.register_op(
+    "tile_hists", tile_hists,
+    "(Tensor x, int[] grid_size, str convention) -> Tensor", _counts_fake,
+    lambda x, *_: 5 * x.numel())
+_build.register_op(
+    "tile_luts", tile_luts,
+    "(Tensor x, int[] grid_size, float clip_limit, str convention) -> Tensor",
+    _luts_fake, _luts_ops)
+_build.register_op(
+    "tile_hists_bins", tile_hists_bins,
+    "(Tensor bins, int[] origin, int[] grid_size, int[] tile, int nbins) -> "
+    "Tensor", _bins_fake,
+    lambda bins, origin, g, t, _: bins.shape[0] * g[0] * t[0] * g[1] * t[1])
+_build.register_op(
+    "clahe_apply_lut", clahe_apply_lut,
+    "(Tensor x, Tensor luts, int[] grid_size, str finalize, str convention) "
+    "-> Tensor", lambda x, *_: torch.empty_like(x),
+    lambda x, luts, grid, finalize, _: APPLY_OPS[finalize] * x.numel())
+_build.register_op(
+    "clahe_apply_lut_band", clahe_apply_lut_band,
+    "(Tensor band, Tensor luts, int[] grid_size, int[] tile_shape, "
+    "int y_offset, str finalize) -> Tensor",
+    lambda band, *_: torch.empty_like(band),
+    lambda band, *args: APPLY_OPS[args[-1]] * band.numel())
+_build.register_op(
+    "skimage_maps", skimage_maps,
+    "(Tensor hists, int clim, int k_elems) -> Tensor",
+    lambda hists, *_: hists.new_empty(hists.shape, dtype=torch.float32),
+    lambda hists, *_: hists.numel() * (16 + 2 * np.log2(hists.shape[-1])))
+_build.register_op(
+    "skimage_apply", skimage_apply,
+    "(Tensor binned, Tensor maps, int[] kernel_size, int[] origin, "
+    "int[] out_shape) -> Tensor", _crop_fake,
+    lambda binned, m, ks, origin, out_shape: 16 * binned.shape[0]
+    * out_shape[0] * out_shape[1])

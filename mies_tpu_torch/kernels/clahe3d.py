@@ -80,6 +80,8 @@ def clahe3d_apply_lut(x: torch.Tensor, luts: torch.Tensor, grid,
 
     x: [Z, H, W] float32 in [0, 1], divisible by grid (gz, gy, gx); luts:
     [gz, gy, gx, 256] float32; both contiguous. Returns [Z, H, W] float32."""
+    if _build.exporting():
+        return torch.ops.mies.clahe3d_apply_lut(x, luts, list(grid), finalize)
     _build.check_tensor(x, "clahe3d_apply_lut: x")
     _build.check_tensor(luts, "clahe3d_apply_lut: luts", ndim=4)
     if finalize not in KC._FINALIZE:
@@ -160,6 +162,9 @@ def clahe3d_apply_lut_band(band: torch.Tensor, luts: torch.Tensor, grid,
 
     band: [zb, H, W] float32 in [0, 1]; luts: [gz, gy, gx, 256] float32,
     the whole volume's grid; both contiguous. Returns [zb, H, W] float32."""
+    if _build.exporting():
+        return torch.ops.mies.clahe3d_apply_lut_band(
+            band, luts, list(grid), int(z_total), int(z0), finalize)
     _build.check_tensor(band, "clahe3d_apply_lut_band: band")
     _build.check_tensor(luts, "clahe3d_apply_lut_band: luts", ndim=4)
     if finalize not in KC._FINALIZE:
@@ -249,6 +254,10 @@ def clahe3d_skimage_apply(binned: torch.Tensor, map_array: torch.Tensor,
     ny + 1, nx + 1, nbins] float32, the edge-padded integer-valued maps
     (block b of an axis reads its corners b and b + 1); both contiguous.
     Returns [Z0, H0, W0] float32."""
+    if _build.exporting():
+        return torch.ops.mies.clahe3d_skimage_apply(
+            binned, map_array, list(kernel_size), list(origin),
+            list(out_shape))
     _build.check_tensor(binned, "clahe3d_skimage_apply: binned",
                         dtype=torch.int32)
     _build.check_tensor(map_array, "clahe3d_skimage_apply: map_array", ndim=4)
@@ -314,8 +323,9 @@ def clahe3d_volume(vol: torch.Tensor, clip_limit: float = 2.0,
                    kernel_size=None) -> torch.Tensor:
     """The volume pipeline's clahe3d. For a CUDA tensor: opencv and
     fraction through K1 / K8, skimage through K1 bins / K6a / K8s. For a
-    CPU tensor: ``ops.volume3d.clahe3d``."""
-    if vol.device.type != "cuda":
+    CPU tensor: ``ops.volume3d.clahe3d``, but while ``torch.export`` traces,
+    through the kernels' ``mies`` ops (their plain versions on the CPU)."""
+    if vol.device.type != "cuda" and not _build.exporting():
         return V.clahe3d(vol, clip_limit, grid_size, convention, kernel_size)
     F.check_volume(vol, "clahe3d")
     if convention not in V.CONVENTIONS_3D:
@@ -325,3 +335,29 @@ def clahe3d_volume(vol: torch.Tensor, clip_limit: float = 2.0,
         ks = V.skimage3d_kernel_size(x.shape, grid_size, kernel_size)
         return clahe3d_skimage_cuda(x, ks, clip_limit)
     return clahe3d_cuda(x, clip_limit, grid_size, convention)
+
+
+# --- the custom ops, for torch.export (kernels._build.register_op) ----------
+
+# operations per voxel: K8 the level (4), three axis fractions (5 each),
+# seven lerps (4 each) and the epilogue (u8norm 4, clip01 2); K8s three
+# weights (3 each), 8 coefficients (2 each), 8 multiplies, 7 adds, the floor
+APPLY3D_OPS = {"u8norm": 51, "clip01": 49}
+
+_build.register_op(
+    "clahe3d_apply_lut", clahe3d_apply_lut,
+    "(Tensor x, Tensor luts, int[] grid, str finalize) -> Tensor",
+    lambda x, *_: torch.empty_like(x),
+    lambda x, luts, grid, finalize: APPLY3D_OPS[finalize] * x.numel())
+_build.register_op(
+    "clahe3d_apply_lut_band", clahe3d_apply_lut_band,
+    "(Tensor band, Tensor luts, int[] grid, int z_total, int z0, "
+    "str finalize) -> Tensor", lambda band, *_: torch.empty_like(band),
+    lambda band, *args: APPLY3D_OPS[args[-1]] * band.numel())
+_build.register_op(
+    "clahe3d_skimage_apply", clahe3d_skimage_apply,
+    "(Tensor binned, Tensor map_array, int[] kernel_size, int[] origin, "
+    "int[] out_shape) -> Tensor",
+    lambda binned, m, ks, origin, out_shape: binned.new_empty(
+        out_shape, dtype=torch.float32),
+    lambda binned, m, ks, origin, out_shape: 41 * int(np.prod(out_shape)))

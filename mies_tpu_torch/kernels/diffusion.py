@@ -74,6 +74,9 @@ def anisotropic_diffusion_cuda(
     launch."""
     niter, option = int(niter), int(option)
     R.check_pm_args(niter, option)
+    if _build.exporting():
+        return torch.ops.mies.anisotropic_diffusion(
+            batch, niter, float(kappa), float(gamma), option)
     _build.check_tensor(batch, "anisotropic_diffusion: batch")
     if batch.device.type == "cpu":
         return R.anisotropic_diffusion(batch, niter, kappa, gamma, option)
@@ -98,6 +101,9 @@ def srad_cuda(
     q0 exp(-rho t) in f32 on the card, as the plain version does."""
     niter = int(niter)
     R.check_srad_args(niter, dt, q0, rho)
+    if _build.exporting():
+        return torch.ops.mies.srad(batch, niter, float(dt), float(q0),
+                                   float(rho), float(eps))
     _build.check_tensor(batch, "srad: batch")
     if batch.device.type == "cpu":
         return R.srad(batch, niter, dt, q0, rho, eps)
@@ -129,6 +135,21 @@ def srad_step(batch: torch.Tensor, t: int, dt: float = 0.15, q0: float = 1.0,
         return R.srad_iteration(batch, t, dt, q0, rho, eps)
     return _srad_chunks(batch, int(t), 1, _srad_consts(dt, q0, rho, eps))
 
+
+_build.register_op(
+    "anisotropic_diffusion", anisotropic_diffusion_cuda,
+    "(Tensor batch, int niter, float kappa, float gamma, int option) -> "
+    "Tensor", lambda batch, *_: torch.empty_like(batch),
+    # per pixel and step: two differences, two fluxes (6 each), the
+    # divergence (2) and the update (2)
+    lambda batch, niter, *_: 18 * niter * batch.numel())
+_build.register_op(
+    "srad", srad_cuda,
+    "(Tensor batch, int niter, float dt, float q0, float rho, float eps) -> "
+    "Tensor", lambda batch, *_: torch.empty_like(batch),
+    # per pixel and step: 4 differences, one conduction (29), the
+    # divergence (7) and the update (2)
+    lambda batch, niter, *_: 42 * niter * batch.numel())
 
 # the pipeline's batched ops: the wrappers already dispatch by device
 anisotropic_diffusion_batched = anisotropic_diffusion_cuda

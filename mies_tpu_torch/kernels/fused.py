@@ -21,8 +21,12 @@ from __future__ import annotations
 import torch
 
 from mies_tpu_torch.kernels import _build
-from mies_tpu_torch.kernels.bilateral import MAX_KERNEL_SIZE, _MODE_CODE
-from mies_tpu_torch.kernels.unsharp_gauss import _tap_radius
+from mies_tpu_torch.kernels.bilateral import (
+    MAX_KERNEL_SIZE,
+    _MODE_CODE,
+    bilateral_ops,
+)
+from mies_tpu_torch.kernels.unsharp_gauss import _tap_radius, unsharp_ops
 from mies_tpu_torch.ops import filters as F
 
 MAX_RADIUS = 63  # the widest Gaussian radius (csrc/fused.cu kMaxRg)
@@ -100,6 +104,10 @@ def bilateral_unsharp_cuda(
     """K13: unsharp_mask(bilateral_blur(x), 'nearest', clipped) of
     [B, H, W] float32, then (quantize=True) clip(rint(u * 255), 0, 255)
     as uint8."""
+    if _build.exporting():
+        return torch.ops.mies.bilateral_unsharp(
+            batch, int(kernel_size), float(sigma_color), float(sigma_space),
+            bilateral_mode, float(radius), float(amount), bool(quantize))
     _build.check_tensor(batch, "bilateral_unsharp: batch")
     if not bilateral_unsharp_supported(kernel_size, radius, bilateral_mode):
         raise ValueError(
@@ -125,3 +133,17 @@ def bilateral_unsharp_cuda(
                   _MODE_CODE[bilateral_mode], taps.ctypes.data, len(taps),
                   float(amount), int(quantize))
     return out
+
+
+def _bilateral_unsharp_fake(batch, *args):
+    return batch.new_empty(batch.shape,
+                           dtype=torch.uint8 if args[-1] else torch.float32)
+
+
+_build.register_op(
+    "bilateral_unsharp", bilateral_unsharp_cuda,
+    "(Tensor batch, int kernel_size, float sigma_color, float sigma_space, "
+    "str bilateral_mode, float radius, float amount, bool quantize) -> "
+    "Tensor", _bilateral_unsharp_fake,
+    lambda batch, k, sc, ss, mode, radius, *_: (
+        bilateral_ops(k) + unsharp_ops(radius, TRUNCATE)) * batch.numel())

@@ -52,6 +52,10 @@ def nl_means_cuda(
     sigma: float = 0.0,
 ) -> torch.Tensor:
     """K11: NL-means of [B, H, W] float32 (defaults = the op's)."""
+    if _build.exporting():
+        return torch.ops.mies.nl_means(batch, int(patch_size),
+                                       int(patch_distance), float(h),
+                                       float(sigma))
     _build.check_tensor(batch, "denoise_nl_means: batch")
     if int(patch_distance) < 0 or int(patch_size) < 1:
         raise ValueError(f"patch_size must be >= 1 and patch_distance >= 0, "
@@ -68,6 +72,24 @@ def nl_means_cuda(
                   inv_h2sn)
     return out
 
+
+def nl_means_ops(hw, patch_size: int, patch_distance: int, h: float,
+                 sigma: float) -> int:
+    """Operations per pixel: per pair of the half shift table, the
+    difference and square, the s-wide box along rows and columns, the
+    weight (bias, max, scale, cutoff, exp, select) and the two ends'
+    accumulations (2 multiplies, 4 adds)."""
+    s, d, _, _ = R.nl_means_params(tuple(hw), patch_size, patch_distance, h,
+                                   sigma)
+    return len(R.half_shift_table(d)) * (14 + 2 * (s - 1))
+
+
+_build.register_op(
+    "nl_means", nl_means_cuda,
+    "(Tensor batch, int patch_size, int patch_distance, float h, "
+    "float sigma) -> Tensor", lambda batch, *_: torch.empty_like(batch),
+    lambda batch, *args: nl_means_ops(batch.shape[-2:], *args)
+    * batch.numel())
 
 # the pipeline's batched NL-means: the wrapper already dispatches by device
 nl_means_batched = nl_means_cuda

@@ -47,6 +47,11 @@ def denoise_tv_cuda(
     """K12: TV-Chambolle of [B, H, W] float32 (defaults = the op's)."""
     if max_num_iter < 1:
         raise ValueError("max_num_iter must be >= 1")
+    if _build.exporting():
+        if return_iters:
+            raise ValueError("denoise_tv: return_iters does not export")
+        return torch.ops.mies.denoise_tv(batch, float(weight), float(eps),
+                                         int(max_num_iter))
     _build.check_tensor(batch, "denoise_tv: batch")
     if batch.device.type == "cpu":
         out, iters = R.tv_chambolle(batch, weight, eps, max_num_iter)
@@ -78,6 +83,15 @@ def denoise_tv_cuda(
         _build.launch("tv", "mies_tv_chunk", dev, *chunk, 1)  # rollback
     return (out, iters) if return_iters else out
 
+
+_build.register_op(
+    "denoise_tv", denoise_tv_cuda,
+    "(Tensor batch, float weight, float eps, int max_num_iter) -> Tensor",
+    lambda batch, *_: torch.empty_like(batch),
+    # 22 per pixel and step, counted at max_num_iter (a slice that stops
+    # earlier runs fewer)
+    lambda batch, weight, eps, max_num_iter: 22 * max_num_iter
+    * batch.numel())
 
 # the pipeline's batched TV: the wrapper already dispatches by device
 denoise_tv_batched = denoise_tv_cuda

@@ -80,6 +80,10 @@ def unsharp_quant_cuda(
 ) -> torch.Tensor:
     """K4: clip(x + amount * (x - G*x), 0, 1) of [B, H, W] float32, then
     (quantize=True) clip(rint(u * 255), 0, 255) as uint8."""
+    if _build.exporting():
+        return torch.ops.mies.unsharp_quant(batch, float(radius),
+                                            float(amount), float(truncate),
+                                            bool(quantize))
     _build.check_tensor(batch, "unsharp_quant: batch")
     if not unsharp_quant_supported(radius, truncate):
         raise ValueError(
@@ -155,6 +159,10 @@ def unsharp_gauss_cuda(
     """K7: G2 * clip(x + amount * (x - G1 * x), 0, 1) of [B, H, W]
     float32, G1 of sigma ``radius`` and G2 of sigma ``sigma``, each pass
     with scipy's 'nearest' border."""
+    if _build.exporting():
+        return torch.ops.mies.unsharp_gauss(batch, float(radius),
+                                            float(amount), float(sigma),
+                                            float(truncate))
     _build.check_tensor(batch, "unsharp_gauss: batch")
     if not unsharp_gauss_supported(radius, sigma, truncate):
         raise ValueError(
@@ -173,3 +181,35 @@ def unsharp_gauss_cuda(
                   k1.ctypes.data, len(k1), k2.ctypes.data, len(k2),
                   float(amount))
     return out
+
+
+def _unsharp_quant_fake(batch, radius, amount, truncate, quantize):
+    return batch.new_empty(batch.shape,
+                           dtype=torch.uint8 if quantize else torch.float32)
+
+
+def unsharp_ops(radius: float, truncate: float = 4.0) -> int:
+    """K4's operations per pixel: two passes of 2r + 1 taps (a multiply
+    and an add each), the unsharp blend and the quantize (8): 60 at
+    radius 1.5."""
+    return 4 * (2 * _tap_radius(radius, truncate) + 1) + 8
+
+
+def _unsharp_gauss_ops(batch, radius, amount, sigma, truncate) -> int:
+    """K7's: four passes of 2r + 1 taps (2r + 1 multiplies, 2r adds) and
+    the blend (5) per pixel."""
+    n1, n2 = (2 * _tap_radius(s, truncate) + 1 for s in (radius, sigma))
+    return (2 * (2 * n1 - 1) + 2 * (2 * n2 - 1) + 5) * batch.numel()
+
+
+_build.register_op(
+    "unsharp_quant", unsharp_quant_cuda,
+    "(Tensor batch, float radius, float amount, float truncate, "
+    "bool quantize) -> Tensor", _unsharp_quant_fake,
+    lambda batch, radius, amount, truncate, _: unsharp_ops(radius, truncate)
+    * batch.numel())
+_build.register_op(
+    "unsharp_gauss", unsharp_gauss_cuda,
+    "(Tensor batch, float radius, float amount, float sigma, "
+    "float truncate) -> Tensor", lambda batch, *_: torch.empty_like(batch),
+    _unsharp_gauss_ops)

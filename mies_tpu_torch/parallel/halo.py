@@ -18,7 +18,9 @@ for a min, -inf for a max), and so does each pass of the rolling ball
 (``subtract_background`` at downscale 1; above 1 its pyramid grids do not
 tile along rows and it is refused). The geometry ops, ``histogram_match``,
 ``richardson_lucy`` and ``canny`` read the whole image and are refused
-with the reason. ``sharpness`` has no band form yet and is refused.
+with the reason. ``sharpness`` runs (extend, run, crop), then passes the
+slice's global first and last rows through unsmoothed on the edge ranks
+(PIL's interior-only rule; the reference's band form).
 
 The band function is batched ([B, h, W] on every rank): one function
 serves ``spatial_shard_apply`` (one slice, B = 1) and
@@ -83,9 +85,6 @@ _POINTWISE = frozenset({
     "adjust_gamma", "adjust_log", "adjust_sigmoid", "invert", "window_hu",
     "normalize_meanstd", "denormalize_meanstd",
     "adjust_brightness", "adjust_contrast", "solarize", "posterize"})
-# a stencil whose band form is not (extend, run, crop): sharpness's
-# interior mask needs the band's global rows; its band form is not ported
-_NO_BAND_FORM = frozenset({"sharpness"})
 _MORPH_OPS = frozenset({
     "erode", "dilate", "morph_open", "morph_close", "morph_gradient",
     "top_hat", "black_hat"})
@@ -458,14 +457,34 @@ def _background_band(p: dict, group) -> Callable:
     return run
 
 
+def _sharpness_band(s, group) -> Callable:
+    """sharpness on a band: (extend, run, crop), then PIL's interior-only
+    rule at the slice's GLOBAL top and bottom rows: they pass through
+    unsmoothed (the op's blend of a pixel with itself, clipped), on the
+    edge ranks only. The halo made the band's own first and last rows
+    interior, as they are inside the slice."""
+    stencil = _stencil(_bind_batched_stage(s), 1, "nearest", group)
+    factor = s.kwargs().get("factor", 1.0)
+
+    def edge(row):
+        row = row.to(torch.float32)
+        return torch.clamp(row + factor * (row - row), 0.0, 1.0)
+
+    def run(x):
+        y = stencil(x)
+        idx, n = dist.get_rank(group), dist.get_world_size(group)
+        if idx == 0:
+            y[..., 0, :] = edge(x[..., 0, :])
+        if idx == n - 1:
+            y[..., -1, :] = edge(x[..., -1, :])
+        return y
+    return run
+
+
 def _band_stage(s, group) -> Callable:
     p = s.kwargs()
-    if s.op in _NO_BAND_FORM:
-        raise ValueError(
-            f"op {s.op!r} has no row-band form in mies_tpu_torch yet (its "
-            f"border is not a pad of the band); use batch sharding for "
-            f"chains containing it"
-        )
+    if s.op == "sharpness":
+        return _sharpness_band(s, group)
     if s.op == "clahe":
         CS.check_convention(p.get("convention", "opencv"))
         CS.check_grid_rows(tuple(p.get("grid_size", (8, 8))),

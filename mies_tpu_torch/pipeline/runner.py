@@ -71,16 +71,6 @@ from mies_tpu_torch.pipeline.manifest import RunManifest
 SHAPE_CHANGERS = frozenset({"resize", "center_crop", "rot90"})
 
 
-def _refuse_mesh(mesh, name: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{name}: mesh= is not ported yet. The port's "
-            f"parallel.shard_pipeline takes a rank's own shard, not the "
-            f"whole batch; data-parallel file runs are ROADMAP.md "
-            f"queue 1 item 7"
-        )
-
-
 def _progress(it: Iterable, total: int, unit: str, enabled: bool) -> Iterable:
     """``tqdm`` over ``it`` when progress is asked for and tqdm is
     installed; without tqdm, one plain line per item on stderr."""
@@ -264,9 +254,47 @@ def enhance_batch(
     config's ``cache_key()`` (equal to the reference's, so a run the JAX
     package began resumes here), and a re-run processes only the
     remainder. Outputs keep their input's file name.
+
+    With a ``mesh`` (``parallel.make_mesh`` over every rank of the process
+    group; every rank calls this) each (shape, dtype) group is padded with
+    copies of its last image to a multiple of the mesh's size and split
+    over the ranks (``_MeshFeed``): the mesh's first rank decodes, sends
+    each rank its part, gathers the outputs, saves them, keeps the
+    manifest and returns it; the other ranks return None. ``batch_size``
+    must divide by the mesh's size.
     """
-    _refuse_mesh(mesh, "enhance_batch")
-    dev = resolve_device(device)
+    feed = None
+    if mesh is not None:
+        from mies_tpu_torch.parallel.sharding import shard_pipeline
+
+        if cfg.io_dict().get("channels") == "per-channel":
+            raise ValueError(
+                "enhance_batch: io.channels='per-channel' with a device "
+                "mesh is not supported yet (the sharded program shards "
+                "[B, H, W]); run without a mesh"
+            )
+        if batch_size % mesh.size():
+            raise ValueError(
+                f"batch_size {batch_size} must divide by the mesh's "
+                f"{mesh.size()} devices"
+            )
+        feed = _MeshFeed(shard_pipeline(cfg, mesh), mesh)
+        if not feed.is_root:
+            feed.follow()
+            return None
+    try:
+        return _enhance_batch(input_paths, cfg, output_dir, batch_size,
+                              resume, progress, feed, device)
+    finally:
+        if feed is not None:
+            feed.close()
+
+
+def _enhance_batch(input_paths, cfg: PipelineConfig, output_dir,
+                   batch_size: int, resume: bool, progress: bool, feed,
+                   device) -> RunManifest:
+    """``enhance_batch`` on this process: through ``feed`` (the mesh's
+    first rank) or the ``_DevicePipe`` on ``device``."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     manifest = RunManifest(output_dir / "manifest.jsonl", cfg.cache_key())
@@ -277,7 +305,6 @@ def enhance_batch(
     if not todo_paths:
         return manifest
 
-    fn = compile_pipeline(cfg, batched=True, device=dev)
     channels = cfg.io_dict().get("channels")
 
     def try_load(p):
@@ -307,8 +334,16 @@ def enhance_batch(
             except Exception as e:  # one unwritable output fails one item
                 manifest.mark_failed(str(p), f"save: {e}")
 
-    # three batches in flight: decode, the card and the saves overlap
-    pipe = _DevicePipe(fn, dev, 3, finish)
+    if feed is None:
+        dev = resolve_device(device)
+        # three batches in flight: decode, the card and the saves overlap
+        pipe = _DevicePipe(compile_pipeline(cfg, batched=True, device=dev),
+                           dev, 3, finish)
+        submit, flush = pipe.submit, pipe.flush
+    else:
+        def submit(gimgs, gpaths, cap):
+            finish(gpaths, feed.submit(np.stack(gimgs)))
+        flush = None
     chunks = [todo_paths[s : s + batch_size]
               for s in range(0, len(todo_paths), batch_size)]
     with ThreadPoolExecutor(max_workers=8) as decode_pool, \
@@ -324,8 +359,9 @@ def enhance_batch(
                 g[0].append(arr)
                 g[1].append(p)
             for gimgs, gpaths in groups.values():
-                pipe.submit(gimgs, gpaths, cap=batch_size)
-        pipe.flush()
+                submit(gimgs, gpaths, cap=batch_size)
+        if flush is not None:
+            flush()
     return manifest
 
 
@@ -386,61 +422,106 @@ def _enhance_volume_mesh(volume, cfg: PipelineConfig, slab_size: int,
                        progress)
 
 
+class _MeshFeed:
+    """Groups of items through ``fn`` on every rank of ``mesh`` (a mesh over
+    the whole process group), driven by the mesh's first rank (the root).
+
+    The root calls ``submit(items)`` for each group ([k, ...], one shape
+    and dtype) and ``close()`` at the end; every other rank calls
+    ``follow()``, which serves the root's groups until it closes. A group
+    is padded with copies of its last item to a multiple of the mesh's
+    size n, its header (shape, dtype) broadcast, part i of it scattered to
+    the mesh's i-th rank (row-major coordinates,
+    ``parallel.sharding.shard_index``), ``fn`` run on every rank's part on
+    its own device, and the outputs gathered on the root, which returns
+    them (those of the padding dropped)."""
+
+    def __init__(self, fn: Callable, mesh) -> None:
+        import torch.distributed as dist
+
+        from mies_tpu_torch.parallel.mesh import mesh_device
+
+        self.n = mesh.size()
+        if self.n != dist.get_world_size():
+            raise ValueError(f"the mesh has {self.n} of the process group's "
+                             f"{dist.get_world_size()} ranks; give it all")
+        self.fn, self.dev = fn, mesh_device(mesh)
+        self.ranks = mesh.mesh.flatten().tolist()  # the rank of each part
+        self.root = self.ranks[0]
+        self.is_root = dist.get_rank() == self.root
+
+    def _head(self, head):
+        import torch.distributed as dist
+
+        box = [head]
+        dist.broadcast_object_list(box, src=self.root)
+        return box[0]
+
+    def _step(self, shape, dtype: np.dtype, items) -> np.ndarray | None:
+        import torch.distributed as dist
+
+        part = shape[0] // self.n
+        mine = torch.empty((part, *shape[1:]), dtype=_torch_dtype(dtype),
+                           device=self.dev)
+        parts = None
+        if self.is_root:
+            group = torch.from_numpy(np.ascontiguousarray(items, dtype)
+                                     ).to(self.dev).split(part)
+            parts = [_as_bytes(group[self.ranks.index(r)])
+                     for r in range(self.n)]
+        dist.scatter(_as_bytes(mine), parts, src=self.root)
+        y = self.fn(mine).contiguous()
+        got = ([torch.empty_like(y) for _ in range(self.n)] if self.is_root
+               else None)
+        dist.gather(y, got, dst=self.root)
+        if self.is_root:
+            return torch.cat([got[r] for r in self.ranks]).cpu().numpy()
+        return None
+
+    def submit(self, items: np.ndarray) -> np.ndarray:
+        items = np.asarray(items)
+        k, pad = len(items), -len(items) % self.n
+        if pad:
+            items = np.concatenate([items, np.repeat(items[-1:], pad, 0)])
+        # staged in native byte order (a .nc volume is big-endian)
+        dtype = items.dtype.newbyteorder("=")
+        self._head((items.shape, dtype.str))
+        out = self._step(items.shape, dtype, items)
+        # an unpadded group keeps fn's own length (a z-resampled volume)
+        return out[:k] if pad else out
+
+    def follow(self) -> None:
+        while (head := self._head(None)) is not None:
+            self._step(head[0], np.dtype(head[1]), None)
+
+    def close(self) -> None:
+        if self.is_root:
+            self._head(None)
+
+
 def run_sharded(volume, fn: Callable, slab_size: int, mesh,
                 progress: bool = False) -> np.ndarray | None:
     """Run a [Z, H, W] volume through ``fn`` on every rank of ``mesh`` (a
     mesh over the whole process group; every rank calls this): the mesh's
     first rank holds ``volume`` (the others may pass None), cuts it into
-    slabs of ``slab_size`` slices (a divisor of the mesh's size), sends
-    the mesh's i-th rank (row-major coordinates) part i of every slab,
-    each rank runs ``fn`` on its part on its own device, and the first
-    rank gathers the parts' outputs and returns the whole output; the
-    others return None. A short last slab is padded with copies of its
-    last slice, whose outputs are dropped. ``enhance_volume(mesh=)`` runs
+    slabs of ``slab_size`` slices, sends the mesh's i-th rank part i of
+    every slab (``_MeshFeed``), each rank runs ``fn`` on its part on its own
+    device, and the first rank gathers the parts' outputs and returns the
+    whole output; the others return None. ``enhance_volume(mesh=)`` runs
     the batched chain so; ``enhance-volume --mode 3d --data-parallel`` one
     slab of the whole volume through ``parallel.volume_shard_apply``."""
-    import torch.distributed as dist
-
-    from mies_tpu_torch.parallel.mesh import mesh_device
-
-    n = mesh.size()
-    if n != dist.get_world_size():
-        raise ValueError(f"the mesh has {n} of the process group's "
-                         f"{dist.get_world_size()} ranks; give it all")
-    dev = mesh_device(mesh)
-    ranks = mesh.mesh.flatten().tolist()  # the rank of each part
-    root, me = ranks[0], dist.get_rank()
-    head = [None]
-    if me == root:
+    feed = _MeshFeed(fn, mesh)
+    if not feed.is_root:
+        feed.follow()
+        return None
+    try:
         volume = np.asarray(volume)
-        # staged in native byte order (a .nc volume is big-endian)
-        head = [(volume.shape, volume.dtype.newbyteorder("=").str)]
-    dist.broadcast_object_list(head, src=root)
-    shape, dtype = head[0][0], np.dtype(head[0][1])
-    part = slab_size // n
-    mine = torch.empty((part, *shape[1:]), dtype=_torch_dtype(dtype),
-                       device=dev)
-    outs: list[np.ndarray] = []
-    starts = range(0, shape[0], slab_size)
-    for k in _progress(starts, len(starts), "slab", progress and me == root):
-        parts = None
-        if me == root:
-            slab = volume[k:k + slab_size]
-            real = len(slab)
-            if real < slab_size:
-                slab = np.concatenate(
-                    [slab, np.repeat(slab[-1:], slab_size - real, 0)])
-            slab = torch.from_numpy(np.ascontiguousarray(slab, dtype)).to(dev)
-            by_part = slab.split(part)
-            parts = [_as_bytes(by_part[ranks.index(r)]) for r in range(n)]
-        dist.scatter(_as_bytes(mine), parts, src=root)
-        y = fn(mine).contiguous()
-        got = [torch.empty_like(y) for _ in range(n)] if me == root else None
-        dist.gather(y, got, dst=root)
-        if me == root:
-            out = torch.cat([got[r] for r in ranks]).cpu().numpy()
-            outs.append(out if real == slab_size else out[:real])
-    return np.concatenate(outs, axis=0) if me == root else None
+        starts = range(0, volume.shape[0], slab_size)
+        outs = [feed.submit(volume[k:k + slab_size])
+                for k in _progress(starts, len(starts), "slab", progress)]
+    finally:
+        feed.close()
+    return np.concatenate(outs, axis=0)
 
 
 def _prefetched(it: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
@@ -476,11 +557,12 @@ def enhance_volume_stream(
     the card, and appends each finished uint8 slab to ``output``
     (streaming NetCDF-3, .npy memmap, or a DICOM directory). The whole
     volume is never resident on the host. Returns the input VolumeMeta.
-    """
-    from mies_tpu_torch.io.volume import open_volume_slabs, open_volume_writer
 
-    _refuse_mesh(mesh, "enhance_volume_stream")
-    dev = resolve_device(device)
+    With a ``mesh`` (every rank calls this) each slab is split over the
+    mesh's ranks (``_MeshFeed``): the mesh's first rank reads the slabs,
+    gathers their outputs, writes them and returns the VolumeMeta; the
+    others return None. ``slab_size`` must divide by the mesh's size.
+    """
     # the output header is written with the INPUT's (Z, H, W) before any
     # slab computes: stages that change the slice shape would corrupt it
     bad = [s.op for s in cfg.stages if s.op in SHAPE_CHANGERS]
@@ -490,17 +572,53 @@ def enhance_volume_stream(
             f"{bad}: the streamed output header is sized from the input; "
             f"use enhance_volume (in-memory) for this chain"
         )
-    fn = compile_pipeline(cfg, batched=True, device=dev)
+    feed = None
+    if mesh is not None:
+        from mies_tpu_torch.parallel.sharding import shard_pipeline
+
+        if slab_size % mesh.size():
+            raise ValueError(
+                f"slab_size {slab_size} must divide by the mesh's "
+                f"{mesh.size()} devices"
+            )
+        feed = _MeshFeed(shard_pipeline(cfg, mesh), mesh)
+        if not feed.is_root:
+            feed.follow()
+            return None
+    try:
+        return _stream(source, cfg, output, slab_size, max_in_flight,
+                       var_name, progress, feed, device)
+    finally:
+        if feed is not None:
+            feed.close()
+
+
+def _stream(source, cfg: PipelineConfig, output, slab_size: int,
+            max_in_flight: int, var_name, progress: bool, feed, device):
+    """``enhance_volume_stream`` on this process: through ``feed`` (the
+    mesh's first rank) or the ``_DevicePipe`` on ``device``."""
+    from mies_tpu_torch.io.volume import open_volume_slabs, open_volume_writer
+
+    if feed is None:
+        dev = resolve_device(device)
+        fn = compile_pipeline(cfg, batched=True, device=dev)
     meta, slabs = open_volume_slabs(source, slab_size=slab_size,
                                     var_name=var_name)
     writer = open_volume_writer(output, meta.shape, np.uint8)
     try:
-        pipe = _DevicePipe(fn, dev, max_in_flight,
-                           lambda _, out: writer.append(out))
+        if feed is None:
+            pipe = _DevicePipe(fn, dev, max_in_flight,
+                               lambda _, out: writer.append(out))
+            submit, flush = pipe.submit, pipe.flush
+        else:
+            def submit(slab, tag, cap):
+                writer.append(feed.submit(slab))
+            flush = None
         nslabs = -(-meta.shape[0] // slab_size)
         for slab in _progress(_prefetched(slabs), nslabs, "slab", progress):
-            pipe.submit(slab, None, cap=slab_size)
-        pipe.flush()
+            submit(slab, None, cap=slab_size)
+        if flush is not None:
+            flush()
     except BaseException:
         # release the output file; its "volume incomplete" refusal would
         # hide the error that stopped the stream

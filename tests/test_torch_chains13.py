@@ -270,20 +270,17 @@ def test_receptive_field_matches_reference(op, kw):
     ("erode", {}), ("dilate", {}), ("morph_open", {}), ("morph_close", {}),
     ("morph_gradient", {}), ("black_hat", {})])
 def test_band_stage_refuses_ops_without_a_band_form(op, kw, tmp_path):
-    """The generic band path would pad sharpness's interior mask wrong: it
-    refuses it, naming the op. Morphology has its own band form (each
-    erode or dilate level extended by its own border, +-inf rows for
-    'ignore'): on a gloo world of one, where both edges are global, it is
-    the unsharded op bit for bit (worlds of 2 and 4:
-    tests/test_torch_volume_shard.py)."""
+    """The generic band path would pad sharpness's interior mask wrong, so
+    sharpness has its own band form (the global first and last rows pass
+    through on the edge ranks); so has morphology (each erode or dilate
+    level extended by its own border, +-inf rows for 'ignore'). On a gloo
+    world of one, where both edges are global, each is the unsharded op
+    bit for bit (worlds of 2 and 4: tests/test_torch_volume_shard.py and
+    tests/test_torch_dp_files.py)."""
     from mies_tpu_torch.parallel import init_distributed
     from mies_tpu_torch.pipeline.compiler import OP_REGISTRY
 
     stage = StageConfig.make(op, **kw)
-    if op == "sharpness":
-        with pytest.raises(ValueError, match=f"op '{op}' has no row-band form"):
-            THALO._band_stage(stage, None)
-        return
     x = torch.from_numpy(np.random.default_rng(13).random(
         (2, 40, 36)).astype(np.float32))
     init_distributed(f"file://{tmp_path}/store", 1, 0, device="cpu")

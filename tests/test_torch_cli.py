@@ -4,9 +4,10 @@ input files: ``enhance`` (one file, a batch) and ``enhance-volume``
 (streamed and in memory) within PERF.md section 2's bound (at most 1
 level on fewer than 1e-3 of pixels), on chains without opencv CLAHE
 (the JAX package's opencv CLAHE on XLA:CPU is off cv2; ROADMAP.md queue
-3). Also the refused flags and subcommands (and the eval ones, which
-run since they were ported), ``ops``, ``--window-from-file``, ``--mode
-3d`` and ``python -m mies_tpu_torch``.
+3). Also the flags and subcommands refused until they were ported
+(--stage-costs, --data-parallel, serve, export, doctor, warmup, and the
+eval ones), ``ops``, ``--window-from-file``, ``--mode 3d`` and
+``python -m mies_tpu_torch``.
 """
 
 from __future__ import annotations
@@ -143,23 +144,55 @@ def test_enhance_volume_3d_equals_the_volume_program(tmp_path):
                   "--stream"], device="cpu")
 
 
-REFUSED = [
-    ("enhance", ["--stage-costs"], "item 7"),
-    ("enhance", ["--data-parallel"], "item 7"),
-    ("enhance-volume", ["--data-parallel", "--stream"], "item 7"),
+PORTED_FLAGS = [
+    ("enhance", ["--stage-costs"], "run report"),
+    ("enhance", ["--data-parallel"], "batch"),
+    ("enhance-volume", ["--data-parallel", "--stream"], "stream"),
 ]
 
 
-@pytest.mark.parametrize("cmd,flag,item", REFUSED,
-                         ids=[f"{c}{f[0]}" for c, f, _ in REFUSED])
+@pytest.mark.parametrize("cmd,flag,item", PORTED_FLAGS,
+                         ids=[f"{c}{f[0]}" for c, f, _ in PORTED_FLAGS])
 def test_unported_flags_exit_2_naming_the_roadmap_item(tmp_path, sharpen, cmd,
                                                        flag, item, capsys):
-    out = ["-o", str(tmp_path / "o.nc")]
-    assert cli.main([cmd, str(tmp_path / "in.nc"), "-c", str(sharpen), *out,
-                     *flag], device="cpu") == 2
-    err = capsys.readouterr().err
-    assert f"{flag[0]} is not ported" in err
-    assert f"ROADMAP.md queue 1 {item}" in err
+    """Refused (exit 2, naming ROADMAP.md queue 1 item 7) until they were
+    ported, the flags run as the reference's: --stage-costs adds each
+    stage's costs to the run report; --data-parallel, in a world of one
+    (no torchrun variables), writes what the run without it writes, and
+    single-image mode refuses it with the reference's message."""
+    if item == "run report":
+        rep = tmp_path / "r.json"
+        assert cli.main([cmd, str(_png(tmp_path / "in.png")), "-c",
+                         str(sharpen), "-o", str(tmp_path / "o.png"),
+                         "--run-report", str(rep), *flag], device="cpu") == 0
+        costs = json.loads(rep.read_text())["stage_costs"]
+        assert [c["op"] for c in costs] == ["gaussian_blur", "unsharp_mask"]
+        assert all(c["flops"] > 0 and c["bytes"] > 0 for c in costs)
+        return
+    if item == "batch":
+        srcs = [str(_png(tmp_path / "in" / f"x{i}.png", seed=i))
+                for i in range(3)]
+        for out, extra in (("dp", flag), ("one", [])):
+            assert cli.main([cmd, *srcs, "-c", str(sharpen), "-o",
+                             str(tmp_path / out), "--batch", "2", *extra],
+                            device="cpu") == 0
+        for i in range(3):
+            np.testing.assert_array_equal(
+                load_image(tmp_path / "dp" / f"x{i}.png", dtype="raw"),
+                load_image(tmp_path / "one" / f"x{i}.png", dtype="raw"))
+        capsys.readouterr()
+        assert cli.main([cmd, srcs[0], "-c", str(sharpen), *flag],
+                        device="cpu") == 2
+        assert "applies to batch mode only" in capsys.readouterr().err
+        return
+    vol = np.random.default_rng(3).random((6, 24, 32)).astype(np.float32)
+    save_volume(tmp_path / "in.nc", vol)
+    for out, extra in (("dp.nc", flag), ("one.nc", ["--stream"])):
+        assert cli.main([cmd, str(tmp_path / "in.nc"), "-c", str(sharpen),
+                         "-o", str(tmp_path / out), "--slab", "4", "-q",
+                         *extra], device="cpu") == 0
+    np.testing.assert_array_equal(load_volume(tmp_path / "dp.nc")[0],
+                                  load_volume(tmp_path / "one.nc")[0])
 
 
 # the flags queue 1 item 5 ported (eval), refused until then
@@ -395,12 +428,37 @@ def test_isotropic_with_metrics_is_refused_naming_item_5(tmp_path, capsys):
                  device="cpu")
 
 
-@pytest.mark.parametrize("sub,item", [("serve", "item 7"), ("export", "item 7"),
-                                      ("doctor", "item 7"), ("warmup", "item 7")])
-def test_unported_subcommands_exit_2_naming_the_roadmap_item(sub, item, capsys):
-    assert cli.main([sub, "-c", "x.yaml", "--anything"], device="cpu") == 2
-    err = capsys.readouterr().err
-    assert f"{sub} is not ported" in err and f"ROADMAP.md queue 1 {item}" in err
+@pytest.mark.parametrize("sub,item", [("serve", "serving"),
+                                      ("export", "artifact"),
+                                      ("doctor", "status"),
+                                      ("warmup", "compiled")])
+def test_unported_subcommands_exit_2_naming_the_roadmap_item(
+        sub, item, tmp_path, sharpen, monkeypatch, capsys):
+    """Refused until they were ported (queue 1 item 7), the subcommands run
+    and print the reference's JSON: serve announces its chain (the
+    blocking loop replaced by one that closes the server; the server
+    itself: tests/test_torch_serve.py), export writes an artifact, doctor
+    reports (exit 1 without a card), warmup runs each batch."""
+    import mies_tpu_torch.serve as serve_mod
+
+    monkeypatch.setattr(serve_mod, "_run_server", lambda srv, announce: (
+        print(json.dumps(announce)), srv.server_close()))
+    argv = {
+        "serve": ["-c", str(sharpen), "--port", "0", "--warmup", "32x48"],
+        "export": ["-c", str(sharpen), "-o", str(tmp_path / "s.mies"),
+                   "--size", "32", "--batch", "1", "--dtype", "uint8"],
+        "doctor": ["--probe-timeout", "60"],
+        "warmup": ["-c", str(sharpen), "--size", "32", "--batch", "1", "2"],
+    }[sub]
+    rc = cli.main([sub, *argv], device="cpu")
+    out = json.loads(capsys.readouterr().out)
+    assert item in out
+    assert rc == (1 if sub == "doctor" and not torch.cuda.is_available()
+                  else 0)
+    if sub == "export":
+        assert out["input_shape"] == [32, 32] and out["platforms"] == ["cpu"]
+    if sub == "serve":
+        assert out["pipeline"] == "gauss-sharpen"
 
 
 @pytest.mark.parametrize("sub", ["evaluate", "train-denoiser"])
@@ -472,8 +530,8 @@ def test_python_m_runs_the_cli(tmp_path):
     proc = subprocess.run([sys.executable, "-m", "mies_tpu_torch", "serve"],
                           capture_output=True, text=True, env=env, cwd=REPO,
                           timeout=120)
-    assert proc.returncode == 2
-    assert "ROADMAP.md queue 1 item 7" in proc.stderr
+    assert proc.returncode == 1
+    assert "serve needs -c CONFIG or --artifact FILE.mies" in proc.stderr
     proc = subprocess.run([sys.executable, "-m", "mies_tpu_torch", "ops"],
                           capture_output=True, text=True, env=env, cwd=REPO,
                           timeout=120)

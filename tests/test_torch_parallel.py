@@ -443,12 +443,11 @@ def test_shard_pipeline_splits_over_both_dims(world4):
     ("grid_rows", "not divisible"), ("misaligned", "not tile-aligned"),
     ("skimage", "skimage"), ("kornia", "kornia"), ("lee_no_sigma", "sigma"),
     ("global", "global/tile extent"), ("halo", "exceeds the local band"),
-    ("halo_fits", ""), ("top_hat", ""),
-    ("sharpness", "op 'sharpness' has no row-band form")])
+    ("halo_fits", ""), ("top_hat", ""), ("sharpness", "")])
 def test_sharded_rejections(world, case, match):
     """The reference's errors, raised on every rank (a halo of 3 over a
-    band of 2 rows; a halo of 2 fits; morphology has its band form, so
-    top_hat builds)."""
+    band of 2 rows; a halo of 2 fits; morphology and sharpness have their
+    band forms, so top_hat and sharpness build)."""
     n, out = world
     for r in range(n):
         msg = json.loads((out / f"rejections_{r}.json").read_text())[case]

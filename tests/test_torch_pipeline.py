@@ -160,8 +160,9 @@ def test_timing_refuses_the_cpu():
 
 def test_port_imports_neither_jax_nor_mies_tpu(tmp_path):
     """The port, its file I/O (every codec), the native decoders, the CLI,
-    the file entry points, the metric suite and its reports, the models and
-    the sharded evaluation load no jax, jaxlib, triton or mies_tpu module;
+    the file entry points, the metric suite and its reports, the models,
+    the sharded evaluation, the server, the export and the profiling
+    utilities load no jax, jaxlib, triton or mies_tpu module;
     a DICOM/.nc-only run (one small DICOM of each compressed syntax
     decoded, a DICOM enhanced, a .nc streamed) loads no PIL either, so
     the card's path cannot need Pillow; nothing loads matplotlib (only a
@@ -174,6 +175,8 @@ def test_port_imports_neither_jax_nor_mies_tpu(tmp_path):
         "import mies_tpu_torch.eval, mies_tpu_torch.eval.report\n"
         "import mies_tpu_torch.models, mies_tpu_torch.models.augment\n"
         "import mies_tpu_torch.parallel.sharding\n"
+        "import mies_tpu_torch.serve, mies_tpu_torch.pipeline.export\n"
+        "import mies_tpu_torch.utils, mies_tpu_torch.utils.profiling\n"
         "import mies_tpu_torch.io.jpegll, mies_tpu_torch.io.jpegdct\n"
         "import mies_tpu_torch.io.jpegls, mies_tpu_torch.io.jpeg2k\n"
         "import mies_tpu_torch.io.htj2k, mies_tpu_torch.io.htj2k_tables\n"

@@ -24,7 +24,7 @@ import torch
 from pytest import skip
 
 from mies_tpu_torch.io.dicom import write_dicom
-from mies_tpu_torch.io.image import load_image
+from mies_tpu_torch.io.image import load_image, save_image
 from mies_tpu_torch.io.volume import load_volume, save_volume
 from mies_tpu_torch.pipeline import runner
 from mies_tpu_torch.pipeline.compiler import compile_pipeline
@@ -383,12 +383,43 @@ def test_file_entry_points_without_a_card_raise(tmp_path):
 
 
 def test_mesh_is_refused_with_the_roadmap_item(tmp_path):
+    """Refused until ported (ROADMAP.md queue 1 item 7): enhance_batch(mesh=)
+    and enhance_volume_stream(mesh=) on a gloo world of one write what the
+    runs without a mesh write (the worlds of 2 and 4:
+    tests/test_torch_dp_files.py)."""
+    from mies_tpu_torch.parallel import init_distributed, make_mesh
+
     cfg = flagship_config()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        runner.enhance_batch([], cfg, tmp_path, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        runner.enhance_volume_stream(tmp_path / "x.nc", cfg, tmp_path / "y.nc",
-                                     mesh=object(), device="cpu")
+    srcs = []
+    for i, shape in enumerate([(24, 32), (24, 32), (20, 16)]):
+        srcs.append(tmp_path / "in" / f"x{i}.png")
+        srcs[-1].parent.mkdir(exist_ok=True)
+        save_image(srcs[-1], np.random.default_rng(i).integers(
+            0, 256, shape, dtype=np.uint8))
+    vol = np.random.default_rng(7).integers(-500, 1500, (7, 24, 16),
+                                            dtype=np.int16)
+    save_volume(tmp_path / "in.nc", vol)
+    ct = load_config(CT)
+    runner.enhance_batch(srcs, cfg, tmp_path / "one", batch_size=2,
+                         progress=False, device="cpu")
+    runner.enhance_volume_stream(tmp_path / "in.nc", ct, tmp_path / "one.nc",
+                                 slab_size=2, device="cpu")
+    init_distributed(f"file://{tmp_path}/store", 1, 0, device="cpu")
+    try:
+        man = runner.enhance_batch(srcs, cfg, tmp_path / "dp", batch_size=2,
+                                   progress=False, mesh=make_mesh())
+        runner.enhance_volume_stream(tmp_path / "in.nc", ct,
+                                     tmp_path / "dp.nc", slab_size=2,
+                                     mesh=make_mesh())
+    finally:
+        torch.distributed.destroy_process_group()
+    assert man.done_count == 3 and not man.failures
+    for p in srcs:
+        np.testing.assert_array_equal(
+            load_image(tmp_path / "dp" / p.name, dtype="raw"),
+            load_image(tmp_path / "one" / p.name, dtype="raw"))
+    np.testing.assert_array_equal(load_volume(tmp_path / "dp.nc")[0],
+                                  load_volume(tmp_path / "one.nc")[0])
 
 
 def test_enhance_volume_with_a_mesh_of_one_equals_without(tmp_path):

@@ -335,15 +335,16 @@ def test_enhance_volume_with_a_mesh_equals_without(world):
     ("gamma", "gamma=None normalizes by the per-scale GLOBAL max"),
     ("halo", "exceeds the local band size"),
     ("depth", "divisible by the axis size"),
-    ("sharpness", "op 'sharpness' has no row-band form"),
+    ("sharpness", ""),
     ("slab_size", "must divide by the mesh's"),
 ])
 def test_z_sharded_rejections(world, case, match):
-    """The reference's errors, raised on every rank."""
+    """The reference's errors, raised on every rank (sharpness has its row
+    band form, so its 2-D chain builds)."""
     n, out = world
     for r in range(n):
         msg = json.loads((out / f"rejections_{r}.json").read_text())[case]
-        assert match in msg, msg
+        assert (match in msg) if match else msg == "", msg
 
 
 @pytest.mark.parametrize("n", [2, 4])
