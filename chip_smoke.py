@@ -100,8 +100,11 @@ Phases, one printed line each (or a few):
                presets.flagship_volume_config at slab 16, twice (end-to-
                end z-slices/s, the stream's own peak device memory under
                256 MiB, K1 to the LUTs, K2, K3, K4 once per slab and no
-               other kernel), once more under the profiler (device time
-               by kind, the busy share), the chain alone by time_pipeline
+               other kernel), once under tracemalloc (the host's numpy
+               peak within 2 slabs + 1 MiB: the stream's two read
+               buffers; seconds, z-slices/s), once more under the
+               profiler (device time by kind, the busy share), the chain
+               alone by time_pipeline
                (int16 b16 512^2), the slab read and the output write
                alone; the output equal to compile_pipeline(batched=True)
                per slab and to enhance_volume, its first slab within 1
@@ -186,7 +189,9 @@ Phases, one printed line each (or a few):
                K4 once a call; equal to its plain CLAHE and tail on the
                card; on 4 slices the learned stage within 8e-3 of the CPU's
                and < 2% of the uint8 pixels off (bf16 on both, through
-               CLAHE); slices/s, the convolutions' share, busy); evaluate,
+               CLAHE); slices/s, the convolutions' share, busy); one
+               learned_denoise stage on the card, the CPU and the card
+               again, each result equal to a fresh stage's there; evaluate,
                enhance --run-report and train-denoiser --steps 20 as
                subprocesses on DICOM files, each equal to the in-process
                result;
@@ -227,6 +232,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import tracemalloc
 from pathlib import Path
 
 import numpy as np
@@ -510,6 +516,29 @@ def _files_phase(dev: torch.device, card: str, repo: Path) -> None:
             _require(peak < 256 * 2**20,
                      f"w5 stream's own peak device memory {peak / 2**20:.1f} "
                      f"MiB is not under 256 MiB")
+        # the host's numpy peak of one stream by tracemalloc: the reader's
+        # two slab buffers and the writer (the pinned staging ring is
+        # torch memory, which tracemalloc does not see)
+        slab_bytes = slab * SIZE * SIZE * np.dtype(np.int16).itemsize
+        host_limit = 2 * slab_bytes + 2**20
+        tracemalloc.start()
+        try:
+            t0 = time.perf_counter()
+            enhance_volume_stream(tmp / "w5.nc", cfg5, tmp / "w5_traced.nc",
+                                  slab_size=slab, device=dev)
+            torch.cuda.synchronize(dev)
+            traced_s = time.perf_counter() - t0
+            _, host_peak = tracemalloc.get_traced_memory()
+        finally:
+            tracemalloc.stop()
+        _require(host_peak <= host_limit,
+                 f"w5 stream's host numpy peak {host_peak} B is over 2 slabs "
+                 f"+ 1 MiB ({host_limit} B)")
+        print(f"files w5 host numpy peak (tracemalloc over one stream): "
+              f"{host_peak} B = {host_peak / slab_bytes:.4f} slabs of "
+              f"{slab_bytes} B (limit 2 slabs + 1 MiB = {host_limit} B) | "
+              f"the traced stream {traced_s:.3f} s, {z5 / traced_s:.1f} "
+              f"z-slices/s | {card}")
         # the same stream under the profiler (CUDA activity): device time
         # by kind over the stream's wall time inside the profiled window
         # (the profiler's start and stop excluded): the busy share
@@ -542,10 +571,11 @@ def _files_phase(dev: torch.device, card: str, repo: Path) -> None:
         out0, _ = load_volume(tmp / "w5_out0.nc")
         out1, _ = load_volume(tmp / "w5_out1.nc")
         outp, _ = load_volume(tmp / "w5_prof.nc")
+        outt, _ = load_volume(tmp / "w5_traced.nc")
         _require(out0.dtype == np.uint8 and out0.shape == vol.shape,
                  f"w5 output {out0.dtype} {out0.shape}")
-        _require(np.array_equal(out0, out1) and np.array_equal(out0, outp),
-                 "w5 runs differ")
+        _require(np.array_equal(out0, out1) and np.array_equal(out0, outp)
+                 and np.array_equal(out0, outt), "w5 runs differ")
         fn5 = compile_pipeline(cfg5, batched=True, device=dev)
         for k in range(0, z5, slab):
             got = fn5(torch.from_numpy(vol[k:k + slab]).to(dev)).cpu().numpy()
@@ -575,7 +605,7 @@ def _files_phase(dev: torch.device, card: str, repo: Path) -> None:
               f"writing the input {write_in_s:.3f} s | equal to compile_pipeline "
               f"per slab and enhance_volume; slab 0 vs the CPU plain chain "
               f"{off_n} pixels off (max {off_max}) | {card}")
-        del vol, out0, out1, outp, mem
+        del vol, out0, out1, outp, outt, mem
 
         # -- a 64-slice DICOM CT series -----------------------------------
         ct = _ct_volume(64, SIZE, SIZE, 5, dev).cpu().numpy()
@@ -1543,7 +1573,10 @@ def _eval_models_phase(dev: torch.device, card: str, repo: Path) -> dict:
     CLAHE and tail on the card; on 4 slices the learned stage within the
     CPU tests' bf16 bound (8e-3) of the CPU's and < 2% of the uint8 pixels
     off the CPU chain's (CLAHE's LUT steps carry the bf16 gap);
-    slices/s, device ms by op (the convolutions' share), launches, busy. (e) evaluate, enhance --run-report and
+    slices/s, device ms by op (the convolutions' share), launches, busy;
+    one learned_denoise stage called on the card, the CPU and the card
+    again, each result equal to a stage built fresh on that device. (e)
+    evaluate, enhance --run-report and
     train-denoiser --steps 20 in subprocesses on DICOM files: exit 0, equal
     to the in-process results. Returns the kernels' launches in (b) and
     (d)."""
@@ -1566,6 +1599,7 @@ def _eval_models_phase(dev: torch.device, card: str, repo: Path) -> dict:
         sharded_evaluate,
     )
     from mies_tpu_torch.pipeline.compiler import (
+        OP_REGISTRY,
         _quantize_u8,
         compile_pipeline,
     )
@@ -1760,6 +1794,23 @@ def _eval_models_phase(dev: torch.device, card: str, repo: Path) -> dict:
               f"CLAHE and tail | 4 slices vs CPU: the learned stage max abs "
               f"{den_err:.3g}, uint8 {n_off} of {cpu_d.numel()} differ (max "
               f"{lv}) | {card}")
+
+        # one stage on the card, the CPU and the card again: each device
+        # runs its own copy of the model (pipeline/compiler.py)
+        build = OP_REGISTRY["learned_denoise"]
+        stage = build(checkpoint=str(tmp / "dn"))
+        xs = x[:2, :256, :256]
+        hops = []
+        for d in (dev, torch.device("cpu"), dev):
+            got = stage(xs.to(d))
+            fresh = build(checkpoint=str(tmp / "dn"))(xs.to(d))
+            _require(got.device.type == d.type and torch.equal(got, fresh),
+                     f"learned stage on {d.type} after {hops}: differs "
+                     f"from a fresh stage")
+            hops.append(d.type)
+        print(f"models learned stage [2,256,256] on the card -> the CPU -> the "
+              f"card: each result equal to a stage built fresh on that "
+              f"device | {card}")
 
         # -- (e) the CLI in subprocesses, on DICOM files ---------------------
         a_u8, b_u8 = gt[1].cpu().numpy(), out[1].cpu().numpy()

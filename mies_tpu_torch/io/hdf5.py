@@ -554,30 +554,41 @@ class H5Dataset:
         _walk_chunk_btree(self._rd, addr, rank + 1, out, self._ctx)
         return out
 
-    def read_slab(self, z0: int = 0, z1: int | None = None) -> np.ndarray:
+    def read_slab(self, z0: int = 0, z1: int | None = None,
+                  out: np.ndarray | None = None) -> np.ndarray:
         """Read ``[z0:z1]`` along the first axis (the whole array for a
-        0-/1-D dataset when defaulted)."""
+        0-/1-D dataset when defaulted); into ``out`` (an array of the
+        slab's shape, any byte order) when given, with no other copy of
+        the slab, else into a new array of the dataset's dtype."""
         shape = self.shape
         if z1 is None:
             z1 = shape[0] if shape else 1
         z1 = min(z1, shape[0]) if shape else 1
         nz = max(z1 - z0, 0)
         oshape = (nz,) + shape[1:] if shape else ()
+        if out is None:
+            out = np.empty(oshape, self.dtype)
+        elif out.shape != oshape:
+            raise ValueError(f"out has shape {out.shape}, the slab {oshape}")
         kind = self._layout_parsed()
         it = self.dtype.itemsize
         if kind[0] == "compact":
             arr = np.frombuffer(kind[1], self.dtype).reshape(shape)
-            return arr[z0:z1].copy() if shape else arr.copy()
+            np.copyto(out, arr[z0:z1] if shape else arr)
+            return out
         if kind[0] == "contiguous":
             _tag, addr, size = kind
             if addr == _UNDEF:  # never written: fill value (zeros)
-                return np.zeros(oshape, self.dtype)
+                out[...] = 0
+                return out
             row = int(np.prod(shape[1:], dtype=np.int64)) * it if shape \
                 else it
-            raw = self._rd.buf[addr + z0 * row:addr + z1 * row]
-            return np.frombuffer(raw, self.dtype).reshape(oshape).copy()
+            # a view of the mapping, not a bytes copy of the slab
+            raw = memoryview(self._rd.buf)[addr + z0 * row:addr + z1 * row]
+            np.copyto(out, np.frombuffer(raw, self.dtype).reshape(oshape))
+            return out
         tag, addr, cdims = kind[0], kind[1], kind[2]
-        out = np.zeros(oshape, self.dtype)
+        out[...] = 0
         if tag == "chunked":
             chunks = self._chunk_map(addr, len(shape))
         elif tag == "chunked4-fixedarray":

@@ -170,7 +170,10 @@ class NetCDF3VolumeWriter:
             raise ValueError(f"slab dtype {slab.dtype} != {self.dtype}")
         if self.dtype == np.uint8:
             slab = slab.view(np.int8)
-        self._f.write(np.ascontiguousarray(slab, dtype=self._be).tobytes())
+        # written from the array's own buffer: a copy is made only where
+        # the slab is not contiguous or its bytes need the big-endian swap
+        # (a uint8 slab needs neither)
+        self._f.write(np.ascontiguousarray(slab, dtype=self._be).data)
         self._z_written += slab.shape[0]
 
     def close(self) -> None:

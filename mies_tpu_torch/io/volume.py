@@ -17,14 +17,15 @@ NetCDF support is two-tier:
 section 3.3): it yields [slab, H, W] chunks with O(slab) host memory
 for .nc (classic mmap, HDF5 per-chunk slabs), .npy (memmap) and DICOM
 directories (per-file decode); .npz is zip-compressed and falls back
-to a full load (documented).
+to a full load (documented). ``open_volume_reader`` reads the same
+formats into buffers the caller owns (the streamed runner's fixed pair).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 
@@ -216,13 +217,44 @@ def save_volume(path: str | Path, vol: np.ndarray, var_name: str = "enhanced") -
 # ---------------------------------------------------------------------------
 
 
+class SlabReader:
+    """A [Z, H, W] volume opened for reading slab by slab into the
+    caller's own buffers (``open_volume_reader``).
+
+    ``meta`` is the volume's ``VolumeMeta``; ``dtype`` the slabs' numpy
+    dtype in native byte order. ``read_into(k, out)`` fills ``out`` (a
+    C-contiguous [n, H, W] array of ``dtype``) with slices [k, k + n) in
+    one copy from the file's mapping or decoder, byte swap included, and
+    returns it; ``close()`` releases the file (and the DICOM decode pool).
+    """
+
+    def __init__(self, meta: VolumeMeta, dtype, fill: Callable,
+                 close: Callable[[], None] = lambda: None) -> None:
+        self.meta, self.dtype = meta, np.dtype(dtype)
+        self._fill, self._close = fill, close
+
+    def read_into(self, k: int, out: np.ndarray) -> np.ndarray:
+        self._fill(k, out)
+        return out
+
+    def close(self) -> None:
+        self._close()
+
+    def __enter__(self) -> "SlabReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 def open_volume_slabs(
     path: str | Path, slab_size: int = 16, var_name: str | None = None
 ) -> tuple[VolumeMeta, Iterator[np.ndarray]]:
     """Open a volume for slab-streamed reading: (meta, slab iterator).
 
-    Yields [z_i, H, W] chunks (last one may be short) with O(slab) host
-    memory for:
+    Yields [z_i, H, W] chunks (last one may be short), each a fresh array
+    in native byte order that stays valid after the next read, read in
+    one copy through ``open_volume_reader``: O(slab) host memory for
       * classic .nc — scipy mmap, lazy per-slab slicing;
       * .npy        — numpy memmap;
       * DICOM dir   — header-ordering pass (one file in memory at a
@@ -234,54 +266,66 @@ def open_volume_slabs(
     .npz (zip-compressed) falls back to a full load — the format
     cannot be range-read without decompressing.
     """
+    reader = open_volume_reader(path, var_name)
+    return reader.meta, _fresh_slabs(reader, slab_size)
+
+
+def _fresh_slabs(reader: SlabReader, slab_size: int) -> Iterator[np.ndarray]:
+    z, *hw = reader.meta.shape
+    try:
+        for k in range(0, z, slab_size):
+            yield reader.read_into(
+                k, np.empty((min(slab_size, z - k), *hw), reader.dtype))
+    finally:
+        reader.close()
+
+
+def open_volume_reader(path: str | Path,
+                       var_name: str | None = None) -> SlabReader:
+    """Open a volume for reading slab by slab into the caller's buffers
+    (``SlabReader``): the formats of ``open_volume_slabs``, which reads
+    through it."""
     path = Path(path)
     if path.is_dir():
-        return _dicom_slab_stream(path, slab_size)
+        return _dicom_series_reader(path)
     suffix = path.suffix.lower()
     if suffix in (".dcm", ".dicom"):
         # multi-frame file: frames are contiguous in ONE PixelData
-        # element — a full parse is unavoidable, so slab-iterate the
+        # element — a full parse is unavoidable, so slab-read the
         # in-memory array (bounded by the single file's size)
         vol, meta = load_volume(path)
-
-        def gen_frames():
-            for z in range(0, vol.shape[0], slab_size):
-                yield vol[z:z + slab_size]
-
-        return meta, gen_frames()
+        return _array_reader(vol, meta)
     if suffix == ".nc" and _is_classic_netcdf(path):
         f, var, var_name, unsigned = _open_scipy_nc(path, var_name)
         shape = tuple(int(s) for s in var.data.shape)
         native_dt = np.dtype(var.data.dtype.newbyteorder("="))
-        dt = "uint8" if unsigned else native_dt.name
-        meta = VolumeMeta(shape, dt, f"netcdf3-stream:{path}", var_name)
+        dt = np.dtype(np.uint8) if unsigned else native_dt
+        meta = VolumeMeta(shape, dt.name, f"netcdf3-stream:{path}", var_name)
 
-        def gen():
-            try:
-                for k in range(0, shape[0], slab_size):
-                    slab = np.array(var[k : k + slab_size]).astype(native_dt)
-                    yield slab.view(np.uint8) if unsigned else slab
-            finally:
-                # the data was copied slab-by-slab; scipy still warns
-                # about closing an mmap with live variable refs
-                import warnings
+        def fill_nc(k, out):
+            src = var[k : k + len(out)]  # a view of the mmap
+            np.copyto(out, src.view(np.uint8) if unsigned else src)
 
-                with warnings.catch_warnings():
-                    warnings.simplefilter("ignore", RuntimeWarning)
-                    f.close()
+        def close_nc():
+            # every slab was copied out; scipy still warns about closing
+            # an mmap with live variable refs
+            import warnings
 
-        return meta, gen()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                f.close()
+
+        return SlabReader(meta, dt, fill_nc, close_nc)
     if suffix == ".npy":
         mm = np.load(path, mmap_mode="r")
         if mm.ndim != 3:
             raise ValueError(f"expected a 3-D .npy volume, got {mm.shape}")
         meta = VolumeMeta(mm.shape, str(mm.dtype), f"npy-stream:{path}")
 
-        def gen():
-            for k in range(0, mm.shape[0], slab_size):
-                yield np.array(mm[k : k + slab_size])
+        def fill_npy(k, out):
+            np.copyto(out, mm[k : k + len(out)])
 
-        return meta, gen()
+        return SlabReader(meta, mm.dtype.newbyteorder("="), fill_npy)
     if suffix == ".nc":
         from mies_tpu_torch.io.hdf5 import H5File, is_hdf5
 
@@ -304,27 +348,29 @@ def open_volume_slabs(
             meta = VolumeMeta(dset.shape, native_dt.name,
                               f"hdf5-stream:{path}", var_name)
 
-            def gen_h5():
-                for k in range(0, dset.shape[0], slab_size):
-                    yield np.ascontiguousarray(
-                        dset.read_slab(k, k + slab_size)
-                        .astype(native_dt))
+            def fill_h5(k, out):
+                dset.read_slab(k, k + len(out), out=out)
 
-            return meta, gen_h5()
+            return SlabReader(meta, native_dt, fill_h5)
     # full-load fallbacks (.npz) — documented, not silent
     vol, meta = load_volume(path, var_name=var_name)
     meta.source = f"full-load:{meta.source}"
-
-    def gen():
-        for k in range(0, vol.shape[0], slab_size):
-            yield vol[k : k + slab_size]
-
-    return meta, gen()
+    return _array_reader(vol, meta)
 
 
-def _dicom_slab_stream(
-    directory: Path, slab_size: int, pattern: str = "*.dcm"
-) -> tuple[VolumeMeta, Iterator[np.ndarray]]:
+def _array_reader(vol: np.ndarray, meta: VolumeMeta) -> SlabReader:
+    def fill(k, out):
+        np.copyto(out, vol[k : k + len(out)])
+
+    return SlabReader(meta, vol.dtype.newbyteorder("="), fill)
+
+
+def _dicom_series_reader(directory: Path,
+                         pattern: str = "*.dcm") -> SlabReader:
+    """A DICOM series directory, ordered by position from the headers
+    alone; ``read_into`` decodes its slices on a pool of 8 threads, each
+    slice into its row of the caller's buffer (a worker holds one file's
+    bytes and one decoded slice at a time)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mies_tpu_torch import native
@@ -380,21 +426,25 @@ def _dicom_slab_stream(
         if use_native:
             try:
                 px, _ = native.read_dicom_native(p)
-                return px.astype(np.int16)
+                return px
             except ValueError:
                 # the Python reader handles forms the C parser doesn't
                 # (e.g. preamble-less implicit-VR dumps) — same fallback
                 # contract as the 2-D ingest (io/image.py)
                 pass
-        return read_dicom(p).pixels.astype(np.int16)
+        return read_dicom(p).pixels
 
-    def gen():
-        with ThreadPoolExecutor(max_workers=8) as pool:
-            for k in range(0, z, slab_size):
-                chunk = ordered[k : k + slab_size]
-                yield np.stack(list(pool.map(decode, chunk)), axis=0)
+    pool = ThreadPoolExecutor(max_workers=8)
 
-    return meta, gen()
+    def fill(k, out):
+        def one(i):
+            # the unsafe cast is astype(np.int16): unsigned stored values
+            # keep their 16-bit pattern
+            np.copyto(out[i], decode(ordered[k + i]), casting="unsafe")
+
+        list(pool.map(one, range(len(out))))
+
+    return SlabReader(meta, np.int16, fill, pool.shutdown)
 
 
 def open_volume_writer(

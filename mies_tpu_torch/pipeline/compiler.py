@@ -65,6 +65,7 @@ Volume chains (``compile_volume_pipeline``, [Z, H, W] -> [Z, H, W]):
 
 from __future__ import annotations
 
+import copy
 import functools
 import os
 from typing import Callable
@@ -254,8 +255,9 @@ def _histogram_match_builder(reference: str):
 def _learned_denoise_builder(checkpoint: str):
     """Stage builder: load the denoiser checkpoint once, when the chain is
     built, and run the model on [B, 1, H, W] (bfloat16 compute, as the
-    reference), its weights moved to the chain's device at the first call
-    there."""
+    reference). The loaded model stays on the CPU; any other device gets
+    its own copy of it at the first call there, so one stage runs on
+    several devices in any order."""
     from mies_tpu_torch.models.denoiser import denoise_batch, load_model
 
     try:
@@ -266,11 +268,12 @@ def _learned_denoise_builder(checkpoint: str):
             f"(train one with `python -m mies_tpu_torch train-denoiser -o "
             f"{checkpoint}`)"
         ) from e
-    on_device = {}
+    # nn.Module.to moves a module in place: each device gets a copy
+    on_device = {torch.device("cpu"): model}
 
     def stage(img: torch.Tensor) -> torch.Tensor:
         if img.device not in on_device:
-            on_device[img.device] = model.to(img.device)
+            on_device[img.device] = copy.deepcopy(model).to(img.device)
         with torch.no_grad():
             return denoise_batch(on_device[img.device], img)
 

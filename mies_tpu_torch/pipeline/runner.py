@@ -48,7 +48,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import queue
 import sys
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -524,18 +526,52 @@ def run_sharded(volume, fn: Callable, slab_size: int, mesh,
     return np.concatenate(outs, axis=0)
 
 
-def _prefetched(it: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
-    """Read the next item of ``it`` on a worker thread while the caller
-    works on the current one (disk read and decode of slab k+1 overlap
-    the staging and the write of slab k)."""
-    with ThreadPoolExecutor(max_workers=1) as reader:
-        fut = reader.submit(next, it, None)
-        while True:
-            item = fut.result()
-            if item is None:
-                return
-            fut = reader.submit(next, it, None)
-            yield item
+# the streamed volume's read buffers: one is filled while the other is staged
+READ_BUFFERS = 2
+
+
+def _read_ahead(reader, slab_size: int) -> Iterator[np.ndarray]:
+    """The slabs of ``reader`` (an ``io.volume.SlabReader``), read on a
+    worker thread into ``READ_BUFFERS`` buffers of [slab_size, H, W]
+    allocated before the first read. Each slab yielded is a view of one
+    buffer (``buf[:n]`` for a short last slab), valid until the next slab
+    is asked for: asking hands that buffer back to the reader. So the
+    disk read and decode of slab k+1 overlap the staging and the write of
+    slab k, and the host holds ``READ_BUFFERS`` input slabs whatever the
+    threads' timing. Closing the generator stops the reader."""
+    z, *hw = reader.meta.shape
+    free: queue.Queue = queue.Queue()
+    for _ in range(READ_BUFFERS):
+        free.put(np.empty((slab_size, *hw), reader.dtype))
+    full: queue.Queue = queue.Queue()
+    stop = threading.Event()
+
+    def read() -> None:
+        try:
+            for k in range(0, z, slab_size):
+                buf = free.get()
+                if stop.is_set():
+                    return
+                n = min(slab_size, z - k)
+                reader.read_into(k, buf[:n])
+                full.put((buf, n))
+            full.put(None)
+        except BaseException as e:  # raised again on the caller's thread
+            full.put(e)
+
+    worker = threading.Thread(target=read, name="slab-reader", daemon=True)
+    worker.start()
+    try:
+        while (item := full.get()) is not None:
+            if isinstance(item, BaseException):
+                raise item
+            buf, n = item
+            yield buf[:n]
+            free.put(buf)
+    finally:
+        stop.set()
+        free.put(None)  # wakes a reader waiting for a buffer
+        worker.join()
 
 
 def enhance_volume_stream(
@@ -552,11 +588,25 @@ def enhance_volume_stream(
     """Disk-to-disk volume enhancement with O(slab) host memory.
 
     Reads [slab, H, W] chunks lazily (classic .nc via mmap, .npy memmap,
-    HDF5 per chunk, or a DICOM series: ``io.volume.open_volume_slabs``),
+    HDF5 per chunk, or a DICOM series: ``io.volume.open_volume_reader``),
     one slab ahead on a reader thread, keeps ``max_in_flight`` slabs on
     the card, and appends each finished uint8 slab to ``output``
     (streaming NetCDF-3, .npy memmap, or a DICOM directory). The whole
     volume is never resident on the host. Returns the input VolumeMeta.
+
+    Host memory, fixed before the first read: the reader fills
+    ``READ_BUFFERS`` = 2 input slabs in place, one copy from the file's
+    mapping each, and a buffer goes back to it only once
+    ``_DevicePipe.submit`` has copied its slab into a staging slot (the
+    pinned ring on the card, the staged tensor on the CPU) or the mesh
+    has sent it. The outputs are written from the staging ring's own
+    buffers. So the numpy side holds 2 input slabs plus a constant
+    (the output file's header, a DICOM writer's one slice), whatever
+    the threads' timing; a DICOM series adds its decode pool's 8 workers,
+    each holding one file's bytes and one decoded slice, and a mesh the
+    copy of a last slab padded to the mesh's size. The staging ring (up
+    to ``max_in_flight`` slabs in and out) is torch memory, pinned on the
+    card.
 
     With a ``mesh`` (every rank calls this) each slab is split over the
     mesh's ranks (``_MeshFeed``): the mesh's first rank reads the slabs,
@@ -597,34 +647,37 @@ def _stream(source, cfg: PipelineConfig, output, slab_size: int,
             max_in_flight: int, var_name, progress: bool, feed, device):
     """``enhance_volume_stream`` on this process: through ``feed`` (the
     mesh's first rank) or the ``_DevicePipe`` on ``device``."""
-    from mies_tpu_torch.io.volume import open_volume_slabs, open_volume_writer
+    from mies_tpu_torch.io.volume import open_volume_reader, open_volume_writer
 
     if feed is None:
         dev = resolve_device(device)
         fn = compile_pipeline(cfg, batched=True, device=dev)
-    meta, slabs = open_volume_slabs(source, slab_size=slab_size,
-                                    var_name=var_name)
-    writer = open_volume_writer(output, meta.shape, np.uint8)
-    try:
-        if feed is None:
-            pipe = _DevicePipe(fn, dev, max_in_flight,
-                               lambda _, out: writer.append(out))
-            submit, flush = pipe.submit, pipe.flush
-        else:
-            def submit(slab, tag, cap):
-                writer.append(feed.submit(slab))
-            flush = None
-        nslabs = -(-meta.shape[0] // slab_size)
-        for slab in _progress(_prefetched(slabs), nslabs, "slab", progress):
-            submit(slab, None, cap=slab_size)
-        if flush is not None:
-            flush()
-    except BaseException:
-        # release the output file; its "volume incomplete" refusal would
-        # hide the error that stopped the stream
-        with contextlib.suppress(ValueError):
-            writer.close()
-        raise
+    with open_volume_reader(source, var_name=var_name) as reader:
+        meta = reader.meta
+        writer = open_volume_writer(output, meta.shape, np.uint8)
+        slabs = _read_ahead(reader, slab_size)
+        try:
+            if feed is None:
+                pipe = _DevicePipe(fn, dev, max_in_flight,
+                                   lambda _, out: writer.append(out))
+                submit, flush = pipe.submit, pipe.flush
+            else:
+                def submit(slab, tag, cap):
+                    writer.append(feed.submit(slab))
+                flush = None
+            nslabs = -(-meta.shape[0] // slab_size)
+            for slab in _progress(slabs, nslabs, "slab", progress):
+                submit(slab, None, cap=slab_size)
+            if flush is not None:
+                flush()
+        except BaseException:
+            # release the output file; its "volume incomplete" refusal
+            # would hide the error that stopped the stream
+            with contextlib.suppress(ValueError):
+                writer.close()
+            raise
+        finally:
+            slabs.close()  # stops the reader before its file closes
     writer.close()
     return meta
 

@@ -229,6 +229,27 @@ def test_orbax_checkpoint_converts_and_runs_in_both_chains(tmp_path, arch,
     assert np.abs(got - want).max() <= BF16_BOUND
 
 
+def test_learned_stage_keeps_one_model_per_device(tmp_path):
+    """One learned_denoise stage called on the CPU, on the meta device and
+    on the CPU again: each device runs its own copy of the model, so the
+    meta call gives a meta tensor of the batch's shape and the two CPU
+    results are bit-equal to each other and to a stage built fresh."""
+    from mies_tpu_torch.pipeline.compiler import OP_REGISTRY
+
+    save_denoiser(tmp_path / "ck", init_params(3, 8, 3), 8, 3)
+    build = OP_REGISTRY["learned_denoise"]
+    stage = build(checkpoint=str(tmp_path / "ck"))
+    x = torch.from_numpy(
+        np.random.default_rng(4).random((2, 24, 20), dtype=np.float32))
+    first = stage(x)
+    on_meta = stage(x.to("meta"))
+    assert on_meta.device.type == "meta" and on_meta.shape == x.shape
+    again = stage(x)
+    assert again.device.type == "cpu"
+    assert torch.equal(first, again)
+    assert torch.equal(again, build(checkpoint=str(tmp_path / "ck"))(x))
+
+
 def test_learned_denoise_is_registered_with_its_value_rule(tmp_path):
     from mies_tpu_torch.pipeline.compiler import OP_REGISTRY, STAGE_BUILDERS
     from mies_tpu_torch.pipeline.config import load_config
