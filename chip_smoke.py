@@ -217,6 +217,17 @@ Phases, one printed line each (or a few):
                files and enhance_volume_stream(mesh=) on a seeded 512^3
                int16 .nc (w5) at NCCL world 1, equal to the runs without a
                mesh, files/s and z-slices/s beside them.
+ 12. device timers — runner.time_pipeline_device and
+               time_latency_device: the chain ``inner`` times in one CUDA
+               graph, timed by its replays. BASELINE w2, w3 (b8 1024^2),
+               w4 (b64 int16), w5 (also b8 1024^2, where K1's tiles
+               split), w7, w8, w9 and the skimage config at inner 8, w1
+               and latency_config at b1 and inner 64: two replays
+               bit-equal to the eager loop,
+               exactly the path's hand kernels recorded at capture; the
+               graph figure of two calls beside the event-timed
+               time_pipeline / time_latency figure, the busy share, the
+               graph pool's peak and the card, one line a chain.
 The line before the last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failed check raises (exit code != 0);
 without a CUDA device the script exits 1 before printing any result.
@@ -2303,6 +2314,139 @@ def _serving_phase(dev: torch.device, card: str, repo: Path) -> dict:
     return counts
 
 
+def _device_timers_phase(dev: torch.device, card: str, repo: Path) -> None:
+    """Phase 12: the device-resident timers (runner.time_pipeline_device,
+    time_latency_device: ``inner`` chained iterations of the chain in one
+    CUDA graph, timed by its replays). BASELINE w2, w3 (b8 1024^2), w4
+    (b64 int16), w5, w7, w8 and w9 at benchmarks/workloads.py's shapes and
+    batches with inner 8, w5 also at b8 1024^2 (K1's tiles of 128^2 split
+    over blocks: the arrival counters reset inside the captured work),
+    configs/xray_adapthist_skimage.yaml at b32 512^2 (K1 bins, K6a, K6,
+    K4), and w1 (b1) and presets.latency_config at inner 64 through the
+    one-slice program. For each: two replays of the captured loop each
+    bit-equal to the eager body run ``inner`` times from the same input,
+    exactly the hand kernels of its path recorded at capture (a multiple
+    of inner of each); then the graph figure from two calls, the event-timed
+    time_pipeline / time_latency figure, profile_pipeline's busy share,
+    the graph pool's peak and the card, on one line."""
+    from mies_tpu_torch.pipeline.config import PipelineConfig, load_config
+    from mies_tpu_torch.pipeline.presets import flagship_config, latency_config
+    from mies_tpu_torch.pipeline.runner import (
+        _capture_device_loop,
+        profile_pipeline,
+        time_latency,
+        time_latency_device,
+        time_pipeline,
+        time_pipeline_device,
+    )
+
+    clahe = ("clahe", {"clip_limit": 2.0, "grid_size": GRID,
+                       "convention": "opencv"})
+    w1 = [("equalize_hist", {}), ("adjust_gamma", {"gamma": 0.8})]
+    w3 = [("unsharp_mask", {"radius": 1.5, "amount": 1.0}),
+          ("gaussian_blur", {"sigma": 1.5})]
+    w4 = [("window_hu", {"center": 40.0, "width": 400.0}),
+          ("median_blur", {"kernel_size": 3}),
+          ("bilateral_blur", {"kernel_size": 5, "sigma_color": 0.1,
+                              "sigma_space": 1.5})]
+    w5 = [(s.op, s.kwargs()) for s in flagship_config().stages]
+    w7 = [("median_blur", {"kernel_size": 3}),
+          ("top_hat", {"kernel_size": 7, "shape": "ellipse"}),
+          ("rescale_intensity", {"out_range": (0.0, 1.0)})]
+    w8 = [("anisotropic_diffusion", {"niter": 6, "kappa": 0.05, "gamma": 0.2}),
+          ("musica", {"levels": 5, "p": 0.6, "gain": 1.5})]
+    w9 = [("srad", {"niter": 15, "dt": 0.15}), clahe]
+    lut = {"tile_luts", "clahe_apply_lut"}
+    skimage = [(s.op, s.kwargs()) for s in load_config(
+        repo / "configs" / "xray_adapthist_skimage.yaml").stages]
+    batched = (
+        ("w2", [clahe], 512, 32, np.float32, lut),
+        ("w3", w3, 1024, 8, np.float32, {"unsharp_gauss"}),
+        ("w4", w4, 512, 64, np.int16, {"bilateral"}),
+        ("w5", w5, 512, 32, np.float32, lut | {"bilateral", "unsharp_quant"}),
+        ("w5 1024^2", w5, 1024, 8, np.float32,
+         lut | {"bilateral", "unsharp_quant"}),
+        ("w7", w7, 512, 32, np.float32, set()),
+        ("w8", w8, 512, 32, np.float32, {"perona_malik"}),
+        ("w9", w9, 512, 32, np.float32, lut | {"srad"}),
+        ("skimage yaml", skimage, 512, 32, np.float32,
+         {"tile_hists_bins", "skimage_maps", "skimage_apply",
+          "unsharp_quant"}),
+    )
+    latency = (
+        ("w1", w1, set()),
+        ("latency_config", [(s.op, s.kwargs()) for s in
+                            latency_config().stages], lut | {"bilateral"}),
+    )
+
+    def check_graph(label, cfg, shape, inner, dtype, kernels):
+        """Two replays == the eager loop bit for bit, the kernels recorded
+        at capture; returns the graph pool's peak bytes and the launches
+        recorded."""
+        loop = _capture_device_loop(cfg, shape, inner, dtype, dev,
+                                    "chip_smoke phase 12")
+        loop.graph.replay()
+        first = loop.y.clone()
+        loop.graph.replay()
+        eager = loop.eager()
+        torch.cuda.synchronize()
+        _require(torch.equal(first, eager) and torch.equal(loop.y, eager),
+                 f"{label}: a graph replay differs from the eager loop")
+        _require(set(loop.launches) == kernels and all(
+            n >= inner and n % inner == 0 for n in loop.launches.values()),
+            f"{label}: captured launches {loop.launches}, want each of "
+            f"{sorted(kernels)} a multiple of {inner}")
+        return loop.peak_bytes, dict(loop.launches)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    for label, stages, size, b, dtype, kernels in batched:
+        cfg = PipelineConfig.make(stages, name=label)
+        peak, launches = check_graph(label, cfg, (b, size, size), 8, dtype,
+                                     kernels)
+        g = [time_pipeline_device(cfg, (size, size), b, inner=8, repeats=16,
+                                  dtype=dtype, device=dev) for _ in range(2)]
+        if dtype == np.int16:
+            a = rng.integers(-1000, 2000, (b, size, size), dtype=np.int16)
+        else:
+            a = rng.random((b, size, size), dtype=np.float32)
+        inp = torch.from_numpy(a).to(dev)
+        t = time_pipeline(cfg, device=dev, batch=inp)
+        prof = profile_pipeline(cfg, device=dev, batch=inp)
+        print(f"device timers {label} b{b} {size}^2 {np.dtype(dtype).name}: "
+              f"graph x8 {g[0]['slices_per_sec']:.1f}, "
+              f"{g[1]['slices_per_sec']:.1f} slices/s "
+              f"({g[0]['ms_per_batch']:.4f}, {g[1]['ms_per_batch']:.4f} "
+              f"ms/batch) | event-timed {t['slices_per_sec']:.1f} slices/s "
+              f"({t['ms_per_batch']:.4f} ms/batch) | graph/event "
+              f"{g[0]['slices_per_sec'] / t['slices_per_sec']:.2f}x | busy "
+              f"{prof['busy_share']:.1%} (device "
+              f"{prof['device_ms_per_call']:.4f} ms/call) | graph pool peak "
+              f"{peak / 2**20:.1f} MiB | captured {launches} | 2 replays == "
+              f"eager x8 | {card}")
+    for label, stages, kernels in latency:
+        cfg = PipelineConfig.make(stages, name=label)
+        peak, launches = check_graph(label, cfg, (SIZE, SIZE), 64,
+                                     np.float32, kernels)
+        g = [time_latency_device(cfg, (SIZE, SIZE), inner=64, repeats=32,
+                                 device=dev) for _ in range(2)]
+        t = time_latency(cfg, (SIZE, SIZE), device=dev)
+        img = torch.from_numpy(rng.random((1, SIZE, SIZE), dtype=np.float32)
+                               ).to(dev)
+        prof = profile_pipeline(cfg, device=dev, batch=img)
+        print(f"device timers {label} b1 {SIZE}^2 latency: graph x64 p50 "
+              f"{g[0]['p50_ms']:.4f}, {g[1]['p50_ms']:.4f} ms, p95 "
+              f"{g[0]['p95_ms']:.4f}, {g[1]['p95_ms']:.4f} ms | event-timed "
+              f"p50 {t['p50_ms']:.4f} ms, p95 {t['p95_ms']:.4f} ms | "
+              f"event/graph {t['p50_ms'] / g[0]['p50_ms']:.2f}x | busy "
+              f"{prof['busy_share']:.1%} (device "
+              f"{prof['device_ms_per_call']:.4f} ms/call) | graph pool peak "
+              f"{peak / 2**20:.1f} MiB | captured {launches} | 2 replays == "
+              f"eager x64 | {card}")
+    print(f"device timers: {len(batched) + len(latency)} chains captured, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     # -- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3637,6 +3781,9 @@ def main() -> int:
     # K1 to the LUTs, K2, K3 and K4 launch once a served flagship request
     p11 = _serving_phase(dev, card, repo)
     launches = {k: launches[k] + p11[k] for k in launches}
+
+    # -- 12. the device-resident timers (CUDA graphs) ---------------------
+    _device_timers_phase(dev, card, repo)
 
     # name, record, counter, the run whose launches count, source, TPU kernel
     sources = (

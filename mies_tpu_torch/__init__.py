@@ -41,6 +41,8 @@ runs the plain PyTorch versions.
 
 import torch
 
+__version__ = "0.1.0"  # the reference's
+
 # float32 stays float32 on the card: no TF32 in cuBLAS or cuDNN (the
 # reference's ops run at full f32 precision; cuFFT has no TF32 mode)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -53,4 +55,5 @@ from mies_tpu_torch.pipeline.config import (  # noqa: E402
     load_config,
 )
 
-__all__ = ["PipelineConfig", "StageConfig", "load_config", "compile_pipeline"]
+__all__ = ["PipelineConfig", "StageConfig", "load_config", "compile_pipeline",
+           "__version__"]

@@ -18,3 +18,10 @@ from mies_tpu_torch.kernels import (  # noqa: F401 (registers the mies ops)
     tv,
     unsharp_gauss,
 )
+from mies_tpu_torch.kernels.bilateral import bilateral_batched
+from mies_tpu_torch.kernels.clahe import clahe_apply_lut, clahe_batched
+
+# the reference's names; its clahe_tpu / bilateral_tpu (and their
+# *_supported) are the TPU's own entry points: here the batched wrappers
+# launch the card's kernels
+__all__ = ["bilateral_batched", "clahe_apply_lut", "clahe_batched"]

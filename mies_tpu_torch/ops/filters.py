@@ -304,14 +304,37 @@ def bilateral_blur(
     weight(p, q) = exp(-(|p-q|^2) / (2 sigma_space^2))
                  * exp(-(I(p)-I(q))^2 / (2 sigma_color^2))
     out(p) = sum_q w * I(q) / sum_q w   over the odd square window,
-    summed in row-major window order.
+    summed in row-major window order: the self-guided
+    ``joint_bilateral_blur``.
     """
+    return joint_bilateral_blur(img, img, kernel_size, sigma_color,
+                                sigma_space, mode)
+
+
+def joint_bilateral_blur(
+    img: torch.Tensor,
+    guide: torch.Tensor,
+    kernel_size: int = 5,
+    sigma_color: float = 0.1,
+    sigma_space: float = 1.5,
+    mode: str = "reflect",
+) -> torch.Tensor:
+    """Joint (cross) bilateral filter, kornia.filters.joint_bilateral_blur
+    semantics: the range weights come from ``guide``, the values from
+    ``img`` (of the same shape), summed in row-major window order. With
+    ``guide is img`` it is ``bilateral_blur`` bit for bit. A library
+    function: a chain's stage has no second input."""
     if kernel_size % 2 != 1:
         raise ValueError("kernel_size must be odd")
+    if guide.shape != img.shape:
+        raise ValueError(
+            f"guide shape {tuple(guide.shape)} != image shape "
+            f"{tuple(img.shape)}")
     r = kernel_size // 2
     spatial = spatial_weights(kernel_size, sigma_space)
     h, w = img.shape[-2:]
     p = _pad2d(img, r, r, mode)
+    g = p if guide is img else _pad2d(guide, r, r, mode)
     # a tensor divisor: CUDA torch turns division by a Python scalar into
     # a multiply by its reciprocal, which is not the reference's division
     two_sc2 = img.new_full((), 2.0 * float(sigma_color) ** 2)
@@ -319,7 +342,7 @@ def bilateral_blur(
     for i in range(kernel_size * kernel_size):
         oy, ox = divmod(i, kernel_size)
         q = p[..., oy : oy + h, ox : ox + w]
-        d = q - img
+        d = g[..., oy : oy + h, ox : ox + w] - guide
         wgt = torch.exp(-(d * d) / two_sc2) * float(spatial[i])
         num = wgt * q if num is None else num + wgt * q
         den = wgt if den is None else den + wgt

@@ -29,6 +29,7 @@ multiply by the reciprocal.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -78,9 +79,19 @@ def _pad_reflect(img: torch.Tensor, rows: tuple[int, int],
     ``F.pad`` refuses pads longer than the dim."""
     for dim, pads in ((-2, rows), (-1, cols)):
         if any(pads):
-            idx = np.pad(np.arange(img.shape[dim]), pads, mode="reflect")
-            img = img.index_select(dim, torch.as_tensor(idx, device=img.device))
+            img = img.index_select(
+                dim, _reflect_index(img.shape[dim], *pads, img.device))
     return img
+
+
+@functools.lru_cache(maxsize=256)
+def _reflect_index(n: int, before: int, after: int,
+                   device: torch.device) -> torch.Tensor:
+    """The np.pad 'reflect' source index of an axis of n, on ``device``
+    (kept: one blocking host-to-device copy per shape, not one per call,
+    and none inside a CUDA-graph capture)."""
+    idx = np.pad(np.arange(n), (before, after), mode="reflect")
+    return torch.as_tensor(idx, device=device)
 
 
 def grid_pads(shape: tuple[int, int], grid: tuple[int, int],

@@ -158,6 +158,41 @@ def sharpness(img: torch.Tensor, factor: float = 1.0) -> torch.Tensor:
     return torch.clamp(smoothed + factor * (img - smoothed), 0.0, 1.0)
 
 
+def is_low_contrast(
+    img: torch.Tensor,
+    fraction_threshold: float = 0.05,
+    lower_percentile: float = 1.0,
+    upper_percentile: float = 99.0,
+) -> torch.Tensor:
+    """skimage.exposure.is_low_contrast for float [0, 1] images: the span
+    between the lower and upper percentiles of the whole input (float32,
+    ``jnp.percentile``'s linear interpolation) is below
+    ``fraction_threshold`` of the [0, 1] range. A 0-d bool tensor on the
+    input's device, with no host read."""
+    flat = img.to(torch.float32).reshape(-1)
+    lo = _percentile(flat, lower_percentile)
+    hi = _percentile(flat, upper_percentile)
+    return (hi - lo) < fraction_threshold
+
+
+def _percentile(flat: torch.Tensor, p: float) -> torch.Tensor:
+    """``jnp.percentile(flat, p)`` (linear): the float32 position
+    ``p / 100 * (n - 1)`` is computed on the host from the size alone,
+    its two order statistics by ``torch.kthvalue``, which takes any size
+    (``torch.quantile`` refuses more than 2**24 elements)."""
+    n = flat.numel()
+    pos = np.float32(p) / np.float32(100.0) * (np.float32(n) - np.float32(1))
+    low, high = np.floor(pos), np.ceil(pos)
+    w_high = np.float32(pos - low)
+    w_low = np.float32(1) - w_high
+    i_low = int(min(max(low, 0), n - 1))
+    i_high = int(min(max(high, 0), n - 1))
+    v_low = torch.kthvalue(flat, i_low + 1).values
+    v_high = (v_low if i_high == i_low
+              else torch.kthvalue(flat, i_high + 1).values)
+    return v_low * float(w_low) + v_high * float(w_high)
+
+
 def window_hu(
     hu: torch.Tensor,
     center: float | None = None,

@@ -422,20 +422,25 @@ def _try_fuse_unsharp_gauss(a, b):
     )
 
 
-def _bind_stages(stages) -> list[Callable]:
-    """The stages' batched fns, adjacent pairs the pairwise peephole fuses
-    bound as one."""
+def _bind_named_stages(stages) -> list[tuple[str, Callable]]:
+    """(op name, batched fn) of each stage, adjacent pairs the pairwise
+    peephole fuses bound as one ("unsharp_mask+gaussian_blur")."""
     bound, i = [], 0
     while i < len(stages):
         if i + 1 < len(stages):
             fused = _try_fuse_unsharp_gauss(stages[i], stages[i + 1])
             if fused is not None:
-                bound.append(fused)
+                bound.append((f"{stages[i].op}+{stages[i + 1].op}", fused))
                 i += 2
                 continue
-        bound.append(_bind_batched_stage(stages[i]))
+        bound.append((stages[i].op, _bind_batched_stage(stages[i])))
         i += 1
     return bound
+
+
+def _bind_stages(stages) -> list[Callable]:
+    """The batched fns of ``_bind_named_stages``."""
+    return [fn for _, fn in _bind_named_stages(stages)]
 
 
 def resolve_device(device) -> torch.device:
@@ -480,15 +485,18 @@ def build_batched_chain(
         stages, fused_tail = _try_fuse_tail(cfg, bool(quantize), dev)
         if fused_tail is None:
             stages, fused_tail = _try_fuse_unsharp_quant(cfg, bool(quantize))
-    bound = _bind_stages(stages)
+    bound = _bind_named_stages(stages)
+    if fused_tail is not None:
+        bound.append(("+".join(s.op for s in cfg.stages[len(stages):]),
+                      fused_tail))
 
     def chain(batch: torch.Tensor) -> torch.Tensor:
         x = _ingest(_to_device(batch, dev))
-        for fn in bound:
+        # `stage` is the running op's name, which the device timers read
+        # from this frame when a stage cannot be captured (runner.py)
+        for stage, fn in bound:
             x = fn(x)
-        if fused_tail is not None:
-            return fused_tail(x)
-        return _quantize_u8(x) if quantize else x
+        return _quantize_u8(x) if quantize and fused_tail is None else x
 
     return chain
 

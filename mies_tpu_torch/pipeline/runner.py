@@ -39,6 +39,10 @@ as a volume program (``compile_volume_pipeline``) on one seeded
 
     python -m mies_tpu_torch.pipeline.runner configs/ct_volume_3d.yaml --volume 256
 
+``time_pipeline_device`` and ``time_latency_device`` (the reference's
+``fori_loop`` timers) time the chain ``inner`` times in one CUDA graph,
+without the host's per-call dispatch.
+
 A measurement needs a CUDA device: asked for any other device, or run
 where there is no card, these raise instead of timing the CPU.
 """
@@ -47,10 +51,12 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import queue
 import sys
 import threading
+import traceback
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -60,7 +66,9 @@ import numpy as np
 import torch
 
 from mies_tpu_torch.io.image import load_image, save_image
+from mies_tpu_torch.kernels import _build
 from mies_tpu_torch.pipeline.compiler import (
+    build_batched_chain,
     compile_pipeline,
     compile_volume_pipeline,
     resolve_device,
@@ -798,6 +806,230 @@ def time_latency(
         "shape": list(shape),
         "program": "single-slice",
         "device": torch.cuda.get_device_name(dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Device-resident timers: the chain ``inner`` times in one CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def requantize_hu(y: torch.Tensor) -> torch.Tensor:
+    """The int16 loop's carry: a float [0, 1] batch back to full-range
+    Hounsfield units, ``round(y * 3000 - 1000)`` half to even (as
+    ``jnp.round``)."""
+    return torch.round(y * 3000.0 - 1000.0).to(torch.int16)
+
+
+def _device_loop_body(cfg: PipelineConfig, dtype, dev) -> Callable:
+    """One iteration of the device timers' loop on a float32 [B, H, W]
+    carry: the batched chain, for int16 ingest run from ``requantize_hu``
+    of the carry (so its ``window_hu`` ingest is timed too).
+
+    The chain is ``build_batched_chain(cfg, quantize=False)``: the same
+    float values as the reference's ``quantize=None`` loop (K4's float
+    epilogue is bit-equal to the plain unsharp_mask), with a trailing
+    unsharp_mask on K4 as in the chain that ``compile_pipeline`` serves.
+    """
+    np_dtype = np.dtype(dtype)
+    if np_dtype not in (np.dtype(np.float32), np.dtype(np.int16)):
+        raise ValueError(
+            f"the device timers support float32 and int16 ingest, got "
+            f"{np_dtype}")
+    chain = build_batched_chain(cfg, quantize=False, device=dev)
+    if np_dtype == np.int16:
+        return lambda y: chain(requantize_hu(y))
+    return chain
+
+
+def _check_carry(cfg: PipelineConfig, dtype, shape, timer: str) -> None:
+    """Refuse a chain whose output cannot be the next iteration's input
+    (float32 of the input's [H, W]), with the config named. Probed on one
+    CPU slice of the real extent (the plain chain), before any device
+    work: a chain that resizes to that very extent passes, as under the
+    reference's ``jax.eval_shape``."""
+    probe = torch.zeros((1, *shape[-2:]), dtype=torch.float32)
+    with torch.no_grad():
+        out = _device_loop_body(cfg, dtype, torch.device("cpu"))(probe)
+    if tuple(out.shape) != tuple(probe.shape) or out.dtype != torch.float32:
+        raise ValueError(
+            f"{timer} needs a chain whose float32 output keeps the input's "
+            f"extent (the graph's carry): {cfg.name!r} maps "
+            f"{list(probe.shape)}/float32 -> {list(out.shape)}/{out.dtype}")
+
+
+def _stage_at_fault(exc: BaseException) -> str | None:
+    """The stage a chain was running when ``exc`` was raised: the
+    ``stage`` local of the chain's frame in its traceback, or in the
+    traceback of the exception it was raised while handling."""
+    while exc is not None:
+        stage = None
+        for frame, _ in traceback.walk_tb(exc.__traceback__):
+            if frame.f_code.co_qualname == "build_batched_chain.<locals>.chain":
+                stage = frame.f_locals.get("stage", stage)
+        if stage is not None:
+            return stage
+        exc = exc.__cause__ or exc.__context__
+    return None
+
+
+@dataclasses.dataclass
+class _DeviceLoop:
+    """``inner`` chained iterations of ``body`` from the static input
+    ``x`` captured as one CUDA graph, whose replay writes ``y``.
+    ``launches`` counts the hand kernels recorded by the capture (all
+    ``inner`` iterations; a replay counts nothing) and ``peak_bytes`` the
+    device memory the capture allocated at its peak (the graph's pool)."""
+
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    y: torch.Tensor
+    body: Callable
+    inner: int
+    launches: dict
+    peak_bytes: int
+    device_name: str
+
+    def eager(self) -> torch.Tensor:
+        """The same ``inner`` iterations run eagerly from ``x``."""
+        y = self.x
+        for _ in range(self.inner):
+            y = self.body(y)
+        return y
+
+    def replay_ms(self, repeats: int) -> list[float]:
+        """Device ms per iteration of ``repeats`` replays, each between
+        two CUDA events (after one replay not timed)."""
+        samples = []
+        with torch.cuda.device(self.x.device):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            self.graph.replay()
+            for _ in range(repeats):
+                start.record()
+                self.graph.replay()
+                end.record()
+                end.synchronize()
+                samples.append(start.elapsed_time(end) / self.inner)
+        return samples
+
+
+def _capture_device_loop(cfg: PipelineConfig, shape: tuple, inner: int,
+                         dtype, device, timer: str) -> _DeviceLoop:
+    """The device timers' program: the loop body on ``shape`` ([B, H, W],
+    or [H, W] for the single-slice chain) warmed up 3 times eagerly on a
+    side stream (every cached pad, table and kernel handle is then built:
+    a cache miss under capture would copy from pageable host memory, which
+    capture refuses), then ``inner`` chained iterations captured as one
+    CUDA graph. The input is the reference's ``default_rng(0)`` draw."""
+    dev = _cuda_device(device)
+    _check_carry(cfg, dtype, shape, timer)
+    bbody = _device_loop_body(cfg, dtype, dev)
+    body = bbody if len(shape) == 3 else (lambda img: bbody(img[None])[0])
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        shape, dtype=np.float32)).to(dev)
+    with torch.cuda.device(dev), torch.no_grad():
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            y = x
+            for _ in range(3):
+                y = body(y)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        del y
+        graph = torch.cuda.CUDAGraph()
+        before = dict(_build.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        try:
+            with torch.cuda.graph(graph):
+                y = x
+                for _ in range(inner):
+                    y = body(y)
+        except Exception as e:  # noqa: BLE001 - re-raised with its stage
+            stage = _stage_at_fault(e)
+            where = f"stage {stage!r}" if stage else "the chain"
+            raise RuntimeError(
+                f"{timer}: {where} of {cfg.name!r} cannot be captured in a "
+                f"CUDA graph ({type(e).__name__}: "
+                f"{str(e).splitlines()[0] if str(e) else ''})") from e
+        peak = torch.cuda.max_memory_allocated(dev) - base
+    launches = {k: n - before[k] for k, n in _build.LAUNCHES.items()
+                if n > before[k]}
+    return _DeviceLoop(graph, x, y, body, inner, launches, peak,
+                       torch.cuda.get_device_name(dev))
+
+
+def time_pipeline_device(
+    cfg: PipelineConfig,
+    shape: tuple[int, int] = (512, 512),
+    batch_size: int = 32,
+    inner: int = 16,
+    repeats: int = 16,
+    dtype=np.float32,
+    device="cuda",
+) -> dict:
+    """Device batched throughput: ``inner`` chained iterations of the
+    batched chain (each feeding the next) captured as ONE CUDA graph,
+    timed over ``repeats`` replays between CUDA events, per iteration;
+    the median. A replay is one launch, so the host's per-call dispatch,
+    which the event-timed ``time_pipeline`` counts whenever the host
+    leaves the card waiting, is not in this figure.
+
+    The carry is the chain's float [0, 1] output; with
+    ``dtype=np.int16`` each iteration first re-quantizes it to int16 HU
+    (``requantize_hu``) and runs the whole chain from its ``window_hu``.
+    Raises RuntimeError on any device but a CUDA one, ValueError (naming
+    the config) for a chain whose output is not float32 of the input's
+    extent, checked before any device work, and RuntimeError naming the
+    stage for a chain that cannot be captured (a host read inside a
+    stage, such as Canny's or TV 3-D's ``.item()``): it never times the
+    eager loop instead. ``captured_launches`` counts the hand kernels at
+    capture, for all ``inner`` iterations; ``graph_peak_bytes`` is the
+    device memory the capture held at its peak."""
+    loop = _capture_device_loop(cfg, (batch_size, *shape), inner, dtype,
+                                device, "time_pipeline_device")
+    samples = sorted(loop.replay_ms(repeats))
+    per_batch = samples[len(samples) // 2]
+    return {
+        "slices_per_sec": batch_size / (per_batch / 1000.0),
+        "p50_ms_per_slice": per_batch / batch_size,
+        "ms_per_batch": per_batch,
+        "batch_size": batch_size,
+        "shape": list(shape),
+        "inner": inner,
+        "program": f"cuda graph x{inner} (no per-call dispatch)",
+        "captured_launches": loop.launches,
+        "graph_peak_bytes": loop.peak_bytes,
+        "device": loop.device_name,
+    }
+
+
+def time_latency_device(
+    cfg: PipelineConfig,
+    shape: tuple[int, int] = (512, 512),
+    inner: int = 64,
+    repeats: int = 32,
+    device="cuda",
+) -> dict:
+    """Device single-slice latency: ``inner`` chained iterations of the
+    one-slice chain (``build_chain``'s [H, W] -> [H, W], float32 ingest)
+    in ONE CUDA graph, ``repeats`` replays between CUDA events; p50/p95
+    of the per-iteration ms. Against ``time_latency``'s p95 it tells the
+    card's jitter from the host's. Refuses what ``time_pipeline_device``
+    refuses, and counts the same way."""
+    loop = _capture_device_loop(cfg, tuple(shape), inner, np.float32,
+                                device, "time_latency_device")
+    samples = loop.replay_ms(repeats)
+    return {
+        **_percentiles_ms(samples),
+        "inner": inner,
+        "shape": list(shape),
+        "program": f"cuda graph x{inner} (no per-call dispatch)",
+        "captured_launches": loop.launches,
+        "graph_peak_bytes": loop.peak_bytes,
+        "device": loop.device_name,
     }
 
 
